@@ -1,0 +1,259 @@
+"""Transcription inference engine (port of mr_mt3_tpu/infer/handler.py,
+vanilla non-contiguous path).
+
+Audio -> segments -> log-mel -> encoder -> greedy decode -> tokens ->
+NoteSequence -> MIDI, as the reference InferenceHandler (reference:
+inference.py:20-234). The frontend, encoder and decode run on the
+handler's device ('cuda' unless device='cpu' is passed); framing,
+postprocess, NoteSequence assembly and MIDI writing are host numpy code,
+identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import traceback
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from mr_mt3_tpu_torch.audio import (
+    SpectrogramConfig,
+    compute_logmel,
+    normalize_logmel,
+)
+from mr_mt3_tpu_torch.codec import (
+    DECODED_EOS_ID,
+    VocabularyConfig,
+    build_codec,
+    vocabulary_from_codec,
+)
+from mr_mt3_tpu_torch.codec import note_sequences
+from mr_mt3_tpu_torch.codec.combine import event_predictions_to_ns
+from mr_mt3_tpu_torch.midi import note_sequence_to_midi_file
+from mr_mt3_tpu_torch.models import MT3
+from mr_mt3_tpu_torch.ops.decode import check_quantize, greedy_decode
+from mr_mt3_tpu_torch.utils.device import resolve_device
+
+
+class InferenceHandler:
+    """Audio -> MIDI transcription.
+
+    Args:
+      model: a vanilla MT3 (port) with its weights loaded; it is moved to
+        the handler's device.
+      weight_path: alternatively, a reference-format torch checkpoint to
+        load into a default-config MT3 (reference: inference.py:31-42).
+      mel_norm: clamp/scale log-mel to [0,1]; off for the official
+        checkpoint (reference: test.py:123).
+      filterbank_style: 'torch' for in-repo models, 'tf' for the official
+        checkpoint.
+      quantize: 'none' (exact) or 'fused_bf16' (the CUDA window kernel).
+      device: None or 'cuda' (raises without a card) or 'cpu'.
+    contiguous_inference, segmem models and a mesh are not yet ported.
+    """
+
+    def __init__(self,
+                 model: Optional[MT3] = None,
+                 weight_path: Optional[str] = None,
+                 mel_norm: bool = True,
+                 contiguous_inference: bool = False,
+                 filterbank_style: str = 'torch',
+                 batch_size: int = 8,
+                 max_length: int = 1024,
+                 quantize: str = 'none',
+                 mesh=None,
+                 device=None):
+        self.device = resolve_device(device)
+        if contiguous_inference:
+            raise NotImplementedError(
+                'contiguous_inference=True not yet ported')
+        if mesh is not None:
+            raise NotImplementedError('multi-device mesh not yet ported')
+        check_quantize(quantize)
+        if model is None:
+            if weight_path is None:
+                raise ValueError('need model or weight_path')
+            from mr_mt3_tpu_torch.models import MT3Config
+            from mr_mt3_tpu_torch.utils.builders import load_weights
+            model = load_weights(weight_path, MT3(MT3Config()))
+        if model.cfg.has_segmem:
+            raise NotImplementedError(
+                f'segmem_variant={model.cfg.segmem_variant!r} not yet ported')
+        self.model = model.to(self.device).eval()
+        self.cfg = model.cfg
+        self.mel_norm = mel_norm
+        self.batch_size = batch_size
+        self.max_length = max_length
+        self.quantize = quantize
+        self.spectrogram_config = SpectrogramConfig(
+            filterbank_style=filterbank_style)
+        self.codec = build_codec(VocabularyConfig(num_velocity_bins=1))
+        self.vocab = vocabulary_from_codec(self.codec)
+        self.mel_length = 256
+        self._dp = None
+
+    # ---- host-side preprocessing (reference: inference.py:64-127) ----
+
+    def _audio_to_segments(self, audio: np.ndarray):
+        """Frame and split audio into zero-padded (N, mel_length*hop) chunks.
+
+        Returns (segment_samples (N, 32768), frame_times (N, 256),
+        valid_frames per segment)."""
+        hop = self.spectrogram_config.hop_width
+        pad = hop - len(audio) % hop
+        audio = np.pad(audio, (0, pad))
+        num_frames = len(audio) // hop
+        times = np.arange(num_frames) / self.spectrogram_config.frames_per_second
+        seg_frames = self.mel_length
+        num_segments = math.ceil(num_frames / seg_frames)
+        seg_samples = seg_frames * hop
+        segments = np.zeros((num_segments, seg_samples), dtype=np.float32)
+        seg_times = np.zeros((num_segments, seg_frames))
+        valid = []
+        for i in range(num_segments):
+            f0 = i * seg_frames
+            f1 = min(f0 + seg_frames, num_frames)
+            n = f1 - f0
+            segments[i, :n * hop] = audio[f0 * hop:f1 * hop]
+            seg_times[i, :n] = times[f0:f1]
+            valid.append(n)
+        return segments, seg_times, valid
+
+    @torch.no_grad()
+    def _compute_mel(self, segments: np.ndarray, valid: List[int]
+                     ) -> torch.Tensor:
+        """Segments -> log-mel (N, 256, mel_bins) on the handler's device;
+        frames past each segment's valid count are zeroed (reference:
+        inference.py:125-127)."""
+        x = torch.as_tensor(np.asarray(segments, np.float32),
+                            device=self.device)
+        mel = compute_logmel(x, self.spectrogram_config)
+        if self.mel_norm:
+            mel = normalize_logmel(mel)
+        frames = torch.arange(mel.shape[1], device=self.device)
+        n_valid = torch.as_tensor(np.asarray(valid, np.int64),
+                                  device=self.device)
+        keep = frames[None, :, None] < n_valid[:, None, None]
+        return torch.where(keep, mel, torch.zeros_like(mel))
+
+    # ---- device-side decode ----
+
+    def _decode_params(self):
+        if self._dp is None:
+            from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+            self._dp = stack_decode_params(self.model, quantize=self.quantize)
+        return self._dp
+
+    def _decode_all(self, mel) -> np.ndarray:
+        """mel (N, 256, mel_bins) -> model-space tokens (N, max_length + 1).
+
+        Segments decode in fixed batches of batch_size rows (capped at the
+        fused kernel's per-launch limit); the padding rows of the last
+        batch start finished."""
+        mel = torch.as_tensor(mel, device=self.device)
+        n = mel.shape[0]
+        b = self.batch_size
+        if self.quantize.startswith('fused'):
+            from mr_mt3_tpu_torch.ops.fused_decode import FUSED_MAX_BATCH
+            b = min(b, FUSED_MAX_BATCH)
+        dp = self._decode_params()
+        outs = []
+        for start in range(0, n, b):
+            chunk = mel[start:start + b]
+            real = chunk.shape[0]
+            if real < b:
+                chunk = torch.nn.functional.pad(chunk,
+                                                (0, 0, 0, 0, 0, b - real))
+            mask = torch.arange(b, device=self.device) < real
+            tokens = greedy_decode(self.model, chunk, self.max_length,
+                                   quantize=self.quantize, valid_mask=mask,
+                                   dp=dp)
+            outs.append(tokens.cpu().numpy())
+        return np.concatenate(outs)[:n]
+
+    # ---- host-side postprocess (reference: inference.py:206-234) ----
+
+    def _postprocess(self, tokens: np.ndarray) -> np.ndarray:
+        """Model tokens -> codec tokens: EOS-and-after -> -1, strip the
+        special offset, drop the start token."""
+        after_eos = np.cumsum(tokens == self.cfg.eos_token_id, axis=-1)
+        out = tokens - self.vocab.num_special_tokens()
+        out = np.where(after_eos > 0, DECODED_EOS_ID, out)
+        return out[:, 1:]
+
+    def _to_note_sequence(self, tokens: np.ndarray, seg_times: np.ndarray):
+        predictions = []
+        for i, row in enumerate(tokens):
+            # trim at the first EOS marker; np.argmax semantics match the
+            # reference (no EOS -> argmax 0 -> empty tokens)
+            row = row[:np.argmax(row == DECODED_EOS_ID)]
+            start_time = seg_times[i][0]
+            start_time -= start_time % (1 / self.codec.steps_per_second)
+            predictions.append({
+                'est_tokens': row,
+                'start_time': start_time,
+                'raw_inputs': [],
+            })
+        result = event_predictions_to_ns(
+            predictions, codec=self.codec,
+            encoding_spec=note_sequences.NoteEncodingWithTiesSpec)
+        return result['est_ns']
+
+    # ---- public API ----
+
+    def transcribe(self, audio: np.ndarray) -> note_sequences.NoteSequence:
+        """16 kHz mono audio -> NoteSequence."""
+        segments, seg_times, valid = self._audio_to_segments(
+            np.asarray(audio, dtype=np.float32))
+        mel = self._compute_mel(segments, valid)
+        tokens = self._decode_all(mel)
+        codec_tokens = self._postprocess(tokens)
+        return self._to_note_sequence(codec_tokens, seg_times)
+
+    def transcribe_many(self, audios) -> list:
+        """Transcribe several songs: all songs' segments are concatenated
+        into fixed decode batches. Outputs equal per-song transcribe()."""
+        pre = [self._audio_to_segments(np.asarray(a, dtype=np.float32))
+               for a in audios]
+        mels = [self._compute_mel(segments, valid)
+                for segments, _, valid in pre]
+        all_tokens = self._decode_all(torch.cat(mels, dim=0))
+        results, start = [], 0
+        for m, (_, seg_times, _) in zip(mels, pre):
+            tokens = all_tokens[start:start + m.shape[0]]
+            start += m.shape[0]
+            codec_tokens = self._postprocess(tokens)
+            results.append(self._to_note_sequence(codec_tokens, seg_times))
+        return results
+
+    def inference(self, audio, audio_path: str = '', outpath=None,
+                  valid_programs=None, num_beams: int = 1,
+                  batch_size: Optional[int] = None,
+                  max_length: Optional[int] = None,
+                  verbose: bool = False
+                  ) -> Optional[note_sequences.NoteSequence]:
+        """Transcribe and write a MIDI file (reference signature:
+        inference.py:149-204; errors are caught and printed the same way).
+        num_beams is accepted for API parity; decoding is greedy."""
+        if batch_size is not None:
+            self.batch_size = batch_size
+        if max_length is not None:
+            self.max_length = max_length
+        try:
+            ns = self.transcribe(audio)
+            if outpath is None:
+                filename = os.path.basename(str(audio_path)).split('.')[0]
+                outpath = f'./out/{filename}.mid'
+            parent = os.path.dirname(str(outpath))
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            if verbose:
+                print('saving', outpath)
+            note_sequence_to_midi_file(ns, outpath)
+            return ns
+        except Exception:
+            traceback.print_exc()
+            return None
