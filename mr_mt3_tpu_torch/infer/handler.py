@@ -50,10 +50,15 @@ class InferenceHandler:
         checkpoint (reference: test.py:123).
       filterbank_style: 'torch' for in-repo models, 'tf' for the official
         checkpoint.
-      quantize: 'none' (exact) or 'fused_bf16' (the CUDA window kernel).
+      quantize: 'none' (exact), or a tier of the CUDA window kernel:
+        'fused_bf16', 'fused' (int8) or 'fused_int4' (the serving default
+        on the card, guarded by the probe ladder of infer/probe.py).
       device: None or 'cuda' (raises without a card) or 'cpu'.
-    contiguous_inference, segmem models and a mesh are not yet ported.
+    contiguous_inference, segmem models, a mesh and the 'int8' / 'int8_kv'
+    tiers are not yet ported.
     """
+
+    SAMPLE_RATE = 16000
 
     def __init__(self,
                  model: Optional[MT3] = None,
@@ -93,6 +98,13 @@ class InferenceHandler:
         self.codec = build_codec(VocabularyConfig(num_velocity_bins=1))
         self.vocab = vocabulary_from_codec(self.codec)
         self.mel_length = 256
+        self._dp = None
+
+    def _invalidate_compiled(self):
+        """Drop the decode parameters stacked and packed for the current
+        tier. Called whenever the tier changes (the probe ladder, serve's
+        prewarm demotion), so a demoted handler never decodes with the
+        previous tier's packed weights."""
         self._dp = None
 
     # ---- host-side preprocessing (reference: inference.py:64-127) ----

@@ -17,7 +17,7 @@ from mr_mt3_tpu_torch.ops.fast_decode import (
     stack_decode_params,
 )
 
-PORTED_TIERS = ('none', 'fused_bf16')
+PORTED_TIERS = ('none', 'fused_bf16', 'fused', 'fused_int4')
 _JAX_TIERS = ('none', 'int8', 'int8_kv', 'fused', 'fused_bf16', 'fused_int4')
 
 
@@ -41,7 +41,12 @@ def greedy_decode(model: MT3, mel: torch.Tensor, max_length: int = 1024,
       'none'       — the exact KV-cache loop at the model's dtype;
       'fused_bf16' — the whole-decoder CUDA window kernel: bf16 weights
                      and K/V with f32 sums (its plain PyTorch version for
-                     CPU tensors).
+                     CPU tensors);
+      'fused'      — the same kernel in int8 mode: int8 weights and K/V
+                     with f32 scales, int32 attention dots;
+      'fused_int4' — int4 weights and K/V (codes in [-7, 7]); the
+                     serving default on the card.
+    'int8' and 'int8_kv' are not yet ported.
     dp: DecodeParams already stacked for this quantize tier (callers that
     decode repeatedly keep them)."""
     check_quantize(quantize)

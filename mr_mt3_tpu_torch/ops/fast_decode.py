@@ -6,9 +6,10 @@ Two loops:
     KV-cache decode in plain torch ops at the model's activation dtype. It
     launches no kernel of its own and is the yardstick the fused path is
     held against.
-  * greedy_loop_fused (quantize='fused_bf16') — drives the whole-decoder
-    window kernel (ops/fused_decode.py::fused_decode_window), FUSED_WINDOW
-    greedy steps per launch.
+  * greedy_loop_fused (quantize='fused_bf16', 'fused' or 'fused_int4') —
+    drives the whole-decoder window kernel
+    (ops/fused_decode.py::fused_decode_window), FUSED_WINDOW greedy steps
+    per launch, in the tier's mode (bf16, int8 or int4 weights and K/V).
 
 Both return tokens (B, max_length + 1) with a leading start token;
 finished rows emit pad and EOS finishes a row; rows that valid_mask marks
@@ -23,6 +24,7 @@ import torch
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
+from mr_mt3_tpu_torch.ops.fused_decode import FUSED_TIERS
 
 # the exact loop reads the finished flags back to the host (a device sync)
 # once every this many steps to stop early
@@ -36,7 +38,7 @@ class DecodeParams(NamedTuple):
     final_norm: torch.Tensor         # (D,) f32
     lm_head: torch.Tensor            # (D, vocab)
     pos_table: torch.Tensor          # (max_positions, D)
-    fused: Any = None                # FusedParams (quantize='fused_bf16')
+    fused: Any = None                # FusedParams (the fused tiers)
 
 
 @torch.no_grad()
@@ -44,8 +46,9 @@ def stack_decode_params(model: MT3, quantize: str = 'none') -> DecodeParams:
     """Stack the decoder blocks' weights along a leading layer axis.
 
     Every tensor lands on the model's device in its activation dtype. With
-    quantize='fused_bf16' only the cross-attention K/V kernels are stacked
-    (the window kernel holds the rest in FusedParams)."""
+    a fused tier ('fused_bf16', 'fused', 'fused_int4') only the
+    cross-attention K/V kernels are stacked (the window kernel holds the
+    rest in FusedParams, packed for the tier)."""
     cfg = model.cfg
     dtype = cfg.activation_dtype
     blocks = list(model.decoder.block)
@@ -57,9 +60,9 @@ def stack_decode_params(model: MT3, quantize: str = 'none') -> DecodeParams:
     layers = {'cross_k': stack(lambda b: b.cross_attn.k),
               'cross_v': stack(lambda b: b.cross_attn.v)}
     fused = None
-    if quantize == 'fused_bf16':
+    if quantize in FUSED_TIERS:
         from mr_mt3_tpu_torch.ops.fused_decode import pack_fused_params
-        fused = pack_fused_params(model)
+        fused = pack_fused_params(model, quantize)
         lm_head = model.lm_head.weight.new_zeros((0,), dtype=dtype)
     elif quantize == 'none':
         for name, get in (('q', lambda b: b.self_attn.q),
@@ -177,7 +180,7 @@ def greedy_loop_fast(cfg: MT3Config, dp: DecodeParams,
                      valid_mask: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Greedy decode; returns tokens (B, max_length + 1)."""
-    if quantize == 'fused_bf16':
+    if quantize in FUSED_TIERS:
         return greedy_loop_fused(cfg, dp, encoder_out, max_length,
                                  valid_mask=valid_mask)
     if quantize != 'none':
@@ -207,9 +210,12 @@ def greedy_loop_fused(cfg: MT3Config, dp: DecodeParams,
 
     Each fused_decode_window call decodes t_win steps (embed -> layers ->
     lm_head -> argmax in one launch). The window length is a token rule,
-    not a memory rule: in fused_bf16 mode it decides which attention rows
-    are scored with a bf16-rounded q (rows of earlier windows) and which
-    with an f32 q (rows of the current window). The self-K/V cache is
+    not a memory rule: it decides which attention rows take the cache's
+    numerics (rows of earlier windows: a bf16-rounded q in bf16 mode,
+    int8 q and codes in the integer modes) and which the window's own
+    (rows of the current window: f32 q, bf16 rows). The tier is read from
+    dp.fused; the cross K/V and the cache take its mode. The self-K/V
+    cache is
     allocated once for the window-aligned decode budget; the kernel reads
     only rows before the window. Stops early once every row is finished,
     checked on the host once per window."""
@@ -217,6 +223,7 @@ def greedy_loop_fused(cfg: MT3Config, dp: DecodeParams,
         FUSED_MAX_BATCH,
         FUSED_WINDOW,
         fused_decode_window,
+        fused_tier,
         init_fused_cache,
         precompute_cross_kv_fused,
     )
@@ -228,7 +235,7 @@ def greedy_loop_fused(cfg: MT3Config, dp: DecodeParams,
     t_win = min(FUSED_WINDOW, max(8, -(-max_length // 8) * 8))
     ml_eff = -(-max_length // t_win) * t_win
     cross = precompute_cross_kv_fused(dp, cfg, encoder_out)
-    cache = init_fused_cache(cfg, batch, ml_eff, dev)
+    cache = init_fused_cache(cfg, batch, ml_eff, dev, fused_tier(dp.fused))
     tokens, finished = _start(cfg, batch, ml_eff, dev, valid_mask)
     for i in range(0, ml_eff, t_win):
         toks_w, finished, cache = fused_decode_window(

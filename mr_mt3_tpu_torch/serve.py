@@ -15,8 +15,13 @@ Usage:
       [--config-name=... model=...] [device=cpu]
 
 With no path, serves seeded random weights (plumbing/latency testing). The
-decode tier defaults to 'fused_bf16' (the CUDA window kernel) on the card
-and to the exact path with device=cpu; eval.quantize overrides it.
+decode tier defaults to 'fused_int4' (the CUDA window kernel in its int4
+mode) on the card, as the JAX server does on the TPU, and to the exact path
+with device=cpu; eval.quantize overrides it. Before traffic,
+prepare_handler walks the probe ladder (infer/probe.py: int4 -> int8 ->
+bf16 -> exact, demoting on a material token flip) and prewarms the
+surviving tier; on the card a failing kernel stops the server instead of
+demoting. /healthz reports the walk under "decode".
 """
 
 from __future__ import annotations
@@ -53,10 +58,10 @@ def build_handler(argv):
               '(no path= given)', file=sys.stderr)
         builders.init_params(model)
         mel_norm = True
-    default = 'fused_bf16' if device.type == 'cuda' else 'none'
-    quantize = str(cfg.eval.get('quantize') or default)
+    quantize = str(cfg.eval.get('quantize') or default_quantize(device))
     if quantize == 'auto':
-        quantize = default
+        # the serving default, guarded by prepare_handler's probe
+        quantize = default_quantize(device)
     return InferenceHandler(
         model=model, mel_norm=mel_norm,
         contiguous_inference=bool(cfg.eval.get('contiguous_inference')),
@@ -65,23 +70,104 @@ def build_handler(argv):
         quantize=quantize, device=device)
 
 
-def prepare_handler(handler):
-    """Pre-traffic work; returns an info dict for /healthz.
+def default_quantize(device) -> str:
+    """The serving tier before the probe ladder: the int4 window kernel
+    on the card (the JAX server's TPU default), the exact path on the
+    CPU (where the window kernel would run as its plain version)."""
+    return 'fused_int4' if device.type == 'cuda' else 'none'
 
-    The prewarm runs one transcribe_many on the probe audio, the path every
-    request takes, so the first request finds the kernel built and loaded.
-    (The JAX package's quantize probe ladder is not yet ported: the
-    'fused_bf16' tier is the exact numerics class and needs no probe.)"""
-    from mr_mt3_tpu_torch.infer.probe import probe_audio
-    t0 = time.monotonic()
-    handler.transcribe_many([probe_audio(2)])
-    # vanilla non-contiguous decode pads every call to one batch shape, so
-    # one song warms all traffic (the JAX server's bucket list is [1] here)
-    info = {'quantize': handler.quantize, 'prewarmed': True,
-            'prewarm_seconds': round(time.monotonic() - t0, 1),
-            'prewarm_buckets': [1]}
+
+def quantize_probe(handler, max_length=None, **kw):
+    """Decode a probe batch through the handler's quantized path AND an
+    exact twin; return (flipped_tokens, total_tokens), or, when the
+    ladder asks for classify=True, the classified dict. max_length is
+    passed by the ladder's full-length confirm (None = the short length).
+    Library home: mr_mt3_tpu_torch.infer.probe; re-exported here so tests
+    and operators can monkeypatch the serving entry point."""
+    from mr_mt3_tpu_torch.infer.probe import quantize_probe as _probe
+    if max_length is None:
+        return _probe(handler, **kw)
+    return _probe(handler, max_length=max_length, **kw)
+
+
+def prepare_handler(handler, probe: bool = True):
+    """Pre-traffic safety and latency work; returns an info dict for
+    /healthz.
+
+    1. quantize guard: with a quantized tier, the probe ladder
+       (infer/probe.resolve_auto_quantize) decodes a probe batch quantized
+       AND exact; a MATERIAL token flip (its first divergence at a logit
+       margin numeric noise cannot cross) demotes one tier ('fused_int4'
+       -> 'fused' -> 'fused_bf16' -> 'none'). Benign near-tie flips keep
+       the tier and are reported.
+    2. prewarm: one transcribe_many on the probe audio, the path every
+       request takes, so the first request finds the kernel built and
+       loaded.
+    A probe or prewarm failure demotes one tier (and re-runs the ladder)
+    only where probe.demotes_on_error allows it, the CPU; on the card, and
+    at 'none', it re-raises.
+    Only the vanilla non-contiguous prewarm is ported: its decode pads
+    every call to one batch shape, so one song warms all traffic (bucket
+    list [1]); the contiguous and chain buckets come with segment memory.
+    """
+    from mr_mt3_tpu_torch.infer import probe as probe_mod
+
+    def demote_tier(reason: str):
+        nxt = probe_mod._NEXT_TIER.get(handler.quantize, 'none')
+        print(f'WARNING: quantize={handler.quantize!r} demoted to '
+              f'{nxt!r} for serving ({reason})', file=sys.stderr)
+        info.setdefault('demotions', []).append(reason)
+        handler.quantize = nxt
+        handler._invalidate_compiled()
+        # the recorded probe counts belong to the tier just left: /healthz
+        # must not present them as evidence for the new one
+        for k in probe_mod.PROBE_INFO_KEYS:
+            info.pop(k, None)
+
+    info = {'quantize': handler.quantize, 'prewarmed': False}
+    while True:
+        if probe and handler.quantize != 'none':
+            t0 = time.monotonic()
+            before = handler.quantize
+            demoted_before = len(info.get('demotions', []))
+            probed = probe_mod.resolve_auto_quantize(
+                handler, verbose=False,
+                probe_fn=lambda h, **kw: quantize_probe(h, **kw))
+            info.setdefault('demotions', []).extend(
+                probed.pop('demotions', []))
+            info.update(probed)
+            info['probe_seconds'] = round(
+                info.get('probe_seconds', 0.0) + time.monotonic() - t0, 1)
+            if handler.quantize != before:
+                why = '; '.join(info['demotions'][demoted_before:])
+                print(f'WARNING: quantize={before!r} demoted to '
+                      f'{handler.quantize!r} for serving ({why})',
+                      file=sys.stderr)
+        t0 = time.monotonic()
+        prewarm_before = info.get('prewarm_seconds', 0.0)
+        try:
+            handler.transcribe_many([probe_mod.probe_audio(2)])
+        except Exception as e:  # noqa: BLE001
+            # treat a prewarm failure like a probe failure: demote one
+            # tier and re-run the ladder from there; at 'none' there is no
+            # further fallback. prewarm_seconds accumulates across failed
+            # attempts.
+            info['prewarm_seconds'] = round(
+                prewarm_before + time.monotonic() - t0, 1)
+            if handler.quantize == 'none' or \
+                    not probe_mod.demotes_on_error(handler):
+                raise
+            demote_tier(f'prewarm failed at full length ({e!r})')
+            continue
+        info['prewarm_seconds'] = round(
+            prewarm_before + time.monotonic() - t0, 1)
+        info['prewarmed'] = True
+        info['prewarm_buckets'] = [1]
+        break
+    info['quantize'] = handler.quantize
     print(f'serving decode path: quantize={handler.quantize!r} '
-          f'(prewarmed={info["prewarmed"]})')
+          f'(probe={info.get("probe_flips", "skipped")} flips, '
+          f'prewarmed={info["prewarmed"]})')
     return info
 
 

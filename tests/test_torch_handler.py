@@ -1,6 +1,7 @@
 """The port's InferenceHandler (device='cpu') against the frozen parity
-goldens and the JAX handler: exact and fused_bf16 tokens on the overfit
-parity model, and the host tail (postprocess -> NoteSequence -> MIDI)."""
+goldens and the JAX handler: exact and window-kernel tokens (fused_bf16,
+fused, fused_int4) on the overfit parity model, and the host tail
+(postprocess -> NoteSequence -> MIDI)."""
 
 import numpy as np
 import pytest
@@ -37,11 +38,15 @@ def _handler(model, quantize='none', **kw):
                             **kw)
 
 
-@pytest.mark.parametrize('quantize', ['none', 'fused_bf16'])
+FUSED_AND_EXACT = ['none', 'fused_bf16', 'fused', 'fused_int4']
+
+
+@pytest.mark.parametrize('quantize', FUSED_AND_EXACT)
 def test_tokens_equal_the_goldens(golden, quantize):
-    """Both corpus songs, max_length 1024: the exact path, and the
-    fused_bf16 window (its plain version on the CPU), reproduce the golden
-    token streams exactly."""
+    """Both corpus songs, max_length 1024: the exact path, and the window
+    in each of its tiers (its plain version on the CPU), reproduce the
+    golden token streams exactly (the JAX package pins zero flips for the
+    integer tiers on this model too)."""
     _, meta, model = golden
     handler = _handler(model, quantize)
     for audio, want in zip(parity_corpus()[0], meta['tokens']):
@@ -113,8 +118,7 @@ def test_transcribe_many_equals_per_song(golden, tmp_path):
     assert ns is not None and out.read_bytes()[:4] == b'MThd'
 
 
-@pytest.mark.parametrize('quantize', ['int8', 'int8_kv', 'fused',
-                                      'fused_int4'])
+@pytest.mark.parametrize('quantize', ['int8', 'int8_kv'])
 def test_unported_tiers_raise(golden, quantize):
     _, _, model = golden
     with pytest.raises(NotImplementedError, match='not yet ported'):
@@ -133,7 +137,7 @@ def test_unported_paths_raise(golden):
         _handler(model, 'int3')
 
 
-@pytest.mark.parametrize('quantize', ['none', 'fused_bf16'])
+@pytest.mark.parametrize('quantize', FUSED_AND_EXACT)
 def test_padding_rows_start_finished(golden, quantize):
     """Rows that valid_mask marks as padding are finished from the first
     step and emit only pad; the real rows decode as without them."""

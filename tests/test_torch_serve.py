@@ -11,6 +11,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import serve as jax_serve
 from mr_mt3_tpu_torch import serve
@@ -57,7 +58,7 @@ class TestServer:
     def test_handler_is_the_cli_one(self, server):
         handler, _ = server
         assert handler.device.type == 'cpu'
-        assert handler.quantize == 'none'       # 'fused_bf16' on the card
+        assert handler.quantize == 'none'       # 'fused_int4' on the card
         assert handler.cfg.d_model == 512
         assert handler.cfg.num_decoder_layers == 8
         assert handler.max_length == 8 and handler.batch_size == 2
@@ -127,6 +128,45 @@ class TestServer:
         assert set(mine) == set(theirs)
         assert set(mine['decode']) == {'quantize', 'prewarmed',
                                        'prewarm_seconds', 'prewarm_buckets'}
+
+
+class TestServingTier:
+    def test_default_tier_per_device(self):
+        """The server starts at the int4 window kernel on the card (the
+        JAX server's TPU default) and at the exact path on the CPU; 'auto'
+        maps to the same."""
+        assert serve.default_quantize(torch.device('cuda')) == 'fused_int4'
+        assert serve.default_quantize(torch.device('cpu')) == 'none'
+        handler = serve.build_handler(['device=cpu', 'eval.quantize=auto',
+                                       'eval.max_length=8'])
+        assert handler.quantize == 'none'
+
+    def test_healthz_reports_the_probe(self, server, monkeypatch):
+        """A handler that walks the ladder reports the walk under
+        "decode": the tier, its probe counts and the demotions."""
+        from mr_mt3_tpu_torch.infer import InferenceHandler
+        handler, _ = server
+        int4 = InferenceHandler(model=handler.model, max_length=8,
+                                batch_size=2, quantize='fused_int4',
+                                device='cpu')
+        monkeypatch.setattr(
+            serve, 'quantize_probe',
+            lambda h: (0, 18) if h.quantize == 'fused' else (5, 18))
+        info = serve.prepare_handler(int4)
+        srv = serve.make_server(int4, 0, info)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            decode = get_json(f'http://127.0.0.1:{srv.server_address[1]}'
+                              '/healthz')['decode']
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        assert decode['quantize'] == 'fused'
+        assert decode['probe_tier'] == 'fused'
+        assert (decode['probe_flips'], decode['probe_tokens']) == (0, 18)
+        assert len(decode['demotions']) == 1
+        assert decode['probe_seconds'] >= 0 and decode['prewarmed']
 
 
 class TestMicroBatcher:
