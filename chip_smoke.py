@@ -7,12 +7,14 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
-  2. build: every kernel of the main path from csrc/ (nvcc, one process per
-     source, started together);
-  3. kernels against their plain PyTorch versions on the card at full
+  2. build: every kernel of the main paths from csrc/ (nvcc, one process
+     per source, started together): fused_decode_window and
+     fused_attention_fwd;
+  3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
-     each mode of the window kernel (fused_bf16, fused = int8, fused_int4):
-     B in {8, 64} x pos0 in {0, 32, 992}, the cache rows < pos0 decoded
+     each mode (fused_bf16, fused = int8, fused_int4):
+     B in {8, 64} x pos0 in {0, 32, 992}, and B in {8, 64}, pos0 992 at
+     the segment-memory model's Lenc 320, the cache rows < pos0 decoded
      by the kernel itself; tokens equal up to a first divergence that is
      only allowed where the plain version scores the two tokens nearly
      alike; bf16 K/V rows, or integer K/V codes and their scales, and
@@ -21,25 +23,45 @@ Phases (any failure exits non-zero and prints no result line):
      a plain version without the int8 requantization of q and the
      probabilities; CUDA-event timings (median) beside the
      bytes/operations bound;
-  4. parity on the card: the overfit parity model of
+  4. fused_attention_fwd against its plain version at the segment-memory
+     path's shapes (ATTN_CASES: the memory encoder at B 8 and 64, the
+     probe's causal decoder and 1024 x 320 cross attention, the parity
+     model's head width 24), called as the model calls it (fused_attention
+     on the unpadded K/V: its padding and kv_valid included) and compared
+     with the plain version on the padded K/V, within ATTN_BOUNDS, with the
+     kernel's time, the plain
+     version's, the bound and scaled_dot_product_attention's (a yardstick
+     the port never calls);
+  5. parity on the card: the overfit parity model of
      tests/goldens/parity_vanilla.npz (loaded with numpy through the
      port's weights bridge, its audio rebuilt and checked against the
      stored hash) decodes both songs at max_length 1024 through
      fused_int4, fused and fused_bf16 with no token off the golden, and
      the probe ladder walks it as the JAX ladder does (int4 demoted for a
-     material flip, int8 kept);
-  5. main path: the handler exactly as `python -m mr_mt3_tpu_torch.serve`
+     material flip, int8 kept); then parity_withprev.npz (contiguous)
+     through the exact path and the three window tiers and parity_v1.npz
+     through the exact path, no token off; and the withprev model at
+     bf16 gives the same tokens with its memory encoder on the kernel and
+     on einsum;
+  6. main path: the handler exactly as `python -m mr_mt3_tpu_torch.serve`
      builds and prepares it (configs/config.yaml, model=MT3Net, seed-0
      random weights, default tier fused_int4, probe ladder and prewarm on),
      serving WAV clips over HTTP from two concurrent clients; the ladder's
      walk is printed, and no demotion may come from an exception;
-  6. serving through each window tier held (fused_int4, fused, fused_bf16;
+  7. segment-memory main path: the same for `python -m
+     mr_mt3_tpu_torch.serve model=MT3NetSegMemV2WithPrev
+     trainer.precision=bf16` (the paper's model, chained decode); the
+     fused_attention launches must equal the long attentions the model
+     ran (memory-encoder calls and teacher-forced forwards at L >= 512);
+  8. serving through each window tier held (fused_int4, fused, fused_bf16;
      prepare_handler(probe=False)): the same clips, every answer MIDI;
-  7. one worst-case decode (B=8, 1024 steps) on each window tier and on
-     the exact path (fp32, TF32 off).
-Launch counts are zeroed just before each of phases 5 and 6 and read just
-after; each must cover every window the decoded tokens needed. Then one
-JSON line of kernel numbers, the card line, and the result line.
+  9. one worst-case decode (B=8, 1024 steps) on each window tier and on
+     the exact path (fp32, TF32 off), and one chained segment-memory
+     decode on fused_bf16 (8 chains x 8 segments x 1024 steps).
+Launch counts are zeroed just before each of phases 6, 7 and 8 and read
+just after; the window launches must cover every window the decoded tokens
+needed. Then one JSON line of kernel numbers, the card line, and the
+result line.
 """
 
 import json
@@ -123,9 +145,10 @@ BOUNDS = {
                    'max_gap_rel': 4e-2},            # 0.0136
 }
 TIMED_RUNS = 20
-# the plain version is thousands of host-launched ops (~1 s a window):
-# its median over fewer runs
-PLAIN_TIMED_RUNS = 5
+# the plain version is thousands of host-launched ops (~1 s a window): its
+# median over fewer runs, with no warm-up beyond the comparison's own call
+# (its time measures the host, PERF.md)
+PLAIN_TIMED_RUNS = 3
 TIERS = ('fused_bf16', 'fused', 'fused_int4')
 
 
@@ -348,8 +371,12 @@ def kernel_cases(torch):
     cfg = MT3Config()
     dev = torch.device('cuda')
     model = init_params(MT3(cfg), seed=0).to(dev).eval()
-    lenc, T = 256, fd.FUSED_WINDOW
-    cases = [(b, p) for b in (8, 64) for p in (0, 32, 992)]
+    T = fd.FUSED_WINDOW
+    # (batch, pos0, Lenc): vanilla MT3's 256 encoder rows, and the segment-
+    # memory model's 256 + 64 memory rows at 8 chains and at the per-call
+    # cap of 64 chains
+    cases = [(b, p, 256) for b in (8, 64) for p in (0, 32, 992)] \
+        + [(b, 992, 320) for b in (8, 64)]
     results, bad = {}, []
     for tier in TIERS:
         dp = stack_decode_params(model, quantize=tier)
@@ -357,7 +384,7 @@ def kernel_cases(torch):
         results[tier] = []
         # the same seeded encoder states and tokens for every tier
         gen = torch.Generator().manual_seed(1)
-        for batch, pos0 in cases:
+        for batch, pos0, lenc in cases:
             enc = (torch.randn((batch, lenc, cfg.d_model), generator=gen)
                    * 0.5).to(dev)
             cross = fd.precompute_cross_kv_fused(dp, cfg, enc)
@@ -385,8 +412,8 @@ def kernel_cases(torch):
                 fail(f'{tier}: a finished row emitted a non-pad token')
             errs = compare_window(torch, cfg, tier, got, want[:3], want[3],
                                   last_logits)
-            bad += [f'{tier} B={batch} pos0={pos0}: {v}'
-                    for v in violations(tier, errs)]
+            name = f'{tier} B={batch} pos0={pos0} Lenc={lenc}'
+            bad += [f'{name}: {v}' for v in violations(tier, errs)]
             if tier != 'fused_bf16':
                 ctrl = float_attention_control(torch, fd, args)
                 ctrl = compare_window(torch, cfg, tier, got, ctrl[:3],
@@ -395,16 +422,16 @@ def kernel_cases(torch):
                 errs['control'] = {k: ctrl[k] for k in BOUNDS[tier]}
                 errs['control_caught_by'] = caught
                 if not caught:
-                    bad.append(f'{tier} B={batch} pos0={pos0}: the bounds '
-                               f'do not tell the kernel from the f32 '
-                               f'attention control')
+                    bad.append(f'{name}: the bounds do not tell the '
+                               f'kernel from the f32 attention control')
             ms = time_ms(torch, lambda: fd.fused_decode_window_cuda(*args))
             plain_ms = time_ms(
                 torch, lambda: fd.fused_decode_window_reference(*args),
-                runs=PLAIN_TIMED_RUNS, warmup=1)
+                runs=PLAIN_TIMED_RUNS, warmup=0)
             bound, bound_by = window_bound_ms(cfg, batch, pos0, lenc, T,
                                               tier)
-            case = {'tier': tier, 'batch': batch, 'pos0': pos0, **errs,
+            case = {'tier': tier, 'batch': batch, 'pos0': pos0,
+                    'lenc': lenc, **errs,
                     'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
                     'bound_by': bound_by}
             print(json.dumps(case), flush=True)
@@ -545,23 +572,27 @@ def check_launches(launches, log, tiers):
                  f'windows decoded')
 
 
-def main_path(torch):
-    """`python -m mr_mt3_tpu_torch.serve` as users start it: default tier
-    fused_int4, probe ladder and prewarm on, then 4 clips over HTTP."""
-    phase('main path: python -m mr_mt3_tpu_torch.serve equivalent')
-    from mr_mt3_tpu_torch import serve
-    from mr_mt3_tpu_torch.ops import fused_decode as fd
+class ProbeWalk:
+    """Stands in for serve.quantize_probe, the server's probe entry point,
+    until closed, recording each probe of the ladder: its tier, length,
+    counts and seconds, or the error it raised."""
 
-    walk = []
-    probe = serve.quantize_probe
+    FIELDS = ('tier', 'length', 'flips', 'total', 'material_rows',
+              'benign_rows', 'downstream_rows', 'material_margin',
+              'margin_noise', 'classify_error', 'error', 'seconds')
 
-    def recording_probe(handler, max_length=None, **kw):
+    def __init__(self):
+        from mr_mt3_tpu_torch import serve
+        self.serve, self.real, self.steps = serve, serve.quantize_probe, []
+        serve.quantize_probe = self.probe
+
+    def probe(self, handler, max_length=None, **kw):
         t0 = time.monotonic()
         tier = handler.quantize
         try:
-            res = probe(handler, max_length=max_length, **kw)
+            res = self.real(handler, max_length=max_length, **kw)
         except Exception as e:
-            walk.append({'tier': tier, 'error': repr(e)[:200]})
+            self.steps.append({'tier': tier, 'error': repr(e)[:200]})
             raise
         step = {'tier': tier, 'length': max_length or 'short',
                 'seconds': round(time.monotonic() - t0, 1)}
@@ -569,13 +600,45 @@ def main_path(torch):
             step.update(res)
         else:
             step['flips'], step['total'] = res
-        walk.append(step)
+        self.steps.append(step)
         return res
+
+    def close(self):
+        self.serve.quantize_probe = self.real
+
+    def print(self):
+        for step in self.steps:
+            print('ladder: ' + json.dumps({k: step.get(k)
+                                            for k in self.FIELDS}))
+
+    def check(self, handler, decode):
+        """The /healthz decode block names the served tier, prewarmed; the
+        walk started at fused_int4 and no probe, classification or
+        demotion came from an exception."""
+        if not decode.get('prewarmed') or decode.get('quantize') != \
+                handler.quantize:
+            fail(f'/healthz decode info: {decode}')
+        errors = [st for st in self.steps
+                  if 'error' in st or 'classify_error' in st]
+        failed = [d for d in decode.get('demotions', []) if 'failed' in d]
+        if errors or failed or 'probe_error' in decode or \
+                'classify_error' in decode:
+            fail(f'a probe raised: {errors or failed or decode}')
+        if not self.steps or self.steps[0]['tier'] != 'fused_int4':
+            fail('the ladder did not probe fused_int4')
+
+
+def main_path(torch):
+    """`python -m mr_mt3_tpu_torch.serve` as users start it: default tier
+    fused_int4, probe ladder and prewarm on, then 4 clips over HTTP."""
+    phase('main path: python -m mr_mt3_tpu_torch.serve equivalent')
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
 
     for tier in TIERS:
         fd.LAUNCHES[tier] = 0
     log = DecodeLog()
-    serve.quantize_probe = recording_probe
+    walk = ProbeWalk()
     try:
         t0 = time.monotonic()
         handler = serve.build_handler([])
@@ -585,33 +648,20 @@ def main_path(torch):
         info = serve.prepare_handler(handler)
         print(f'handler built, probed and prewarmed in '
               f'{time.monotonic() - t0:.1f} s')
-        for step in walk:
-            print('ladder: ' + json.dumps(
-                {k: step.get(k) for k in (
-                    'tier', 'length', 'flips', 'total', 'material_rows',
-                    'benign_rows', 'material_margin', 'margin_noise',
-                    'classify_error', 'error', 'seconds')}))
+        walk.print()
         health = serve_clips(torch, handler, info)
     finally:
-        serve.quantize_probe = probe
+        walk.close()
         log.close()
     launches = dict(fd.LAUNCHES)
     decode = health['decode']
     print(f'healthz: {json.dumps(health)}')
-    if not decode.get('prewarmed') or decode.get('quantize') != \
-            handler.quantize:
-        fail(f'/healthz decode info: {decode}')
-    errors = [s for s in walk if 'error' in s or 'classify_error' in s]
-    failed = [d for d in decode.get('demotions', []) if 'failed' in d]
-    if errors or failed or 'probe_error' in decode or \
-            'classify_error' in decode:
-        fail(f'a probe raised: {errors or failed or decode}')
-    if not walk or walk[0]['tier'] != 'fused_int4':
-        fail('the ladder did not probe fused_int4')
+    walk.check(handler, decode)
     check_launches(launches, log, TIERS)
     if launches['fused_int4'] < 1:
         fail('the int4 kernel was not launched on the main path')
-    return {'tier': handler.quantize, 'walk': walk, 'launches': launches,
+    return {'tier': handler.quantize, 'walk': walk.steps,
+            'launches': launches,
             'demotions': decode.get('demotions', [])}
 
 
@@ -678,22 +728,20 @@ def parity_corpus():
     return audios
 
 
-def parity_on_card(torch):
-    """The overfit parity model through each window tier on the card: no
-    token off the golden; then the probe ladder keeps fused_int4."""
-    phase('parity on the card (tests/goldens/parity_vanilla.npz)')
+def parity_model(torch, name, **cfg_kw):
+    """The overfit parity model of tests/goldens/<name> in the port, its
+    weights loaded with numpy through the port's weights bridge; returns
+    (model, golden tokens, max_length, the two corpus audios, checked
+    against the stored hash)."""
     import hashlib
 
     import numpy as np
 
-    from mr_mt3_tpu_torch import serve
-    from mr_mt3_tpu_torch.infer import InferenceHandler
     from mr_mt3_tpu_torch.models import MT3, MT3Config
     from mr_mt3_tpu_torch.utils.checkpoint_import import (
         state_dict_from_jax_params,
     )
-    blob = np.load(os.path.join(REPO, 'tests', 'goldens',
-                                'parity_vanilla.npz'))
+    blob = np.load(os.path.join(REPO, 'tests', 'goldens', name))
     params = {}
     for key in blob.files:
         if key.startswith('param:'):
@@ -701,7 +749,6 @@ def parity_on_card(torch):
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             node[parts[-1]] = blob[key]
-    golden, max_length = blob['tokens'], int(blob['max_length'])
     audios = parity_corpus()
     sha = hashlib.sha256()
     for a in audios:
@@ -710,9 +757,21 @@ def parity_on_card(torch):
     want_sha = want_sha.decode() if isinstance(want_sha, bytes) else want_sha
     if sha.hexdigest() != want_sha:
         fail('the rebuilt parity audio does not match audio_sha')
-    cfg = MT3Config(**PARITY_DIMS)
+    cfg = MT3Config(**PARITY_DIMS, **cfg_kw)
     model = MT3(cfg).eval()
-    model.load_state_dict(state_dict_from_jax_params(params, cfg))
+    model.load_state_dict(state_dict_from_jax_params(params, cfg),
+                          strict=True)
+    return model, blob['tokens'], int(blob['max_length']), audios
+
+
+def parity_on_card(torch):
+    """The overfit parity model through each window tier on the card: no
+    token off the golden; then the probe ladder walks it as JAX does."""
+    phase('parity on the card (tests/goldens/parity_vanilla.npz)')
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    model, golden, max_length, audios = parity_model(
+        torch, 'parity_vanilla.npz')
     flips = {}
     for tier in ('fused_int4', 'fused', 'fused_bf16'):
         handler = InferenceHandler(model=model, max_length=max_length,
@@ -797,6 +856,359 @@ def worst_case(torch):
     return rows
 
 
+# fused_attention_fwd against its plain version on the same inputs: both
+# keep f32 scores and an f32 softmax and sum in other orders (the kernel's
+# bf16 products on the tensor cores), so an output or a probability near a
+# bf16 rounding midpoint rounds one ulp apart. Bounds at about 3x the
+# largest reading over the cases of the calibration run (run J, NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md, H100 port): rel_err, the largest
+# |difference| over the largest |plain output|, read 0.0035 (one bf16 ulp
+# of the largest output); unequal, the share of outputs not equal, 4.5e-4.
+ATTN_BOUNDS = {'rel_err': 1e-2, 'unequal': 1.5e-3}
+# (name, batch, Lq, Lk, heads, head width, causal): the memory encoder
+# (B 8 chains, and 64, the per-call cap), the probe's teacher-forced
+# decoder self-attention and cross-attention (Lk 256 + 64 = 320, padded
+# to 384) at full width, and the parity model's head width 24
+ATTN_CASES = [
+    ('memory_encoder_b8', 8, 1024, 1024, 6, 64, False),
+    ('memory_encoder_b64', 64, 1024, 1024, 6, 64, False),
+    ('decoder_causal_b8', 8, 1024, 1024, 6, 64, True),
+    ('cross_1024x320_b8', 8, 1024, 320, 6, 64, False),
+    ('parity_d24_b8', 8, 1024, 1024, 4, 24, False),
+]
+
+
+def attention_bound_ms(b, lq, lk, kv_valid, h, d, causal):
+    """Least time for the call as a function: q, the kv_valid K/V rows and
+    the output moved once (bf16), against HBM; and the multiply-adds this
+    data needs (q.k and p.v over the columns each row sees) at the bf16
+    tensor-core peak. Returns (ms, bound_by)."""
+    cols = sum(min(kv_valid, i + 1) if causal else kv_valid
+               for i in range(lq))
+    flops = 4 * b * h * d * cols
+    nbytes = 2 * b * h * d * (2 * lq + 2 * kv_valid)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def attention_cases(torch):
+    """fused_attention_fwd vs its plain version at the main path's shapes:
+    fused_attention (the wrapper models/mt3.py calls) on the unpadded K/V
+    against fused_attention_reference on K/V padded by _pad_kv. Then the
+    kernel's time (fused_attention_cuda on the padded K/V), the plain
+    version's, the bound and PyTorch's scaled_dot_product_attention (scale
+    1.0, the same padded tensors, the kv_valid mask as a boolean
+    attn_mask) as a yardstick."""
+    phase('fused_attention_fwd vs plain (full width)')
+    import torch.nn.functional as F
+
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(3)
+    results, bad = [], []
+    for name, b, lq, lk, h, d, causal in ATTN_CASES:
+        q, k, v = [torch.randn((b, n, h, d), generator=gen).to(
+            dev, torch.bfloat16) for n in (lq, lk, lk)]
+        before = ta.LAUNCHES[ta.KERNEL]
+        got = ta.fused_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if ta.LAUNCHES[ta.KERNEL] != before + 1:
+            fail(f'{name}: fused_attention did not launch the kernel')
+        kp, vp, valid = ta._pad_kv(k, v)
+        want = ta.fused_attention_reference(q, kp, vp, causal, valid)
+        diff = (got.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        readings = {'max_abs_err': float(diff.max()),
+                    'rel_err': float(diff.max()) / scale,
+                    'unequal': float((got != want).float().mean())}
+        bad += [f'{name}: {key} {readings[key]:.4g} > {bound}'
+                for key, bound in ATTN_BOUNDS.items()
+                if readings[key] > bound]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kp, vp))
+        mask = None
+        if valid < kp.shape[1]:
+            mask = (torch.arange(kp.shape[1], device=dev) < valid).expand(
+                lq, kp.shape[1])
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal, scale=1.0)
+        lib_out = library().transpose(1, 2).float()
+        ms = time_ms(torch, lambda: ta.fused_attention_cuda(
+            q, kp, vp, causal, valid))
+        plain_ms = time_ms(torch, lambda: ta.fused_attention_reference(
+            q, kp, vp, causal, valid), runs=PLAIN_TIMED_RUNS, warmup=0)
+        library_ms = time_ms(torch, library)
+        bound, bound_by = attention_bound_ms(b, lq, kp.shape[1], valid, h,
+                                             d, causal)
+        case = {'case': name, 'batch': b, 'lq': lq, 'lk': kp.shape[1],
+                'kv_valid': valid, 'heads': h, 'head_width': d,
+                'causal': causal, **readings,
+                'library_rel_diff': float((lib_out - want.float()).abs()
+                                          .max()) / scale,
+                'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+                'bound_ms': bound, 'bound_by': bound_by}
+        print(json.dumps(case), flush=True)
+        results.append(case)
+        del q, k, v, kp, vp, got, want, diff, lib_out
+        torch.cuda.empty_cache()
+    if bad:
+        fail('fused_attention_fwd vs plain version: ' + '; '.join(bad))
+    return results
+
+
+# tests/parity_common.py:39-42: the segment-memory parity models
+WITHPREV_KW = dict(segmem_variant='encoder_append', segmem_length=16)
+V1_KW = dict(segmem_variant='decoder_prepend', segmem_length=16,
+             segmem_seed='eos')
+
+
+def segmem_parity_on_card(torch):
+    """parity_withprev.npz contiguous through the exact path and the three
+    window tiers, parity_v1.npz through the exact path: no token off the
+    golden. Then the withprev model at bf16, its memory encoder on the
+    kernel and on einsum: the same tokens."""
+    phase('segment-memory parity on the card (parity_withprev.npz, '
+          'parity_v1.npz)')
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+
+    def decode_songs(model, quantize, audios, max_length):
+        handler = InferenceHandler(model=model, max_length=max_length,
+                                   contiguous_inference=True,
+                                   segment_bucket=1, quantize=quantize)
+        out = []
+        for audio in audios:
+            segments, _, valid = handler._audio_to_segments(audio)
+            out.append(handler._decode_all(handler._compute_mel(segments,
+                                                                valid)))
+        return out
+
+    flips = {}
+    for name, kw, tiers in (
+            ('parity_withprev.npz', WITHPREV_KW, ('none',) + TIERS),
+            ('parity_v1.npz', V1_KW, ('none',))):
+        model, golden, max_length, audios = parity_model(torch, name, **kw)
+        for tier in tiers:
+            t0 = time.monotonic()
+            tokens = decode_songs(model, tier, audios, max_length)
+            off = sum(int((t != g).sum()) for t, g in zip(tokens, golden))
+            flips[f'{name}:{tier}'] = off
+            print(f'{name} {tier}: {off} of {golden.size} tokens off the '
+                  f'golden, contiguous, max_length {max_length} '
+                  f'({time.monotonic() - t0:.1f} s)')
+            if off:
+                fail(f'{name} {tier} flipped {off} golden tokens on the '
+                     f'card')
+    # the withprev model at bf16: memory encoder through the kernel, then
+    # through einsum; the exact decode path in both
+    bf16 = {}
+    for kernel in ('fused', 'einsum'):
+        model, golden, max_length, audios = parity_model(
+            torch, 'parity_withprev.npz', dtype='bfloat16',
+            attention_kernel=kernel, **WITHPREV_KW)
+        ta.LAUNCHES[ta.KERNEL] = 0
+        bf16[kernel] = decode_songs(model, 'none', audios, max_length)
+        launches = ta.LAUNCHES[ta.KERNEL]
+        off = sum(int((t != g).sum()) for t, g in zip(bf16[kernel], golden))
+        print(f'withprev at bf16, attention_kernel={kernel!r}: {off} of '
+              f'{golden.size} tokens off the fp32 golden, {launches} '
+              f'fused_attention launches')
+        if (launches > 0) != (kernel == 'fused'):
+            fail(f'attention_kernel={kernel!r} launched the kernel '
+                 f'{launches} times')
+        flips[f'withprev_bf16_{kernel}_vs_fp32_golden'] = off
+    differ = sum(int((a != b).sum()) for a, b in zip(bf16['fused'],
+                                                     bf16['einsum']))
+    print(f'bf16 withprev: {differ} tokens differ between the kernel and '
+          f'einsum')
+    if differ:
+        fail(f'the bf16 withprev tokens differ between the kernel and '
+             f'einsum in {differ} places')
+    flips['bf16_kernel_vs_einsum'] = differ
+    return flips
+
+
+class SegmemLog:
+    """Records every memory-chain decode (InferenceHandler._segmem_decode)
+    with its tier, length, tokens and valid rows, every memory-encoder
+    call (MT3.compute_segmem) and every teacher-forced forward, to work out
+    the window launches the chains needed and the fused_attention launches
+    the model's long attentions make."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.infer import InferenceHandler
+        from mr_mt3_tpu_torch.models import MT3
+        from mr_mt3_tpu_torch.models import mt3
+        self.handler_cls, self.model_cls = InferenceHandler, MT3
+        self.real = (InferenceHandler._segmem_decode, MT3.compute_segmem,
+                     MT3.forward)
+        self.decodes, self.attention_calls = [], 0
+        self.memory_encoder_calls = self.forwards = 0
+        log = self
+
+        def fused(model, length):
+            """Whether a full-sequence attention at this length takes the
+            kernel: the model's rule (mt3.Attention._fused_eligible)."""
+            return length >= mt3._FUSED_MIN_LEN and length % 8 == 0 and \
+                mt3.resolve_attention_kernel(
+                    model.cfg, model.proj.weight.device) == 'fused'
+
+        def segmem_decode(handler, mel_segments, valid_mask):
+            tokens = log.real[0](handler, mel_segments, valid_mask)
+            log.decodes.append((handler.quantize, handler.max_length,
+                                handler.cfg.eos_token_id, tokens,
+                                valid_mask.cpu().numpy()))
+            return tokens
+
+        def compute_segmem(model, prev_ids):
+            log.memory_encoder_calls += 1
+            if fused(model, prev_ids.shape[1]):
+                log.attention_calls += model.cfg.segmem_num_layers
+            return log.real[1](model, prev_ids)
+
+        def forward(model, mel, decoder_input_ids, targets_prev=None):
+            log.forwards += 1
+            if fused(model, decoder_input_ids.shape[1]):
+                # each decoder layer: causal self- and cross-attention
+                log.attention_calls += 2 * model.cfg.num_decoder_layers
+            return log.real[2](model, mel, decoder_input_ids, targets_prev)
+        InferenceHandler._segmem_decode = segmem_decode
+        MT3.compute_segmem = compute_segmem
+        MT3.forward = forward
+
+    def close(self):
+        (self.handler_cls._segmem_decode, self.model_cls.compute_segmem,
+         self.model_cls.forward) = self.real
+
+    def windows(self, tier):
+        """(chain decodes, windows) the chains on `tier` needed: per
+        segment, up to the window of the last valid row's first EOS."""
+        from mr_mt3_tpu_torch.ops import fused_decode as fd
+        calls = windows = 0
+        for quantize, max_length, eos_id, tokens, valid in self.decodes:
+            if quantize != tier:
+                continue
+            calls += 1
+            for s in range(tokens.shape[1]):
+                _, w = windows_needed(tokens[valid, s], len(tokens),
+                                      max_length, eos_id, fd.FUSED_WINDOW)
+                windows += w
+        return calls, windows
+
+
+SEGMEM_ARGS = ['model=MT3NetSegMemV2WithPrev', 'trainer.precision=bf16']
+
+
+def segmem_main_path(torch):
+    """`python -m mr_mt3_tpu_torch.serve model=MT3NetSegMemV2WithPrev
+    trainer.precision=bf16` as users start it: the paper's model at full
+    width, seed-0 random weights, default tier fused_int4, probe ladder and
+    prewarm on, then the WAV clips over HTTP from two clients."""
+    phase('segment-memory main path: python -m mr_mt3_tpu_torch.serve '
+          + ' '.join(SEGMEM_ARGS))
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+
+    for tier in TIERS:
+        fd.LAUNCHES[tier] = 0
+    ta.LAUNCHES[ta.KERNEL] = 0
+    log = SegmemLog()
+    walk = ProbeWalk()
+    try:
+        t0 = time.monotonic()
+        handler = serve.build_handler(SEGMEM_ARGS)
+        cfg = handler.cfg
+        if handler.quantize != 'fused_int4' or \
+                cfg.segmem_variant != 'encoder_append' or \
+                cfg.dtype != 'bfloat16' or handler.contiguous_inference:
+            fail(f'the segmem server is not the paper model at bf16, '
+                 f'chained, from fused_int4: {cfg}, {handler.quantize!r}')
+        info = serve.prepare_handler(handler)
+        ready = time.monotonic() - t0
+        print(f'handler built, probed and prewarmed in {ready:.1f} s '
+              f'(prewarm buckets {info.get("prewarm_buckets")}, '
+              f'{info.get("prewarm_seconds")} s)')
+        walk.print()
+        health = serve_clips(torch, handler, info)
+    finally:
+        walk.close()
+        log.close()
+    launches = dict(fd.LAUNCHES)
+    launches[ta.KERNEL] = ta.LAUNCHES[ta.KERNEL]
+    decode = health['decode']
+    print(f'healthz: {json.dumps(health)}')
+    walk.check(handler, decode)
+    for tier in TIERS:
+        calls, windows = log.windows(tier)
+        print(f'{tier}: {launches[tier]} window launches for {windows} '
+              f'windows over {calls} chain decodes')
+        if launches[tier] < windows:
+            fail(f'{tier}: {launches[tier]} kernel launches for {windows} '
+                 f'windows decoded')
+    if launches['fused_int4'] < 1:
+        fail('the int4 window kernel was not launched on the segmem path')
+    print(f'{ta.KERNEL}: {launches[ta.KERNEL]} launches for '
+          f'{log.attention_calls} long attentions ('
+          f'{log.memory_encoder_calls} memory-encoder calls, '
+          f'{log.forwards} teacher-forced forwards)')
+    if launches[ta.KERNEL] != log.attention_calls or \
+            log.attention_calls < 1:
+        fail(f'{ta.KERNEL}: {launches[ta.KERNEL]} launches for '
+             f'{log.attention_calls} long attentions')
+    return {'tier': handler.quantize, 'walk': walk.steps,
+            'launches': launches,
+            'memory_encoder_calls': log.memory_encoder_calls,
+            'teacher_forced_forwards': log.forwards,
+            'ready_seconds': ready,
+            'demotions': decode.get('demotions', [])}
+
+
+def segmem_worst_case(torch):
+    """One chained decode on fused_bf16 at the serving shape: 8 chains x 8
+    segments x 1024 steps of the paper's model at bf16 (seed-0 random
+    weights rarely emit EOS); and the memory encoder alone at B = 8."""
+    phase('segment-memory worst case (fused_bf16, 8 chains x 8 segments '
+          'x 1024 steps)')
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.ops import decode
+    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+
+    handler = serve.build_handler(SEGMEM_ARGS)
+    model, cfg = handler.model, handler.cfg
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(4)
+    mel = torch.rand((8, 8, 256, cfg.mel_bins), generator=gen).to(dev)
+    dp = stack_decode_params(model, quantize='fused_bf16')
+    decode.segmem_greedy_decode(model, mel[:, :1], 32,
+                                quantize='fused_bf16', dp=dp)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    toks = decode.segmem_greedy_decode(model, mel, 1024,
+                                       quantize='fused_bf16', dp=dp)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    toks = toks.cpu()
+    if toks.shape != (8, 8, 1025) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        fail(f'segmem worst case: bad tokens {tuple(toks.shape)}')
+    steps = int((toks[..., 1:] != cfg.pad_token_id).sum(-1).amax(0).sum())
+    mem = toks[:, 0, :1024].to(dev)
+    with torch.no_grad():
+        mem_ms = time_ms(torch, lambda: model.compute_segmem(mem))
+    audio_s = 8 * 8 * 256 * 128 / 16000
+    out = {'seconds': secs, 'steps': steps,
+           'ms_per_step': secs / max(steps, 1) * 1e3, 'rtf': audio_s / secs,
+           'memory_encoder_ms_per_segment': mem_ms}
+    print(f'fused_bf16 chains: {secs:.3f} s for {steps} sequential steps '
+          f'(8 segments), {out["ms_per_step"]:.4f} ms/step, realtime '
+          f'factor {out["rtf"]:.2f}; memory encoder {mem_ms:.4f} ms per '
+          f'segment (B=8, L=1024)')
+    return out
+
+
 def main():
     try:
         import torch
@@ -813,17 +1225,21 @@ def main():
     environment(torch)
     build_kernels()
     cases = kernel_cases(torch)
+    attn_cases = attention_cases(torch)
     parity = parity_on_card(torch)
+    parity['segmem'] = segmem_parity_on_card(torch)
     main = main_path(torch)
+    segmem = segmem_main_path(torch)
     launches = held_tier_serving(torch)
     worst = worst_case(torch)
+    worst['segmem_fused_bf16'] = segmem_worst_case(torch)
 
     notes = {'library_note': 'no single PyTorch call computes a greedy '
                              'window'}
     kernels = []
     for tier in TIERS:
         main_case = next(c for c in cases[tier] if c['batch'] == 8
-                         and c['pos0'] == 992)
+                         and c['pos0'] == 992 and c['lenc'] == 256)
         kernels.append({
             'name': f'fused_decode_window[{tier}]', 'mode': tier,
             'route': 'cuda',
@@ -836,11 +1252,26 @@ def main():
             'bound_by': main_case['bound_by'],
             'library_ms': None, **notes,
             'main_path_launches': main['launches'][tier],
+            'segmem_path_launches': segmem['launches'][tier],
             'cases': cases[tier]})
+    enc = next(c for c in attn_cases if c['case'] == 'memory_encoder_b8')
+    kernels.append({
+        'name': 'fused_attention_fwd', 'route': 'cuda',
+        'source': 'mr_mt3_tpu_torch/csrc/fused_attention_fwd.cu',
+        'replaces': 'mr_mt3_tpu/ops/train_attention.py:185',
+        'launches': segmem['launches']['fused_attention_fwd'],
+        'max_abs_err': max(c['max_abs_err'] for c in attn_cases),
+        'ms': enc['ms'], 'plain_ms': enc['plain_ms'],
+        'bound_ms': enc['bound_ms'], 'bound_by': enc['bound_by'],
+        'library_ms': enc['library_ms'],
+        'library_note': 'torch.nn.functional.scaled_dot_product_attention, '
+                        'scale 1.0, timed only',
+        'cases': attn_cases})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_kernels.json'), 'w') as f:
         json.dump({'card': card_line(), 'kernels': kernels,
                    'parity': parity, 'main_path': main,
+                   'segmem_main_path': segmem,
                    'worst_case': worst}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -1,12 +1,15 @@
-"""Transcription inference engine (port of mr_mt3_tpu/infer/handler.py,
-vanilla non-contiguous path).
+"""Transcription inference engine (port of mr_mt3_tpu/infer/handler.py).
 
 Audio -> segments -> log-mel -> encoder -> greedy decode -> tokens ->
 NoteSequence -> MIDI, as the reference InferenceHandler (reference:
-inference.py:20-234). The frontend, encoder and decode run on the
-handler's device ('cuda' unless device='cpu' is passed); framing,
-postprocess, NoteSequence assembly and MIDI writing are host numpy code,
-identical to the JAX package's.
+inference.py:20-234). Vanilla MT3 decodes segments in independent
+batches; the segment-memory models decode memory chains
+(ops/decode.py::segmem_greedy_decode): contiguous_inference runs each song
+as one chain, and without it an 'encoder_append' model chains the segments
+of every batch_size-long run, as the reference's generate() does. The
+frontend, encoder and decode run on the handler's device ('cuda' unless
+device='cpu' is passed); framing, postprocess, NoteSequence assembly and
+MIDI writing are host numpy code, identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,28 +37,59 @@ from mr_mt3_tpu_torch.codec import note_sequences
 from mr_mt3_tpu_torch.codec.combine import event_predictions_to_ns
 from mr_mt3_tpu_torch.midi import note_sequence_to_midi_file
 from mr_mt3_tpu_torch.models import MT3
-from mr_mt3_tpu_torch.ops.decode import check_quantize, greedy_decode
+from mr_mt3_tpu_torch.ops.decode import (
+    check_quantize,
+    greedy_decode,
+    segmem_greedy_decode,
+)
 from mr_mt3_tpu_torch.utils.device import resolve_device
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# largest leading-axis size that still pow2-buckets; beyond it sizes grow
+# in multiples of 4. serve.py's prewarm derives its chain buckets from it.
+POW2_BUCKET_CAP = 64
+
+
+def _pow2_bucket(n: int, cap: int = POW2_BUCKET_CAP) -> int:
+    """Next power of two >= n for n <= cap, else a multiple of 4: the
+    leading axis of a chain or lockstep decode takes few distinct sizes
+    (padding rows start finished and cost no decode steps)."""
+    if n <= 1:
+        return 1
+    if n > cap:
+        return _round_up(n, 4)
+    return 1 << int(n - 1).bit_length()
 
 
 class InferenceHandler:
     """Audio -> MIDI transcription.
 
     Args:
-      model: a vanilla MT3 (port) with its weights loaded; it is moved to
-        the handler's device.
+      model: an MT3 (port; vanilla or segment memory) with its weights
+        loaded; it is moved to the handler's device.
       weight_path: alternatively, a reference-format torch checkpoint to
         load into a default-config MT3 (reference: inference.py:31-42).
       mel_norm: clamp/scale log-mel to [0,1]; off for the official
         checkpoint (reference: test.py:123).
+      contiguous_inference: run each song as one sequential segment
+        chain so the memory propagates (reference: inference.py:176-181).
       filterbank_style: 'torch' for in-repo models, 'tf' for the official
         checkpoint.
+      segment_bucket: contiguous mode pads a song's segment count to a
+        multiple of it.
       quantize: 'none' (exact), or a tier of the CUDA window kernel:
         'fused_bf16', 'fused' (int8) or 'fused_int4' (the serving default
         on the card, guarded by the probe ladder of infer/probe.py).
       device: None or 'cuda' (raises without a card) or 'cpu'.
-    contiguous_inference, segmem models, a mesh and the 'int8' / 'int8_kv'
-    tiers are not yet ported.
+      segmem_chain: False reseeds the memory every segment (a diagnostic
+        ablation of ops/decode.py::segmem_greedy_decode).
+      segmem_memory_format: 'reference' keeps the start id in the carried
+        memory, 'train_aligned' drops it.
+    A mesh and the 'int8' / 'int8_kv' tiers are not yet ported.
     """
 
     SAMPLE_RATE = 16000
@@ -68,13 +102,13 @@ class InferenceHandler:
                  filterbank_style: str = 'torch',
                  batch_size: int = 8,
                  max_length: int = 1024,
+                 segment_bucket: int = 32,
                  quantize: str = 'none',
                  mesh=None,
-                 device=None):
+                 device=None,
+                 segmem_chain: bool = True,
+                 segmem_memory_format: str = 'reference'):
         self.device = resolve_device(device)
-        if contiguous_inference:
-            raise NotImplementedError(
-                'contiguous_inference=True not yet ported')
         if mesh is not None:
             raise NotImplementedError('multi-device mesh not yet ported')
         check_quantize(quantize)
@@ -84,14 +118,15 @@ class InferenceHandler:
             from mr_mt3_tpu_torch.models import MT3Config
             from mr_mt3_tpu_torch.utils.builders import load_weights
             model = load_weights(weight_path, MT3(MT3Config()))
-        if model.cfg.has_segmem:
-            raise NotImplementedError(
-                f'segmem_variant={model.cfg.segmem_variant!r} not yet ported')
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
         self.mel_norm = mel_norm
+        self.contiguous_inference = contiguous_inference
+        self.segmem_chain = segmem_chain
+        self.segmem_memory_format = segmem_memory_format
         self.batch_size = batch_size
         self.max_length = max_length
+        self.segment_bucket = segment_bucket
         self.quantize = quantize
         self.spectrogram_config = SpectrogramConfig(
             filterbank_style=filterbank_style)
@@ -159,14 +194,68 @@ class InferenceHandler:
             self._dp = stack_decode_params(self.model, quantize=self.quantize)
         return self._dp
 
+    def _call_sizes(self, n_real: int, floor: int, capped: bool) -> list:
+        """Device-call sizes for a leading axis of n_real chains or songs:
+        one pow2-bucketed call; on a window tier (capped) at most
+        FUSED_MAX_BATCH rows per call, full-cap calls plus a pow2-bucketed
+        remainder. Rows are independent, so the split changes no token."""
+        def bucket(n):
+            return max(floor, _pow2_bucket(n))
+        if not capped:
+            return [bucket(n_real)]
+        from mr_mt3_tpu_torch.ops.fused_decode import \
+            FUSED_MAX_BATCH as cap
+        if bucket(n_real) <= cap:
+            return [bucket(n_real)]
+        sizes = [cap] * (n_real // cap)
+        rem = n_real % cap
+        if rem:
+            sizes.append(min(bucket(rem), cap))
+        return sizes
+
+    def _segmem_decode(self, mel_segments: torch.Tensor,
+                       valid_mask: torch.Tensor) -> np.ndarray:
+        """(B, S, frames, mel_bins) chains -> tokens (B, S, max_length +
+        1) through segmem_greedy_decode in the handler's tier."""
+        dp = None if self.cfg.segmem_variant == 'decoder_prepend' \
+            else self._decode_params()
+        tokens = segmem_greedy_decode(
+            self.model, mel_segments, self.max_length, codec=self.codec,
+            vocab=self.vocab, quantize=self.quantize, valid_mask=valid_mask,
+            chain_memory=self.segmem_chain,
+            memory_format=self.segmem_memory_format, dp=dp)
+        return tokens.cpu().numpy()
+
+    def _call_in_sizes(self, stacked: torch.Tensor, sizes: list,
+                       n_real: int) -> np.ndarray:
+        """_segmem_decode over consecutive slices of `sizes` rows (rows
+        beyond n_real are padding and start finished)."""
+        parts, off = [], 0
+        for size in sizes:
+            real = max(0, min(size, n_real - off))
+            mask = torch.arange(size, device=self.device) < real
+            parts.append(self._segmem_decode(stacked[off:off + size], mask))
+            off += size
+        return np.concatenate(parts)
+
     def _decode_all(self, mel) -> np.ndarray:
         """mel (N, 256, mel_bins) -> model-space tokens (N, max_length + 1).
 
-        Segments decode in fixed batches of batch_size rows (capped at the
-        fused kernel's per-launch limit); the padding rows of the last
-        batch start finished."""
+        Contiguous mode decodes the N segments as one memory chain;
+        'encoder_append' models chain batch_size segments at a time;
+        vanilla segments decode in fixed batches of batch_size rows
+        (capped at the window kernel's per-launch limit), the padding rows
+        of the last batch starting finished."""
         mel = torch.as_tensor(mel, device=self.device)
         n = mel.shape[0]
+        if self.contiguous_inference:
+            padded = _round_up(n, max(self.segment_bucket, 1))
+            mel_p = torch.nn.functional.pad(
+                mel, (0, 0, 0, 0, 0, padded - n))[None]
+            mask = torch.ones(1, dtype=torch.bool, device=self.device)
+            return self._segmem_decode(mel_p, mask)[0][:n]
+        if self.cfg.segmem_variant == 'encoder_append':
+            return self._decode_segmem_chained([mel])[0]
         b = self.batch_size
         if self.quantize.startswith('fused'):
             from mr_mt3_tpu_torch.ops.fused_decode import FUSED_MAX_BATCH
@@ -185,6 +274,37 @@ class InferenceHandler:
                                    dp=dp)
             outs.append(tokens.cpu().numpy())
         return np.concatenate(outs)[:n]
+
+    def _decode_segmem_chained(self, mels: List[torch.Tensor]
+                               ) -> List[np.ndarray]:
+        """Non-contiguous decode of an 'encoder_append' model: the
+        reference chains the memory across the rows of every decode batch
+        (reference: models/t5_segmem_v2.py:169-233,
+        t5_segmem_v2_with_prev.py:226-297). Each song's segments are cut
+        into chains of batch_size (the tail padded at the chain's end, so
+        padding never feeds real memory), and all chains of all songs
+        decode in lockstep: batch axis = chains, loop axis = chain
+        position."""
+        b = self.batch_size
+        chains, all_chunks = [], []
+        for mel in mels:
+            mel = torch.as_tensor(mel, device=self.device)
+            n = mel.shape[0]
+            num_chunks = math.ceil(n / b)
+            mel_p = torch.nn.functional.pad(
+                mel, (0, 0, 0, 0, 0, num_chunks * b - n))
+            chains.append((n, len(all_chunks), num_chunks))
+            all_chunks.extend(mel_p.reshape((num_chunks, b) + mel.shape[1:]))
+        n_real = len(all_chunks)
+        sizes = self._call_sizes(n_real, floor=4,
+                                 capped=self.quantize.startswith('fused'))
+        stacked = torch.stack(all_chunks)
+        if sum(sizes) > n_real:
+            stacked = torch.nn.functional.pad(
+                stacked, (0, 0, 0, 0, 0, 0, 0, sum(sizes) - n_real))
+        tokens = self._call_in_sizes(stacked, sizes, n_real)
+        return [tokens[start:start + num_chunks].reshape(num_chunks * b, -1)
+                [:n] for n, start, num_chunks in chains]
 
     # ---- host-side postprocess (reference: inference.py:206-234) ----
 
@@ -226,17 +346,38 @@ class InferenceHandler:
         return self._to_note_sequence(codec_tokens, seg_times)
 
     def transcribe_many(self, audios) -> list:
-        """Transcribe several songs: all songs' segments are concatenated
-        into fixed decode batches. Outputs equal per-song transcribe()."""
+        """Transcribe several songs. Contiguous mode runs the songs in
+        lockstep, one memory chain each; 'encoder_append' models decode
+        every song's chains in lockstep; vanilla segments of all songs are
+        concatenated into fixed decode batches. Outputs equal per-song
+        transcribe()."""
         pre = [self._audio_to_segments(np.asarray(a, dtype=np.float32))
                for a in audios]
         mels = [self._compute_mel(segments, valid)
                 for segments, _, valid in pre]
-        all_tokens = self._decode_all(torch.cat(mels, dim=0))
-        results, start = [], 0
-        for m, (_, seg_times, _) in zip(mels, pre):
-            tokens = all_tokens[start:start + m.shape[0]]
-            start += m.shape[0]
+        if self.contiguous_inference:
+            max_s = _round_up(max(m.shape[0] for m in mels),
+                              max(self.segment_bucket, 1))
+            n_songs = len(mels)
+            sizes = self._call_sizes(n_songs, floor=1,
+                                     capped=self.quantize.startswith('fused'))
+            stacked = torch.stack([torch.nn.functional.pad(
+                m, (0, 0, 0, 0, 0, max_s - m.shape[0])) for m in mels])
+            if sum(sizes) > n_songs:
+                stacked = torch.nn.functional.pad(
+                    stacked, (0, 0, 0, 0, 0, 0, 0, sum(sizes) - n_songs))
+            tokens = self._call_in_sizes(stacked, sizes, n_songs)
+            per_song = [tokens[i, :m.shape[0]] for i, m in enumerate(mels)]
+        elif self.cfg.segmem_variant == 'encoder_append':
+            per_song = self._decode_segmem_chained(mels)
+        else:
+            all_tokens = self._decode_all(torch.cat(mels, dim=0))
+            per_song, start = [], 0
+            for m in mels:
+                per_song.append(all_tokens[start:start + m.shape[0]])
+                start += m.shape[0]
+        results = []
+        for tokens, (_, seg_times, _) in zip(per_song, pre):
             codec_tokens = self._postprocess(tokens)
             results.append(self._to_note_sequence(codec_tokens, seg_times))
         return results

@@ -7,8 +7,9 @@ handler's quantized path AND an exact twin and counts token flips, so the
 server can demote its tier ('fused_int4' -> 'fused' -> 'fused_bf16' ->
 'none') before it trusts the quantized numerics on the weights it serves.
 Names, info-dict keys and printed wording are the JAX package's, so
-/healthz reads the same on both servers. Segment-memory handlers are not
-ported: the encoder_append margin branch raises.
+/healthz reads the same on both servers. For an 'encoder_append' model
+the teacher-forced margins rebuild the carried memory from the decoded
+tokens, and a contiguous handler's probe rows form one chain.
 """
 
 from __future__ import annotations
@@ -52,13 +53,17 @@ PROBE_MAX_LENGTH = 256
 
 
 def _probe_twin(handler, quantize: str, max_length: int):
-    """A handler sharing `handler`'s model, device and config, with the
+    """A handler sharing `handler`'s model, device and decode config
+    (contiguous mode, segment bucket, memory chain and format), with the
     given quantize tier and (short) decode length."""
     from mr_mt3_tpu_torch.infer.handler import InferenceHandler
     twin = InferenceHandler(
         model=handler.model, mel_norm=handler.mel_norm,
+        contiguous_inference=handler.contiguous_inference,
         batch_size=handler.batch_size, max_length=max_length,
-        quantize=quantize, device=handler.device)
+        segment_bucket=handler.segment_bucket, quantize=quantize,
+        device=handler.device, segmem_chain=handler.segmem_chain,
+        segmem_memory_format=handler.segmem_memory_format)
     twin.spectrogram_config = handler.spectrogram_config
     return twin
 
@@ -105,27 +110,36 @@ def quantize_probe(handler, max_length: int = None, classify: bool = False):
 def _teacher_forced_margins(handler, mel, tokens, dtype: str = None):
     """Top1-minus-top2 margins + greedy argmax of a teacher-forced forward
     over the exact decode's own tokens (one parallel forward with the
-    greedy loop's conditioning). dtype overrides the model's compute
+    greedy loop's conditioning). For an 'encoder_append' model the rows
+    are one chain: row 0 remembers the seed, row r the tokens of row r-1
+    in the handler's memory format. dtype overrides the model's compute
     dtype: a twin model with the same weights under cfg.replace(dtype=...)
     calibrates the numeric noise. Returns (margins (N, L) np.float32,
     greedy (N, L) np, valid (N, L) bool); valid marks positions up to each
     row's first EOS."""
-    import dataclasses
-
     cfg = handler.cfg
-    if cfg.segmem_variant == 'encoder_append':
-        raise NotImplementedError(
-            'encoder_append probe margins not yet ported')
     model = handler.model
     if dtype is not None and dtype != cfg.dtype:
         from mr_mt3_tpu_torch.models import MT3
-        twin = MT3(dataclasses.replace(cfg, dtype=dtype))
+        twin = MT3(cfg.replace(dtype=dtype))
         twin.load_state_dict(model.state_dict())
         model = twin.to(handler.device).eval()
-    tokens = np.asarray(tokens)                   # (N, L+1), col 0 start id
-    ids = torch.as_tensor(tokens[:, :-1], dtype=torch.long,
-                          device=handler.device)
-    logits = model(torch.as_tensor(mel, device=handler.device), ids)
+    tokens = np.array(tokens)                     # (N, L+1), col 0 start id
+    dev = handler.device
+    prev = None
+    if cfg.segmem_variant == 'encoder_append':
+        from mr_mt3_tpu_torch.ops.decode import initial_segmem_tokens
+        L = tokens.shape[1] - 1
+        seed = initial_segmem_tokens(cfg, 1, L, codec=handler.codec,
+                                     vocab=handler.vocab).numpy()
+        if handler.segmem_memory_format == 'train_aligned':
+            carried = tokens[:-1, 1:L + 1]
+        else:
+            carried = tokens[:-1, :L]
+        prev = torch.as_tensor(np.concatenate([seed, carried], axis=0),
+                               dtype=torch.long, device=dev)
+    ids = torch.as_tensor(tokens[:, :-1], dtype=torch.long, device=dev)
+    logits = model(torch.as_tensor(mel, device=dev), ids, targets_prev=prev)
     top2 = torch.topk(logits.float(), 2, dim=-1).values
     margins = (top2[..., 0] - top2[..., 1]).cpu().numpy()   # (N, L)
     greedy = logits.argmax(-1).cpu().numpy()
@@ -154,9 +168,9 @@ def classify_flips(handler, quant, exact, mel) -> dict:
     margin exceeds the measured noise ceiling is MATERIAL (the quantized
     path overrode a confident decision). Only each row's FIRST flip is
     classified: past it the two paths condition on different prefixes.
-    Vanilla rows are independent decodes, so downstream_rows (rows after
-    a diverged row of one segment-memory chain) stays 0 until segment
-    memory is ported.
+    A contiguous segment-memory handler's probe rows form ONE chain, so
+    the rows after its first diverged row are incomparable and counted as
+    downstream_rows.
 
     Returns {material_rows, benign_rows, downstream_rows, rows,
     material_margin, margin_noise, first_flip_margins}."""
@@ -168,13 +182,19 @@ def classify_flips(handler, quant, exact, mel) -> dict:
     noise = float(np.abs(margins - margins_f32)[valid].max())
     tau = max(MATERIAL_NOISE_SAFETY * noise, MATERIAL_MARGIN_FLOOR)
     diff = quant != exact                          # (N, L+1)
+    chained = bool(handler.contiguous_inference
+                   and handler.cfg.segmem_variant == 'encoder_append')
     out = {'material_rows': 0, 'benign_rows': 0, 'downstream_rows': 0,
            'rows': int(quant.shape[0]),
            'material_margin': round(tau, 5),
            'margin_noise': round(noise, 6),
            'first_flip_margins': []}
+    upstream_diverged = False
     for r in range(quant.shape[0]):
         if not diff[r].any():
+            continue
+        if chained and upstream_diverged:
+            out['downstream_rows'] += 1
             continue
         p = int(diff[r].argmax())                  # token coords; col 0 seed
         m = float(margins[r, p - 1]) if p >= 1 else float('inf')
@@ -183,6 +203,7 @@ def classify_flips(handler, quant, exact, mel) -> dict:
             out['material_rows'] += 1
         else:
             out['benign_rows'] += 1
+        upstream_diverged = chained
     return out
 
 
@@ -192,7 +213,11 @@ def margin_stats(handler, max_length: int = None) -> dict:
     its margin is within the fused tiers' numeric noise). Rescoring is
     teacher-forced on the exact decode's own tokens; only positions up to
     each row's EOS count. Returns {margin_min, margin_p1, margin_p5,
-    margin_median, tokens, teacher_forced_agreement}."""
+    margin_median, tokens, teacher_forced_agreement}, or {'error': ...}
+    for a decoder_prepend model (no teacher-forced surface for its
+    decode)."""
+    if handler.cfg.segmem_variant == 'decoder_prepend':
+        return {'error': 'decoder_prepend probe margins unsupported'}
     max_length = (min(handler.max_length, PROBE_MAX_LENGTH)
                   if max_length is None else max_length)
     mel = probe_mel(handler)

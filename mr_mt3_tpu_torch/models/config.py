@@ -30,12 +30,24 @@ class MT3Config:
     pad_token_id: int = 0
     eos_token_id: int = 1
 
-    # segment memory family (MR-MT3): None = vanilla MT3, the only family
-    # the port serves so far; a segmem config is rejected, not misread
+    # segment memory family (MR-MT3)
+    # None = vanilla MT3; 'decoder_prepend' = v1; 'encoder_append' = v2 /
+    # v2-with-prev (the paper's model)
     segmem_variant: Optional[str] = None
+    segmem_length: int = 64
+    segmem_num_layers: int = 1
+    # first-segment decode memory seed: 'tie_eos' (v2-with-prev) or 'eos'
+    # (v1 / v2)
+    segmem_seed: str = 'tie_eos'
 
     # compute dtype for activations ('float32' or 'bfloat16'); params fp32
     dtype: str = 'float32'
+    # full-sequence attention (models/mt3.py Attention.attend):
+    #   'auto'   -- the CUDA fused_attention kernel for a bfloat16 model on
+    #               the card, einsum otherwise (CPU, fp32 parity runs);
+    #   'einsum' -- always the plain matmul + softmax;
+    #   'fused'  -- always the fused path (its plain version on the CPU).
+    attention_kernel: str = 'auto'
 
     @property
     def inner_dim(self) -> int:
@@ -48,6 +60,9 @@ class MT3Config:
     @property
     def has_segmem(self) -> bool:
         return self.segmem_variant is not None
+
+    def replace(self, **kwargs) -> 'MT3Config':
+        return dataclasses.replace(self, **kwargs)
 
 
 def config_from_dict(d: dict) -> MT3Config:
@@ -66,5 +81,9 @@ def config_from_dict(d: dict) -> MT3Config:
         pad_token_id=d.get('pad_token_id', 0),
         eos_token_id=d.get('eos_token_id', 1),
         segmem_variant=d.get('segmem_variant'),
+        segmem_length=d.get('segmem_length', 64),
+        segmem_num_layers=d.get('segmem_num_layers', 1),
+        segmem_seed=d.get('segmem_seed', 'tie_eos'),
         dtype=d.get('dtype', 'float32'),
+        attention_kernel=d.get('attention_kernel', 'auto'),
     )

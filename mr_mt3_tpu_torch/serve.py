@@ -14,7 +14,10 @@ Usage:
   python -m mr_mt3_tpu_torch.serve --port 8742 [path=<checkpoint>]
       [--config-name=... model=...] [device=cpu]
 
-With no path, serves seeded random weights (plumbing/latency testing). The
+model=MT3NetSegMemV2WithPrev trainer.precision=bf16 serves the MR-MT3
+segment-memory model, its memory encoder's attention on the CUDA
+fused_attention kernel. With no path, serves seeded random weights
+(plumbing/latency testing). The
 decode tier defaults to 'fused_int4' (the CUDA window kernel in its int4
 mode) on the card, as the JAX server does on the TPU, and to the exact path
 with device=cpu; eval.quantize overrides it. Before traffic,
@@ -100,15 +103,17 @@ def prepare_handler(handler, probe: bool = True):
        margin numeric noise cannot cross) demotes one tier ('fused_int4'
        -> 'fused' -> 'fused_bf16' -> 'none'). Benign near-tie flips keep
        the tier and are reported.
-    2. prewarm: one transcribe_many on the probe audio, the path every
-       request takes, so the first request finds the kernel built and
-       loaded.
+    2. prewarm: transcribe_many on the probe audio, the path every
+       request takes, so the first request finds the kernels built and
+       loaded, once per distinct device-call size real traffic can take:
+       vanilla non-contiguous decodes pad every call to one batch shape
+       (bucket list [1]); contiguous mode warms each lockstep song bucket
+       up to MicroBatcher.MAX_COALESCE; an 'encoder_append' model warms
+       each pow2 chain bucket up to handler.POW2_BUCKET_CAP. Counts that
+       give no new call size (handler._call_sizes) are skipped.
     A probe or prewarm failure demotes one tier (and re-runs the ladder)
     only where probe.demotes_on_error allows it, the CPU; on the card, and
     at 'none', it re-raises.
-    Only the vanilla non-contiguous prewarm is ported: its decode pads
-    every call to one batch shape, so one song warms all traffic (bucket
-    list [1]); the contiguous and chain buckets come with segment memory.
     """
     from mr_mt3_tpu_torch.infer import probe as probe_mod
 
@@ -145,8 +150,10 @@ def prepare_handler(handler, probe: bool = True):
                       file=sys.stderr)
         t0 = time.monotonic()
         prewarm_before = info.get('prewarm_seconds', 0.0)
+        audio, counts = prewarm_plan(handler)
         try:
-            handler.transcribe_many([probe_mod.probe_audio(2)])
+            for k in counts:
+                handler.transcribe_many([audio] * k)
         except Exception as e:  # noqa: BLE001
             # treat a prewarm failure like a probe failure: demote one
             # tier and re-run the ladder from there; at 'none' there is no
@@ -162,13 +169,48 @@ def prepare_handler(handler, probe: bool = True):
         info['prewarm_seconds'] = round(
             prewarm_before + time.monotonic() - t0, 1)
         info['prewarmed'] = True
-        info['prewarm_buckets'] = [1]
+        info['prewarm_buckets'] = counts
         break
     info['quantize'] = handler.quantize
     print(f'serving decode path: quantize={handler.quantize!r} '
           f'(probe={info.get("probe_flips", "skipped")} flips, '
           f'prewarmed={info["prewarmed"]})')
     return info
+
+
+def prewarm_plan(handler):
+    """(probe audio, song counts) for prepare_handler's prewarm: one
+    count for each new device-call size the handler's decode can take."""
+    from mr_mt3_tpu_torch.infer import probe as probe_mod
+    from mr_mt3_tpu_torch.infer.handler import POW2_BUCKET_CAP
+    audio = probe_mod.probe_audio(2)
+    capped = handler.quantize.startswith('fused')
+    if handler.contiguous_inference:
+        # leading axis = lockstep songs, bounded by the coalesce cap
+        floor = 1
+        candidates = [1 << i for i in range(
+            (MicroBatcher.MAX_COALESCE - 1).bit_length() + 1)]
+    elif handler.cfg.segmem_variant == 'encoder_append':
+        # leading axis = memory chains (ceil(segments / batch_size) per
+        # song, floor 4): one long song gives more chains than the
+        # coalesce cap has songs, so every pow2 chain bucket is warmed.
+        # The probe song must be exactly one chain, so k songs give k
+        # chains: at batch_size 1 the 2-segment probe would be 2.
+        if handler.batch_size < 2:
+            audio = probe_mod.probe_audio(1)
+        floor = 4
+        candidates = [1 << i for i in range(POW2_BUCKET_CAP.bit_length())]
+    else:
+        # vanilla non-contiguous: every call is padded to one batch shape
+        return audio, [1]
+    counts, seen = [], set()
+    for k in candidates:
+        new = [s for s in handler._call_sizes(k, floor=floor, capped=capped)
+               if s not in seen]
+        if new:
+            seen.update(new)
+            counts.append(k)
+    return audio, counts
 
 
 class MicroBatcher:

@@ -14,12 +14,18 @@ from mr_mt3_tpu_torch.utils.config import ConfigNode
 
 
 def build_model(cfg: ConfigNode) -> MT3:
-    """cfg.model -> MT3 module on the CPU (vanilla models only)."""
-    if cfg.model.get('segmem_variant'):
-        raise NotImplementedError(
-            f"segmem_variant={cfg.model.get('segmem_variant')!r} "
-            'not yet ported')
+    """cfg.model -> MT3 module on the CPU (vanilla or segment memory; the
+    segmem fields live in the model YAML)."""
     model_dict = cfg.model.config.to_dict()
+    model_dict['segmem_variant'] = cfg.model.get('segmem_variant')
+    model_dict['segmem_length'] = cfg.model.get('segmem_length', 64)
+    model_dict['segmem_num_layers'] = cfg.model.get('segmem_num_layers', 1)
+    # v2 seeds its decode memory with [EOS] only; with-prev adds the tie
+    # token (reference: models/t5_segmem_v2.py:189-195 vs
+    # t5_segmem_v2_with_prev.py:246-259)
+    task = cfg.model.get('task') or {}
+    if task.get('segmem') == 'v2':
+        model_dict['segmem_seed'] = 'eos'
     precision = str((cfg.get('trainer') or {}).get('precision', '32'))
     if precision in ('bf16', 'bf16-mixed', 'bfloat16'):
         model_dict['dtype'] = 'bfloat16'

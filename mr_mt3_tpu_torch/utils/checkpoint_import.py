@@ -28,7 +28,9 @@ _IGNORED_PATTERNS = (
     re.compile(r'^(encoder|decoder|segmem_encoder)\.embed_tokens\.weight$'),
     re.compile(r'^shared\.weight$'),
     re.compile(r'relative_attention_bias'),
-    re.compile(r'^segmem_'),
+    # vestigial in the reference (built, then bypassed through
+    # inputs_embeds: reference models/t5_segmem.py:57,134-135)
+    re.compile(r'^segmem_proj\.weight$'),
 )
 
 
@@ -46,9 +48,11 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
     out['proj.weight'] = get('proj', 'kernel').T
     out['decoder_embed_tokens.weight'] = get('token_embed', 'embedding')
     out['lm_head.weight'] = get('lm_head', 'kernel').T
-    for stack, n_layers, is_decoder in (
-            ('encoder', cfg.num_encoder_layers, False),
-            ('decoder', cfg.num_decoder_layers, True)):
+    stacks = [('encoder', cfg.num_encoder_layers, False),
+              ('decoder', cfg.num_decoder_layers, True)]
+    if cfg.has_segmem and 'segmem_encoder' in params:
+        stacks.append(('segmem_encoder', cfg.segmem_num_layers, False))
+    for stack, n_layers, is_decoder in stacks:
         for i in range(n_layers):
             block = f'block_{i}'
             prefix = f'{stack}.block.{i}.layer'

@@ -1,10 +1,10 @@
-"""The CUDA fused_decode_window kernel against its plain PyTorch version
-on the card, in its three modes. Imports no JAX, so it runs where the card
-is:
+"""The CUDA kernels against their plain PyTorch versions on the card:
+fused_decode_window in its three modes and fused_attention_fwd. Imports no
+JAX, so it runs where the card is:
 
     python -m pytest tests/test_torch_fused_decode_gpu.py -m gpu -q
 
-Without a card every test here skips (the kernel has no CPU form).
+Without a card every test here skips (the kernels have no CPU form).
 """
 
 import pytest
@@ -211,3 +211,70 @@ def test_int_wrapper_checks_operands(cuda):
     with pytest.raises(ValueError, match='shape'):
         fd.fused_decode_window_cuda(cfg, dp.fused, pos_rows, tokens,
                                     finished, 0, unpacked, cross, 8)
+
+
+# fused_attention_fwd against its plain version: the two sum in other
+# orders, so a bf16 output or probability near a rounding midpoint may
+# round one ulp apart
+ATTN_MAX_UNEQUAL = 2e-3
+ATTN_MAX_REL = 2.0 ** -7
+
+
+@pytest.mark.parametrize('b,lq,lk,h,d,causal,kv_valid', [
+    (2, 64, 64, 2, 64, False, None),
+    (2, 128, 100, 2, 24, False, None),
+    (1, 96, 96, 3, 64, True, None),
+    (1, 40, 40, 2, 128, True, None),
+    (2, 64, 256, 2, 32, False, 200),
+    (2, 64, 80, 2, 32, False, None),
+    (1, 48, 48, 2, 16, True, None),
+])
+def test_attention_kernel_matches_plain_version(cuda, b, lq, lk, h, d,
+                                                causal, kv_valid):
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    gen = torch.Generator().manual_seed(lq + lk + d)
+    q, k, v = [torch.randn((b, n, h, d), generator=gen).to(cuda,
+                                                             torch.bfloat16)
+               for n in (lq, lk, lk)]
+    before = ta.LAUNCHES[ta.KERNEL]
+    got = ta.fused_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES[ta.KERNEL] == before + 1
+    kp, vp, real = ta._pad_kv(k, v)
+    want = ta.fused_attention_reference(q, kp, vp, causal,
+                                        kv_valid or real)
+    assert got.shape == want.shape
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert float((got != want).float().mean()) <= ATTN_MAX_UNEQUAL
+    assert err <= ATTN_MAX_REL
+
+
+def test_attention_wrapper_on_the_card(cuda):
+    """A gradient raises; float32 raises (the kernel is bf16 only); an Lk
+    past the shared memory raises before any launch; a model at bf16
+    routes its long attention to the kernel."""
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    q = torch.zeros((1, 16, 2, 16), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match='backward'):
+        ta.fused_attention(q, q, q)
+    f32 = torch.zeros((1, 16, 2, 16), device=cuda)
+    before = ta.LAUNCHES[ta.KERNEL]
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        ta.fused_attention(f32, f32, f32)
+    assert ta.LAUNCHES[ta.KERNEL] == before
+    big = torch.zeros((1, 4096, 2, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='shared memory'):
+        ta.fused_attention(big[:, :16], big, big)
+    cfg = SMALL.replace(dtype='bfloat16', segmem_variant='encoder_append',
+                        segmem_length=8)
+    model = init_params(MT3(cfg), seed=0).to(cuda).eval()
+    before = ta.LAUNCHES[ta.KERNEL]
+    with torch.no_grad():
+        model(torch.rand((1, 256, cfg.mel_bins), device=cuda),
+              torch.zeros((1, 512), dtype=torch.long, device=cuda))
+    torch.cuda.synchronize()
+    # memory encoder + 2 decoder layers x (causal self, cross)
+    assert ta.LAUNCHES[ta.KERNEL] == before + 1 + 2 * 2

@@ -126,13 +126,14 @@ def test_unported_tiers_raise(golden, quantize):
 
 
 def test_unported_paths_raise(golden):
+    """A mesh is not yet ported; unknown tiers and segment-memory variants
+    raise. (Contiguous inference and the segmem models are ported:
+    tests/test_torch_segmem.py.)"""
     _, _, model = golden
     with pytest.raises(NotImplementedError, match='not yet ported'):
-        _handler(model, contiguous_inference=True)
-    with pytest.raises(NotImplementedError, match='not yet ported'):
         _handler(model, mesh=object())
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        MT3(MT3Config(segmem_variant='encoder_append'))
+    with pytest.raises(ValueError, match='unknown segmem_variant'):
+        MT3(MT3Config(segmem_variant='encoder_prepend'))
     with pytest.raises(ValueError, match='unknown quantize'):
         _handler(model, 'int3')
 

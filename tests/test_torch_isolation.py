@@ -49,8 +49,10 @@ def test_importing_the_port_builds_nothing():
             'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
             '    importlib.import_module(m.name)\n'
             'from mr_mt3_tpu_torch.ops import cuda_build, fused_decode\n'
+            'from mr_mt3_tpu_torch.ops import train_attention\n'
             'assert not cuda_build._libs\n'
             'assert not any(fused_decode.LAUNCHES.values())\n'
+            'assert not any(train_attention.LAUNCHES.values())\n'
             'assert not any(n.split(".")[0] in ("jax", "mr_mt3_tpu")\n'
             '               for n in sys.modules), "jax imported"\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -205,8 +205,8 @@ class TestLadder:
 
     def test_decoder_prepend_demoted_without_probe(self):
         """A decoder_prepend model has no window-kernel path: straight to
-        'none', no probe (a stand-in handler: the port cannot build
-        segmem models yet)."""
+        'none', no probe (a stand-in handler; tests/test_torch_segmem.py
+        runs a real one)."""
         demoted = []
         handler = types.SimpleNamespace(
             quantize='fused_int4',
