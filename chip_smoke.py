@@ -8,8 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every kernel of the main paths from csrc/ (nvcc, one process
-     per source, started together): fused_decode_window and
-     fused_attention_fwd;
+     per source, started together): fused_decode_window,
+     fused_attention_fwd and fused_attention_bwd;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -57,11 +57,30 @@ Phases (any failure exits non-zero and prints no result line):
      prepare_handler(probe=False)): the same clips, every answer MIDI;
   9. one worst-case decode (B=8, 1024 steps) on each window tier and on
      the exact path (fp32, TF32 off), and one chained segment-memory
-     decode on fused_bf16 (8 chains x 8 segments x 1024 steps).
-Launch counts are zeroed just before each of phases 6, 7 and 8 and read
-just after; the window launches must cover every window the decoded tokens
-needed. Then one JSON line of kernel numbers, the card line, and the
-result line.
+     decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
+ 10. fused_attention_bwd against its plain version at the training step's
+     shapes (ATTN_BWD_CASES: B 12, the memory encoder, the decoder's
+     causal and cross attentions, head width 24), called through autograd
+     as the model calls it, within ATTN_BWD_BOUNDS, two runs bit-identical,
+     with the kernel's time, the plain version's, the bound and the
+     backward of scaled_dot_product_attention (a yardstick);
+ 11. training parity on the card: the full-width segment-memory model at
+     bf16, one batch on each of two seeds, loss and every gradient with
+     the attention kernels against attention_kernel='einsum' and against
+     the kernels' plain versions, the plain versions against einsum at
+     fp32 (TRAIN_PARITY_BOUNDS), a control (dk scaled) the bounds must
+     catch, ms per train step on both routes, and an fp32 step on the card
+     against the CPU;
+ 12. training main path: `python -m mr_mt3_tpu_torch.train` with TRAIN_ARGS
+     (the paper's recipe at bf16) through train.main(argv) on a fabricated
+     Slakh-format corpus: 2 epochs with validation, then a resume from
+     'last' for one more; finite losses, loadable checkpoints, the step
+     going on, and the attention kernels' launches equal to the long
+     attentions the steps ran (forward and backward).
+Launch counts are zeroed just before each of phases 6, 7, 8 and each leg
+of 12 and read just after; the window launches must cover every window the
+decoded tokens needed. Then one JSON line of kernel numbers, the card
+line, and the result line.
 """
 
 import json
@@ -958,6 +977,138 @@ def attention_cases(torch):
     return results
 
 
+# fused_attention_bwd against its plain version on the same inputs. Both
+# recompute f32 scores and an f32 softmax and round p and ds to bf16, and
+# sum in other orders, so a value near a bf16 rounding midpoint rounds one
+# step apart; dq sums ds k, whose terms cancel (each row of ds sums to
+# zero), so its f32 noise is large against its value and more of its
+# roundings flip. Per gradient: rel_err, the largest |difference| over the
+# largest |plain value|; unequal, the share of values not equal;
+# ulp_apart, the share more than one bf16 step (of the larger magnitude)
+# apart. Bounds at about 3x the largest reading of the calibration run
+# (run Q, NVIDIA H100 80GB HBM3, 700 W; PERF.md): rel_err 0.0034 (one
+# bf16 step of the largest value), unequal 0.0082 and ulp_apart 0.0046
+# (both dq's; dk and dv read at most 0.0015 and 0.00025).
+ATTN_BWD_BOUNDS = {'rel_err': 1e-2, 'unequal': 2.5e-2, 'ulp_apart': 1.5e-2}
+# (name, batch, Lq, Lk, heads, head width, causal) at the training step's
+# B 12 (num_rows_per_batch): the memory encoder, the decoder's causal
+# self-attention and its cross-attention over 256 + 64 rows (padded to
+# 384) at a bucketed target length of 1024, and the head width 24
+ATTN_BWD_CASES = [
+    ('memory_encoder_b12', 12, 1024, 1024, 6, 64, False),
+    ('decoder_causal_b12', 12, 1024, 1024, 6, 64, True),
+    ('cross_1024x320_b12', 12, 1024, 320, 6, 64, False),
+    ('d24_b12', 12, 1024, 1024, 4, 24, False),
+]
+
+
+def bf16_steps_apart(torch, got, want):
+    """Share of entries more than one bf16 step (of the larger magnitude)
+    apart."""
+    mag = torch.maximum(got.abs(), want.abs())
+    _, exp = torch.frexp(mag)
+    step = torch.ldexp(torch.ones_like(mag), exp - 8)
+    return float(((got - want).abs() > step).float().mean())
+
+
+def attention_backward_bound_ms(b, lq, kv_valid, h, d, causal):
+    """Least time for the backward as a function: q, dO, the kv_valid K/V
+    rows, dq and the kv_valid dK/dV rows moved once (bf16), against HBM;
+    and the multiply-adds of its five products (q k^T, dO v^T, p^T dO,
+    ds k, ds^T q) over the columns each row sees, at the bf16 tensor-core
+    peak. Returns (ms, bound_by)."""
+    cols = sum(min(kv_valid, i + 1) if causal else kv_valid
+               for i in range(lq))
+    flops = 10 * b * h * d * cols
+    nbytes = 2 * b * h * d * (3 * lq + 4 * kv_valid)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def attention_backward_cases(torch):
+    """fused_attention_bwd vs its plain version at the training step's
+    shapes: autograd through fused_attention (as models/mt3.py calls it, on
+    the unpadded K/V: the padding's gradient trimmed) against
+    fused_attention_backward_reference on the padded K/V; two kernel runs
+    on the same inputs must be bit-identical. Then the kernel's time
+    (fused_attention_backward_cuda on the padded K/V), the plain
+    version's, the bound and the backward of PyTorch's
+    scaled_dot_product_attention (torch.autograd.grad, scale 1.0, the same
+    padded tensors; a yardstick the port never calls)."""
+    phase('fused_attention_bwd vs plain (full width)')
+    import torch.nn.functional as F
+
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(5)
+    results, bad = [], []
+    for name, b, lq, lk, h, d, causal in ATTN_BWD_CASES:
+        q, k, v, do = [torch.randn((b, n, h, d), generator=gen).to(
+            dev, torch.bfloat16) for n in (lq, lk, lk, lq)]
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = ta.LAUNCHES[ta.KERNEL_BWD]
+        out = ta.fused_attention(*leaves, causal=causal)
+        got = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        if ta.LAUNCHES[ta.KERNEL_BWD] != before + 1:
+            fail(f'{name}: the backward did not launch the kernel')
+        kp, vp, valid = ta._pad_kv(k, v)
+        want = ta.fused_attention_backward_reference(q, kp, vp, do, causal,
+                                                     valid)
+        readings = {}
+        for g_name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+            w = w[:, :g.shape[1]].float()
+            g = g.float()
+            diff = (g - w).abs()
+            readings[g_name] = {
+                'max_abs_err': float(diff.max()),
+                'rel_err': float(diff.max()) / float(w.abs().max()),
+                'unequal': float((g != w).float().mean()),
+                'ulp_apart': bf16_steps_apart(torch, g, w)}
+            bad += [f'{name} {g_name}: {key} {readings[g_name][key]:.4g} > '
+                    f'{bound}' for key, bound in ATTN_BWD_BOUNDS.items()
+                    if readings[g_name][key] > bound]
+        del got, want, out, leaves
+        first = ta.fused_attention_backward_cuda(q, kp, vp, do, causal, valid)
+        again = ta.fused_attention_backward_cuda(q, kp, vp, do, causal, valid)
+        identical = all(torch.equal(x, y) for x, y in zip(first, again))
+        if not identical:
+            bad.append(f'{name}: two runs on the same inputs differ')
+        del first, again
+        ms = time_ms(torch, lambda: ta.fused_attention_backward_cuda(
+            q, kp, vp, do, causal, valid))
+        plain_ms = time_ms(torch, lambda: ta.fused_attention_backward_reference(
+            q, kp, vp, do, causal, valid), runs=PLAIN_TIMED_RUNS, warmup=0)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, kp, vp))
+        mask = None
+        if valid < kp.shape[1]:
+            mask = (torch.arange(kp.shape[1], device=dev) < valid).expand(
+                lq, kp.shape[1])
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal, scale=1.0)
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
+        bound, bound_by = attention_backward_bound_ms(b, lq, valid, h, d,
+                                                      causal)
+        case = {'case': name, 'batch': b, 'lq': lq, 'lk': kp.shape[1],
+                'kv_valid': valid, 'heads': h, 'head_width': d,
+                'causal': causal, **readings, 'bit_identical': identical,
+                'max_abs_err': max(r['max_abs_err']
+                                   for r in readings.values()),
+                'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
+                'bound_ms': bound, 'bound_by': bound_by}
+        print(json.dumps(case), flush=True)
+        results.append(case)
+        del q, k, v, do, kp, vp, qt, kt, vt, lib_out, dot
+        torch.cuda.empty_cache()
+    if bad:
+        fail('fused_attention_bwd vs plain version: ' + '; '.join(bad))
+    return results
+
+
 # tests/parity_common.py:39-42: the segment-memory parity models
 WITHPREV_KW = dict(segmem_variant='encoder_append', segmem_length=16)
 V1_KW = dict(segmem_variant='decoder_prepend', segmem_length=16,
@@ -1209,6 +1360,513 @@ def segmem_worst_case(torch):
     return out
 
 
+# ---- training (the train CLI's main path) --------------------------------
+
+TRAIN_DIR = os.path.join(REPO, '.chip_smoke_train')
+# the paper's recipe (train.py:5-7) at bf16 on the card, its eval hook off
+# (not ported); every override below the model's is a cut of scale
+TRAIN_ARGS = ['--config-name=config_slakh_segmem',
+              'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',
+              'model_segmem_length=64', 'trainer.precision=bf16',
+              'eval.audio_dir=null']
+# The bf16 training step of the full-width model (one batch, dropout off)
+# with the attention kernels, per parameter gradient, against (a)
+# attention_kernel='einsum', which rounds its scores to bf16 before the
+# softmax; (b) the same fused route with the kernels' plain versions,
+# which differ from the kernels only in sum order; (c) at fp32, the plain
+# versions against einsum (sum order only, no bf16 rounding). Readings:
+# the loss's relative difference; per parameter the largest |difference|
+# over the largest |value| (grad_rel) and the difference's norm over the
+# value's (grad_norm_rel), worst and median. Run T (seeds 0 / 1; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md) read: (c) loss 0 / 0, grad_rel 3.2e-5 /
+# 4.3e-5, grad_norm_rel 2.2e-5 / 3.2e-5, so the two routes compute one
+# function and (a) and (b) are bf16 rounding carried through 17 layers;
+# (b) loss 3.9e-5 / 6.3e-5, grad_rel 0.17 / 0.24 (median 0.076 / 0.098),
+# grad_norm_rel 0.149 / 0.159 (median 0.085 / 0.110); (a) loss 8.2e-5 /
+# 9.9e-5, grad_rel 0.29 / 0.74 (median 0.14 / 0.19), grad_norm_rel 0.25 /
+# 0.44 (median 0.15 / 0.22). Bounds at 2x the larger reading ((c) at
+# about 3x): the readings repeat to the digit on the same seeds (runs Q,
+# R, S), and the control (dk x 1.3) read grad_norm_rel 1.15 (median 0.41)
+# and grad_rel 1.33 (median 0.39) against (b)'s reference, past every
+# bound of (b). (a) checks scale and sign only; (b) with its control and
+# (c) carry the check.
+TRAIN_PARITY_BOUNDS = {
+    'kernel_vs_einsum': {'loss_rel': 2e-4, 'grad_rel': 1.5,
+                         'grad_rel_median': 0.4, 'grad_norm_rel': 0.9,
+                         'grad_norm_rel_median': 0.45},
+    'kernel_vs_plain': {'loss_rel': 1.3e-4, 'grad_rel': 0.48,
+                        'grad_rel_median': 0.2, 'grad_norm_rel': 0.32,
+                        'grad_norm_rel_median': 0.22},
+    'f32_plain_vs_einsum': {'loss_rel': 1e-6, 'grad_rel': 1.5e-4,
+                            'grad_norm_rel': 1e-4}}
+TRAIN_PARITY_SEEDS = (0, 1)
+# the control: the backward kernel's dk scaled by this must break
+# TRAIN_PARITY_BOUNDS['kernel_vs_plain']
+TRAIN_PARITY_CONTROL_DK = 1.3
+# fp32 on the card (TF32 off) vs the CPU: the same math in other sum orders
+TRAIN_F32_LOSS_RTOL = 1e-5
+# training steps timed per attention route for the ms/step yardstick
+TRAIN_TIMED_STEPS = 5
+
+
+def training_corpus(root, songs, seconds, dense, seed):
+    """A Slakh-format corpus: `songs` songs of `seconds` s noise audio
+    (WAV) and three stems (piano, bass, drums) written as MIDI by the
+    port's writer, one note every 0.05 s per stem where `dense` (so a
+    2.048 s segment's targets bucket to 768 or 1024 tokens and the
+    decoder's attentions take the kernels), every 0.4 s otherwise."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.codec import note_sequences as nsq
+    from mr_mt3_tpu_torch.midi import note_sequence_to_midi_file
+    rng = np.random.default_rng(seed)
+    stems = [('Acoustic Piano', 0, False), ('Electric Bass', 33, False),
+             ('Drums', 0, True)]
+    for si in range(songs):
+        d = os.path.join(root, f'Track{seed:02d}{si:03d}')
+        os.makedirs(os.path.join(d, 'MIDI'))
+        audio = rng.normal(size=int(16000 * seconds)).astype('float32')
+        with open(os.path.join(d, 'mix_16k.wav'), 'wb') as f:
+            f.write(wav_bytes(audio * 0.05))
+        gap = 0.05 if dense[si] else 0.4
+        names = {}
+        for ti, (name, program, drum) in enumerate(stems):
+            ns = nsq.NoteSequence()
+            for i in range(int((seconds - 0.5) / gap)):
+                ns.add_note(start_time=i * gap, end_time=i * gap + 0.04,
+                            pitch=int(rng.integers(36, 84)), velocity=100,
+                            program=program, is_drum=drum,
+                            instrument=9 if drum else 0)
+            ns.total_time = seconds
+            note_sequence_to_midi_file(
+                ns, os.path.join(d, 'MIDI', f'S{ti:02d}.mid'))
+            names[f'S{ti:02d}'] = name
+        with open(os.path.join(d, 'inst_names.json'), 'w') as f:
+            json.dump(names, f)
+
+
+class TrainLog:
+    """Stands in for the trainer's train step and the model's forward and
+    memory encoder until closed: times each train step (synchronized),
+    counts its real target tokens, and counts the long attentions the
+    model runs (models/mt3.py's rule: Lq >= 512, Lq % 8 == 0, a bf16
+    model on the card) forward, and backward where gradients flow."""
+
+    def __init__(self, torch):
+        from mr_mt3_tpu_torch.models import MT3
+        from mr_mt3_tpu_torch.models import mt3
+        from mr_mt3_tpu_torch.train import trainer
+        self.torch, self.mt3, self.trainer = torch, mt3, trainer
+        self.model_cls = MT3
+        self.real = (trainer.make_train_step, MT3.forward,
+                     MT3.compute_segmem)
+        self.steps = []            # (seconds, target tokens, target length)
+        self.fwd = self.bwd = 0
+        log = self
+
+        def fused(model, length):
+            return length >= mt3._FUSED_MIN_LEN and length % 8 == 0 and \
+                mt3.resolve_attention_kernel(
+                    model.cfg, model.proj.weight.device) == 'fused'
+
+        def count(n):
+            log.fwd += n
+            if torch.is_grad_enabled():
+                log.bwd += n
+
+        def make_train_step(*args, **kw):
+            step = log.real[0](*args, **kw)
+
+            def timed(state, batch, seed):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                metrics = step(state, batch, seed)
+                torch.cuda.synchronize()
+                t = batch['targets']
+                log.steps.append((time.monotonic() - t0,
+                                  int((t != -100).sum()), t.shape[1]))
+                return metrics
+            return timed
+
+        def forward(model, mel, decoder_input_ids=None, targets_prev=None,
+                    labels=None, generator=None):
+            length = (labels if decoder_input_ids is None
+                      else decoder_input_ids).shape[1]
+            if fused(model, length):
+                count(2 * model.cfg.num_decoder_layers)
+            return log.real[1](model, mel, decoder_input_ids, targets_prev,
+                               labels, generator)
+
+        def compute_segmem(model, prev_ids):
+            if fused(model, prev_ids.shape[1]):
+                count(model.cfg.segmem_num_layers)
+            return log.real[2](model, prev_ids)
+        trainer.make_train_step = make_train_step
+        MT3.forward = forward
+        MT3.compute_segmem = compute_segmem
+
+    def close(self):
+        (self.trainer.make_train_step, self.model_cls.forward,
+         self.model_cls.compute_segmem) = self.real
+
+
+def step_breakdown(torch, state, batch):
+    """One train step's parts, each closed by a synchronize (so their sum
+    exceeds an unsynchronized step): the batch to the card and its mel,
+    the forward and the loss, the gradients, the optimizer; the median
+    of TRAIN_TIMED_STEPS steps, in ms."""
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig
+    from mr_mt3_tpu_torch.train import losses
+    from mr_mt3_tpu_torch.train.trainer import batch_to_device, batch_to_mel
+    params = state.optimizer.params
+    parts = {'mel_ms': [], 'forward_ms': [], 'backward_ms': [],
+             'optimizer_ms': []}
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        parts[key].append((t1 - t0) * 1e3)
+        return t1
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        b = batch_to_device(batch, params[0].device)
+        mel = batch_to_mel(b['audio'], b['valid_frames'], SpectrogramConfig())
+        t = lap('mel_ms', t)
+        loss = losses.cross_entropy_loss(
+            state.model(mel, labels=b['targets'],
+                        targets_prev=b['targets_prev']), b['targets'])
+        t = lap('forward_ms', t)
+        grads = torch.autograd.grad(loss, params)
+        t = lap('backward_ms', t)
+        state.optimizer.step(grads)
+        lap('optimizer_ms', t)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def training_parity(torch):
+    """The full-width segment-memory model at bf16 (dropout off, B 12, a
+    bucketed target length of 1024), for each of TRAIN_PARITY_SEEDS (the
+    weights and the batch): loss and every parameter's gradient with the
+    attention kernels against the same with attention_kernel='einsum', and
+    against the kernels' plain versions on the same route; the plain
+    versions against einsum at fp32, where the two routes differ only in
+    sum order; on the first seed a control, the kernels with the backward's
+    dk scaled by TRAIN_PARITY_CONTROL_DK, which TRAIN_PARITY_BOUNDS must
+    catch. Then TRAIN_TIMED_STEPS train steps on each of the kernel and
+    einsum routes (ms/step, the yardstick); then an fp32 step (B 2, einsum)
+    on the card against the same step on the CPU."""
+    phase('training parity on the card (full-width segmem model)')
+    import contextlib
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.train import losses, optim
+    from mr_mt3_tpu_torch.train.trainer import (
+        batch_to_device,
+        batch_to_mel,
+        create_train_state,
+        make_train_step,
+    )
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig
+    from mr_mt3_tpu_torch.utils import builders
+    from mr_mt3_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
+                      TRAIN_ARGS[1:] + ['model.config.dropout_rate=0.0'])
+    f32 = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
+                      TRAIN_ARGS[1:4] + ['model.config.dropout_rate=0.0'])
+    dev = torch.device('cuda')
+    rows = int(cfg.num_rows_per_batch)
+
+    def batch(rng, rows, length, real):
+        targets = np.concatenate([
+            rng.integers(3, 1391, (rows, real)), np.ones((rows, 1), np.int64),
+            np.full((rows, length - real - 1), -100, np.int64)], axis=1)
+        return {'audio': (rng.normal(size=(rows, 256 * 128)) * 0.1
+                          ).astype(np.float32),
+                'valid_frames': np.full((rows,), 256, np.int32),
+                'targets': targets,
+                'targets_prev': np.roll(targets, 1, axis=0)}
+
+    def loss_and_grads(model, b):
+        t = batch_to_device(b, model.proj.weight.device)
+        mel = batch_to_mel(t['audio'], t['valid_frames'], SpectrogramConfig())
+        loss = losses.cross_entropy_loss(
+            model(mel, labels=t['targets'], targets_prev=t['targets_prev']),
+            t['targets'])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return float(loss.detach()), grads
+
+    @contextlib.contextmanager
+    def kernels_replaced(forward, backward):
+        real = ta.fused_attention_cuda, ta.fused_attention_backward_cuda
+        ta.fused_attention_cuda, ta.fused_attention_backward_cuda = \
+            forward, backward
+        try:
+            yield
+        finally:
+            ta.fused_attention_cuda, ta.fused_attention_backward_cuda = real
+
+    def plain():
+        return kernels_replaced(ta.fused_attention_reference,
+                                ta.fused_attention_backward_reference)
+
+    def control():
+        kernel = ta.fused_attention_backward_cuda
+
+        def backward(*args):
+            dq, dk, dv = kernel(*args)
+            return dq, dk * TRAIN_PARITY_CONTROL_DK, dv
+        return kernels_replaced(ta.fused_attention_cuda, backward)
+
+    def model_of(config, kernel, seed):
+        model = MT3(builders.build_model(config).cfg.replace(
+            attention_kernel=kernel))
+        return builders.init_params(model, seed=seed).to(dev)
+
+    def compare(got, want):
+        """loss relative; per parameter, the largest |difference| over the
+        largest |value| and the norm of the difference over the norm of
+        the value: the worst parameter and the median of each."""
+        out = {'loss_rel': abs(got[0] - want[0]) / abs(want[0])}
+        for key, fn in (('grad_rel', lambda d, w: float(d.abs().max()) /
+                         float(w.abs().max())),
+                        ('grad_norm_rel', lambda d, w: float(d.norm()) /
+                         float(w.norm()))):
+            rel = {name: fn(g - w, w)
+                   for name, g, w in zip(names, got[1], want[1])}
+            worst = max(rel, key=rel.get)
+            out.update({key: rel[worst], f'{key}_worst_param': worst,
+                        f'{key}_median': statistics.median(rel.values())})
+        return out
+
+    def violations(kind, reading):
+        return [f'{kind} {k} {reading[k]:.4g} > {b}'
+                for k, b in TRAIN_PARITY_BOUNDS[kind].items()
+                if reading[k] > b]
+
+    readings, models, names = {}, {}, None
+    for seed in TRAIN_PARITY_SEEDS:
+        big = batch(np.random.default_rng(6 + seed), rows, 1024, 900)
+        out = {}
+        for kernel in ('fused', 'einsum'):
+            model = model_of(cfg, kernel, seed)
+            names = [n for n, _ in model.named_parameters()]
+            before = dict(ta.LAUNCHES)
+            out[kernel] = loss_and_grads(model, big)
+            torch.cuda.synchronize()
+            launched = {k: ta.LAUNCHES[k] - before[k] for k in ta.LAUNCHES}
+            want = 1 + 2 * model.cfg.num_decoder_layers \
+                if kernel == 'fused' else 0
+            if launched != {ta.KERNEL: want, ta.KERNEL_BWD: want}:
+                fail(f'attention_kernel={kernel!r}: launches {launched}, '
+                     f'expected {want} forward and backward')
+            if seed == TRAIN_PARITY_SEEDS[0]:
+                models[kernel] = model
+        with plain():
+            out['plain'] = loss_and_grads(model_of(cfg, 'fused', seed), big)
+        if seed == TRAIN_PARITY_SEEDS[0]:
+            with control():
+                out['control'] = loss_and_grads(models['fused'], big)
+        with plain():
+            out['f32_plain'] = loss_and_grads(model_of(f32, 'fused', seed),
+                                              big)
+        out['f32_einsum'] = loss_and_grads(model_of(f32, 'einsum', seed), big)
+        torch.cuda.empty_cache()
+        readings[f'seed{seed}'] = {
+            'loss_fused': out['fused'][0], 'loss_einsum': out['einsum'][0],
+            'loss_plain': out['plain'][0],
+            'kernel_vs_einsum': compare(out['fused'], out['einsum']),
+            'kernel_vs_plain': compare(out['fused'], out['plain']),
+            'f32_plain_vs_einsum': compare(out['f32_plain'],
+                                           out['f32_einsum'])}
+        if 'control' in out:
+            readings['control_vs_plain'] = compare(out['control'],
+                                                   out['plain'])
+        print(json.dumps({f'seed{seed}': readings[f'seed{seed}']}),
+              flush=True)
+        del out
+    print(json.dumps({'control_vs_plain': readings['control_vs_plain']}),
+          flush=True)
+    bad = [v for seed in TRAIN_PARITY_SEEDS for kind in TRAIN_PARITY_BOUNDS
+           for v in violations(kind, readings[f'seed{seed}'][kind])]
+    if bad:
+        fail('training step: ' + '; '.join(bad))
+    caught = violations('kernel_vs_plain', readings['control_vs_plain'])
+    print(f'control (dk x {TRAIN_PARITY_CONTROL_DK}) caught by: '
+          + ('; '.join(caught) or 'nothing'), flush=True)
+    if not caught:
+        fail(f'TRAIN_PARITY_BOUNDS["kernel_vs_plain"] pass the control (dk '
+             f'x {TRAIN_PARITY_CONTROL_DK}): {readings["control_vs_plain"]}')
+    big = batch(np.random.default_rng(6 + TRAIN_PARITY_SEEDS[0]), rows, 1024,
+                900)
+
+    # ms per train step on each route (the same batch, dropout off)
+    timing = {}
+    for kernel in ('fused', 'einsum'):
+        model = models[kernel]
+        state = create_train_state(model, optim.make_optimizer(
+            2e-4, use_schedule=False))
+        step = make_train_step()
+        step(state, big, None)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(TRAIN_TIMED_STEPS):
+            metrics = step(state, big, None)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) / TRAIN_TIMED_STEPS * 1e3
+        tokens = int((big['targets'] != -100).sum())
+        timing[kernel] = {'ms_per_step': ms,
+                          'target_tokens_per_s': tokens / ms * 1e3,
+                          'loss': float(metrics['loss']),
+                          **step_breakdown(torch, state, big)}
+        print(f'train step, attention_kernel={kernel!r}: {ms:.2f} ms/step, '
+              f'{tokens / ms * 1e3:.0f} target tokens/s (B {rows}, target '
+              f'length 1024, memory 1024); synchronized parts (ms): '
+              + json.dumps({k: round(v, 2) for k, v in timing[kernel].items()
+                            if k.endswith('_ms')}), flush=True)
+        if not np.isfinite(timing[kernel]['loss']):
+            fail(f'{kernel}: the loss after {TRAIN_TIMED_STEPS} steps is '
+                 f'not finite')
+    del models, state, step
+    torch.cuda.empty_cache()
+
+    # fp32: the card (TF32 off) against the CPU on one small step
+    small = batch(np.random.default_rng(5), 2, 128, 100)
+    losses_f32 = {}
+    for where, device in (('cuda', dev), ('cpu', torch.device('cpu'))):
+        model = builders.init_params(builders.build_model(f32), seed=0)
+        losses_f32[where] = loss_and_grads(model.to(device), small)[0]
+    f32_rel = abs(losses_f32['cuda'] - losses_f32['cpu']) / abs(
+        losses_f32['cpu'])
+    print(f'fp32 step: loss on the card {losses_f32["cuda"]:.7f}, on the '
+          f'CPU {losses_f32["cpu"]:.7f}, relative {f32_rel:.3g}')
+    if f32_rel > TRAIN_F32_LOSS_RTOL:
+        fail(f'fp32 loss on the card vs the CPU: {f32_rel:.3g} > '
+             f'{TRAIN_F32_LOSS_RTOL}')
+    return {**readings, 'timing': timing, 'f32_card_vs_cpu_rel': f32_rel}
+
+
+def training_main_path(torch):
+    """`python -m mr_mt3_tpu_torch.train` as TRAIN_ARGS gives it, through
+    train.main(argv), on a fabricated corpus (4 train songs, 2 of them
+    dense, and 2 val songs, 30 s each): 2 epochs with validation, then a
+    resume from 'last' for one more. Every logged loss finite; the
+    checkpoints load; the step and the optimizer count go on from the
+    resumed ones; the kernels' launches equal the long attentions the
+    steps and validations ran."""
+    phase('training main path: python -m mr_mt3_tpu_torch.train '
+          + ' '.join(TRAIN_ARGS[1:]))
+    import shutil
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch import train
+    from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.train.trainer import load_checkpoint
+    from mr_mt3_tpu_torch.utils import builders
+    from mr_mt3_tpu_torch.utils.config import load_config
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    corpus = {split: os.path.join(TRAIN_DIR, split)
+              for split in ('train', 'val')}
+    t0 = time.monotonic()
+    training_corpus(corpus['train'], 4, 30.0, [True, False, True, False],
+                    seed=1)
+    training_corpus(corpus['val'], 2, 30.0, [True, False], seed=2)
+    print(f'corpus written in {time.monotonic() - t0:.1f} s')
+    out_dir = os.path.join(TRAIN_DIR, 'run')
+    argv = TRAIN_ARGS + [
+        f'dataset.train.root_dir={corpus["train"]}',
+        f'dataset.val.root_dir={corpus["val"]}', f'out_dir={out_dir}',
+        'trainer.check_val_every_n_epoch=1', 'trainer.log_every_n_steps=1',
+        'modelcheckpoint.every_n_epochs=1', 'modelcheckpoint.save_top_k=1',
+        'optim.warmup_steps=4', 'optim.num_steps_per_epoch=4']
+    results = {}
+    try:
+        for leg, extra in (('first', ['trainer.max_epochs=2']),
+                           ('resumed', ['trainer.max_epochs=3',
+                                        f'path={out_dir}/checkpoints/last'])):
+            for k in ta.LAUNCHES:
+                ta.LAUNCHES[k] = 0
+            log = TrainLog(torch)
+            t0 = time.monotonic()
+            try:
+                state = train.main(argv + extra)
+            finally:
+                log.close()
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            launches = dict(ta.LAUNCHES)
+            steps = log.steps
+            timed = steps[1:] or steps   # the first step pays the warm-up
+            ms = statistics.median(s for s, _, _ in timed) * 1e3
+            tok_s = sum(n for _, n, _ in timed) / sum(s for s, _, _ in timed)
+            results[leg] = {
+                'seconds': secs, 'steps': len(steps), 'state_step': state.step,
+                'optimizer_count': state.optimizer.count,
+                'target_lengths': [L for _, _, L in steps],
+                'ms_per_step_median': ms, 'target_tokens_per_s': tok_s,
+                'launches': launches,
+                'long_attentions': {'forward': log.fwd, 'backward': log.bwd}}
+            print(f'{leg}: {len(steps)} steps in {secs:.1f} s (corpus '
+                  f'tokenization and validation included), target lengths '
+                  f'{[L for _, _, L in steps]}, median {ms:.2f} ms/step, '
+                  f'{tok_s:.0f} target tokens/s; launches {launches} for '
+                  f'{log.fwd} long attentions forward, {log.bwd} backward',
+                  flush=True)
+            if launches[ta.KERNEL] != log.fwd or \
+                    launches[ta.KERNEL_BWD] != log.bwd or log.bwd < 1:
+                fail(f'{leg}: kernel launches {launches} for {log.fwd} '
+                     f'forward and {log.bwd} backward long attentions')
+            if not any(L >= 512 for _, _, L in steps) or \
+                    not any(L < 512 for _, _, L in steps):
+                fail(f'{leg}: the target lengths {[L for _, _, L in steps]} '
+                     f'do not cover both attention routes')
+        first, resumed = results['first'], results['resumed']
+        if first['state_step'] != 8 or resumed['state_step'] != 12 or \
+                resumed['optimizer_count'] != 12 or resumed['steps'] != 4:
+            fail(f'steps: first {first["state_step"]}, resumed '
+                 f'{resumed["state_step"]} after {resumed["steps"]} steps '
+                 f'(optimizer count {resumed["optimizer_count"]})')
+        records = [json.loads(ln) for ln in open(
+            os.path.join(out_dir, 'logs', 'metrics.jsonl'))]
+        train_losses = [r['train_loss'] for r in records
+                        if 'train_loss' in r]
+        val_losses = [r['val_loss'] for r in records if 'val_loss' in r]
+        if len(train_losses) != 12 or len(val_losses) != 3 or not all(
+                np.isfinite(train_losses + val_losses)):
+            fail(f'losses: train {train_losses}, val {val_losses}')
+        # save_top_k 1: each leg keeps its own best (a resumed run prunes
+        # only the top-k files it wrote)
+        ckpts = sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))
+        topk = [c for c in ckpts if c.startswith('epoch=')]
+        if 'last' not in ckpts or 'final' not in ckpts or len(topk) != 2:
+            fail(f'checkpoints: {ckpts}')
+        for name in ['last', 'final'] + topk:
+            blob = load_checkpoint(os.path.join(out_dir, 'checkpoints', name))
+            model = builders.build_model(load_config(
+                os.path.join(REPO, 'configs'), 'config_slakh_segmem',
+                TRAIN_ARGS[1:]))
+            builders.load_weights(os.path.join(out_dir, 'checkpoints', name),
+                                  model, strict=True)
+            if not isinstance(model, MT3) or 'opt_state' not in blob:
+                fail(f'checkpoint {name} did not load')
+        print(f'train losses {[round(x, 4) for x in train_losses]}; val '
+              f'losses {[round(x, 4) for x in val_losses]}; checkpoints '
+              f'{ckpts}')
+        results.update({'train_losses': train_losses,
+                        'val_losses': val_losses, 'checkpoints': ckpts})
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return results
+
+
+
 def main():
     try:
         import torch
@@ -1226,6 +1884,7 @@ def main():
     build_kernels()
     cases = kernel_cases(torch)
     attn_cases = attention_cases(torch)
+    bwd_cases = attention_backward_cases(torch)
     parity = parity_on_card(torch)
     parity['segmem'] = segmem_parity_on_card(torch)
     main = main_path(torch)
@@ -1233,6 +1892,13 @@ def main():
     launches = held_tier_serving(torch)
     worst = worst_case(torch)
     worst['segmem_fused_bf16'] = segmem_worst_case(torch)
+    training = {'parity': training_parity(torch),
+                'main_path': training_main_path(torch)}
+    train_launches = {
+        k: sum(leg['launches'][k]
+               for leg in (training['main_path']['first'],
+                           training['main_path']['resumed']))
+        for k in ('fused_attention_fwd', 'fused_attention_bwd')}
 
     notes = {'library_note': 'no single PyTorch call computes a greedy '
                              'window'}
@@ -1266,13 +1932,27 @@ def main():
         'library_ms': enc['library_ms'],
         'library_note': 'torch.nn.functional.scaled_dot_product_attention, '
                         'scale 1.0, timed only',
+        'training_path_launches': train_launches['fused_attention_fwd'],
         'cases': attn_cases})
+    enc = next(c for c in bwd_cases if c['case'] == 'memory_encoder_b12')
+    kernels.append({
+        'name': 'fused_attention_bwd', 'route': 'cuda',
+        'source': 'mr_mt3_tpu_torch/csrc/fused_attention_bwd.cu',
+        'replaces': 'mr_mt3_tpu/ops/train_attention.py:204',
+        'launches': train_launches['fused_attention_bwd'],
+        'max_abs_err': max(c['max_abs_err'] for c in bwd_cases),
+        'ms': enc['ms'], 'plain_ms': enc['plain_ms'],
+        'bound_ms': enc['bound_ms'], 'bound_by': enc['bound_by'],
+        'library_ms': enc['library_ms'],
+        'library_note': 'torch.autograd.grad through torch.nn.functional.'
+                        'scaled_dot_product_attention, scale 1.0, timed only',
+        'cases': bwd_cases})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_kernels.json'), 'w') as f:
         json.dump({'card': card_line(), 'kernels': kernels,
                    'parity': parity, 'main_path': main,
                    'segmem_main_path': segmem,
-                   'worst_case': worst}, f, indent=1)
+                   'worst_case': worst, 'training': training}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

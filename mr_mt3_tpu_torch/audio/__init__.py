@@ -7,4 +7,9 @@ from mr_mt3_tpu_torch.audio.frontend import (
     compute_logmel,
     normalize_logmel,
 )
-from mr_mt3_tpu_torch.audio.io import read_wav_bytes, resample
+from mr_mt3_tpu_torch.audio.io import (
+    read_audio,
+    read_wav,
+    read_wav_bytes,
+    resample,
+)

@@ -1,8 +1,10 @@
-"""WAV parsing and resampling without librosa/soundfile (copy of
-read_wav_bytes and resample from mr_mt3_tpu/audio/io.py).
+"""WAV reading and resampling without librosa/soundfile (copy of
+read_wav_bytes, read_wav, read_audio and resample from
+mr_mt3_tpu/audio/io.py).
 
-The reference loads audio with librosa (reference: test.py:37); arbitrary-
-rate input is resampled with a polyphase filter.
+The reference loads audio with librosa (reference: test.py:37,
+dataset/dataset_2_random.py:379); arbitrary-rate input is resampled with a
+polyphase filter. FLAC is not yet ported: read_audio raises for it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,22 @@ from typing import Tuple
 
 import numpy as np
 from scipy import signal as _signal
+
+
+def read_wav(path) -> Tuple[np.ndarray, int]:
+    """Read a RIFF/WAVE file -> (float32 samples in [-1, 1], sample
+    rate); see read_wav_bytes."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    return read_wav_bytes(data, name=str(path))
+
+
+def read_audio(path) -> Tuple[np.ndarray, int]:
+    """Read a wav -> (float32 mono samples, sample_rate). FLAC (the JAX
+    package's native decoder) is not yet ported and raises."""
+    if str(path).lower().endswith('.flac'):
+        raise NotImplementedError(f'{path}: FLAC input is not yet ported')
+    return read_wav(path)
 
 
 def read_wav_bytes(data: bytes, name: str = '<bytes>'

@@ -22,6 +22,7 @@ class MT3Config:
     num_heads: int = 6
     num_encoder_layers: int = 8
     num_decoder_layers: int = 8
+    dropout_rate: float = 0.1
     layer_norm_epsilon: float = 1e-6
     mel_bins: int = 512
     max_positions: int = 5000  # sinusoidal table length
@@ -48,6 +49,9 @@ class MT3Config:
     #   'einsum' -- always the plain matmul + softmax;
     #   'fused'  -- always the fused path (its plain version on the CPU).
     attention_kernel: str = 'auto'
+    # rematerialize each transformer block in the backward pass (gradient
+    # checkpointing: torch.utils.checkpoint per block)
+    remat: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -76,6 +80,7 @@ def config_from_dict(d: dict) -> MT3Config:
         num_encoder_layers=d.get('num_layers', 8),
         num_decoder_layers=d.get('num_decoder_layers',
                                  d.get('num_layers', 8)),
+        dropout_rate=d.get('dropout_rate', 0.1),
         layer_norm_epsilon=float(d.get('layer_norm_epsilon', 1e-6)),
         decoder_start_token_id=d.get('decoder_start_token_id', 0),
         pad_token_id=d.get('pad_token_id', 0),
@@ -86,4 +91,5 @@ def config_from_dict(d: dict) -> MT3Config:
         segmem_seed=d.get('segmem_seed', 'tie_eos'),
         dtype=d.get('dtype', 'float32'),
         attention_kernel=d.get('attention_kernel', 'auto'),
+        remat=bool(d.get('remat', False)),
     )

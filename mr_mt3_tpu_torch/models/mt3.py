@@ -21,8 +21,15 @@ as in the JAX package:
 
 Full-sequence attention takes the JAX package's two routes: a plain matmul
 + fp32 softmax (einsum), or ops/train_attention.py::fused_attention (the
-CUDA kernel on the card) under the same eligibility rules. Dropout is
-omitted: the port serves only.
+CUDA kernels on the card, differentiable) under the same eligibility rules.
+
+Training (the JAX package's deterministic=False): dropout at the JAX sites
+(the FF hidden, each residual branch, the stack input and output; none in
+the memory encoder), its masks drawn from an explicit torch.Generator
+passed to forward, and only in train() mode with a generator given, so
+every other call is deterministic as JAX's default apply is; labels
+shifted right into decoder inputs (shift_right); and remat, each block
+under torch.utils.checkpoint with its dropout masks replayed.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 
@@ -70,6 +78,26 @@ def sinusoidal_position_table(dim: int, max_length: int = 5000) -> np.ndarray:
     angles = np.outer(t, inv_freq)
     return np.concatenate([np.sin(angles), np.cos(angles)],
                           axis=-1).astype(np.float32)
+
+
+def shift_right(labels: torch.Tensor, start_token_id: int = 0,
+                pad_token_id: int = 0) -> torch.Tensor:
+    """Teacher-forcing shift: [start, labels[:-1]], with -100 -> pad."""
+    start = labels.new_full(labels.shape[:-1] + (1,), start_token_id)
+    shifted = torch.cat([start, labels[..., :-1]], dim=-1)
+    return torch.where(shifted == -100, pad_token_id, shifted)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep each value with probability 1 - rate (a
+    uniform draw below it), scaled by 1 / (1 - rate); the identity without
+    a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, x.new_zeros(()))
 
 
 def causal_mask(lq: int, lk: int, dtype: torch.dtype,
@@ -192,8 +220,11 @@ class DenseReluDense(nn.Module):
         self.wi_1 = _linear(cfg.d_model, cfg.d_ff)
         self.wo = _linear(cfg.d_ff, cfg.d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(gelu_new(self.wi_0(x)) * self.wi_1(x))
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        h = gelu_new(self.wi_0(x)) * self.wi_1(x)
+        return self.wo(dropout(h, rate, generator))
 
 
 class SelfAttentionLayer(nn.Module):
@@ -220,9 +251,11 @@ class FeedForwardLayer(nn.Module):
 class Block(nn.Module):
     """Pre-LN T5 block: layer.0 self-attn, [layer.1 cross-attn,] last MLP."""
 
-    def __init__(self, cfg: MT3Config, is_decoder: bool):
+    def __init__(self, cfg: MT3Config, is_decoder: bool,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.is_decoder = is_decoder
+        self.dropout_rate = dropout_rate
         layers = [SelfAttentionLayer(cfg)]
         if is_decoder:
             layers.append(CrossAttentionLayer(cfg))
@@ -245,20 +278,31 @@ class Block(nn.Module):
         return self.layer[i].layer_norm
 
     def forward(self, x: torch.Tensor,
-                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attn(self.norm(0)(x), causal=self.is_decoder)
+                encoder_out: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.dropout_rate
+        x = x + dropout(self.self_attn(self.norm(0)(x),
+                                       causal=self.is_decoder),
+                        rate, generator)
         if self.is_decoder:
-            x = x + self.cross_attn(self.norm(1)(x), kv_src=encoder_out)
-        return x + self.ff(self.norm(-1)(x))
+            x = x + dropout(self.cross_attn(self.norm(1)(x),
+                                            kv_src=encoder_out),
+                            rate, generator)
+        return x + dropout(self.ff(self.norm(-1)(x), rate, generator),
+                           rate, generator)
 
 
 class Stack(nn.Module):
-    """T5 stack with additive sinusoidal positions and final RMS norm."""
+    """T5 stack with additive sinusoidal positions and final RMS norm;
+    dropout on its input and output (after the final norm)."""
 
-    def __init__(self, cfg: MT3Config, num_layers: int, is_decoder: bool):
+    def __init__(self, cfg: MT3Config, num_layers: int, is_decoder: bool,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.is_decoder = is_decoder
-        self.block = nn.ModuleList(Block(cfg, is_decoder)
+        self.dropout_rate = dropout_rate
+        self.remat = cfg.remat
+        self.block = nn.ModuleList(Block(cfg, is_decoder, dropout_rate)
                                    for _ in range(num_layers))
         self.final_layer_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.register_buffer(
@@ -266,12 +310,44 @@ class Stack(nn.Module):
                 cfg.d_model, cfg.max_positions)), persistent=False)
 
     def forward(self, embeds: torch.Tensor,
-                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_out: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq = embeds.shape[-2]
         x = embeds + self.pos_table[:seq].to(embeds.dtype)
+        x = dropout(x, self.dropout_rate, generator)
         for block in self.block:
-            x = block(x, encoder_out)
-        return self.final_layer_norm(x)
+            if self.remat and torch.is_grad_enabled():
+                x = _remat_block(block, x, encoder_out, generator)
+            else:
+                x = block(x, encoder_out, generator)
+        x = self.final_layer_norm(x)
+        return dropout(x, self.dropout_rate, generator)
+
+
+def _remat_block(block: Block, x: torch.Tensor,
+                 encoder_out: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """block(x) under torch.utils.checkpoint: its activations are
+    recomputed in the backward. The recomputation replays the block's
+    dropout masks from a copy of the generator's state at the block's
+    start, and the caller's generator moves on as if the block had run
+    once, so the masks, and the gradients, equal the non-remat ones."""
+    start = None if generator is None else generator.get_state()
+    end = {}
+
+    def run(x, encoder_out):
+        gen = None
+        if start is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        out = block(x, encoder_out, gen)
+        if gen is not None:
+            end['state'] = gen.get_state()
+        return out
+    out = checkpoint(run, x, encoder_out, use_reentrant=False)
+    if generator is not None:
+        generator.set_state(end['state'])
+    return out
 
 
 class MT3(nn.Module):
@@ -290,10 +366,14 @@ class MT3(nn.Module):
         self.cfg = cfg
         self.proj = _linear(cfg.mel_bins, cfg.d_model)
         self.decoder_embed_tokens = nn.Embedding(cfg.vocab_size, cfg.d_model)
-        self.encoder = Stack(cfg, cfg.num_encoder_layers, is_decoder=False)
-        self.decoder = Stack(cfg, cfg.num_decoder_layers, is_decoder=True)
+        self.encoder = Stack(cfg, cfg.num_encoder_layers, is_decoder=False,
+                             dropout_rate=cfg.dropout_rate)
+        self.decoder = Stack(cfg, cfg.num_decoder_layers, is_decoder=True,
+                             dropout_rate=cfg.dropout_rate)
         self.lm_head = _linear(cfg.d_model, cfg.vocab_size)
         if cfg.has_segmem:
+            # dropout forced to 0 in the memory encoder
+            # (reference: models/t5_segmem.py:63-64)
             self.segmem_encoder = Stack(cfg, cfg.segmem_num_layers,
                                         is_decoder=False)
 
@@ -306,10 +386,12 @@ class MT3(nn.Module):
 
     # ---- encoder side ----
 
-    def encode_audio(self, mel: torch.Tensor) -> torch.Tensor:
+    def encode_audio(self, mel: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
         """mel (B, frames, mel_bins) -> (B, frames, d_model)."""
         x = self.proj(self._cast(mel))
-        return self.encoder(x)
+        return self.encoder(x, generator=generator)
 
     def compute_segmem(self, prev_ids: torch.Tensor) -> torch.Tensor:
         """Previous-segment token ids (B, L) -> memory (B, segmem_length,
@@ -322,9 +404,11 @@ class MT3(nn.Module):
         return self.segmem_encoder(emb)[:, :self.cfg.segmem_length]
 
     def encode(self, mel: torch.Tensor,
-               targets_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Encoder pass; appends the memory for 'encoder_append'."""
-        enc = self.encode_audio(mel)
+               targets_prev: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Encoder pass (dropout from `generator`); appends the memory for
+        'encoder_append'."""
+        enc = self.encode_audio(mel, generator)
         if self.cfg.segmem_variant == 'encoder_append':
             if targets_prev is None:
                 raise ValueError(
@@ -336,7 +420,8 @@ class MT3(nn.Module):
 
     def decode_hidden(self, encoder_out: torch.Tensor,
                       decoder_input_ids: torch.Tensor,
-                      decoder_embeds_prefix: Optional[torch.Tensor] = None
+                      decoder_embeds_prefix: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
                       ) -> torch.Tensor:
         """Decoder stack over the ids; a prefix (B, P, D) of embeddings
         goes in front and is stripped after the stack (v1 memory)."""
@@ -345,22 +430,39 @@ class MT3(nn.Module):
         if decoder_embeds_prefix is not None:
             strip = decoder_embeds_prefix.shape[1]
             embeds = torch.cat([decoder_embeds_prefix, embeds], dim=1)
-        hidden = self.decoder(embeds, encoder_out=encoder_out)
+        hidden = self.decoder(embeds, encoder_out=encoder_out,
+                              generator=generator)
         return hidden[:, strip:] if strip else hidden
 
-    def forward(self, mel: torch.Tensor, decoder_input_ids: torch.Tensor,
-                targets_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Teacher-forced logits (B, L, vocab). A segmem model without
-        targets_prev remembers within the batch: row b's memory is row
-        b-1's ids (batch_internal_segmem_ids)."""
-        variant = self.cfg.segmem_variant
+    def forward(self, mel: torch.Tensor,
+                decoder_input_ids: Optional[torch.Tensor] = None,
+                targets_prev: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Teacher-forced logits (B, L, vocab). decoder_input_ids default to
+        labels shifted right. A segmem model without targets_prev remembers
+        within the batch: row b's memory is row b-1's ids
+        (batch_internal_segmem_ids). Dropout runs only in train() mode with
+        a generator (the JAX deterministic=False); the memory encoder has
+        none."""
+        cfg = self.cfg
+        if decoder_input_ids is None:
+            if labels is None:
+                raise ValueError('need decoder_input_ids or labels')
+            decoder_input_ids = shift_right(
+                labels, cfg.decoder_start_token_id, cfg.pad_token_id)
+        gen = generator if self.training else None
+        variant = cfg.segmem_variant
         if variant is not None and targets_prev is None:
             targets_prev = batch_internal_segmem_ids(decoder_input_ids)
-        enc = self.encode(mel, targets_prev)
-        prefix = (self.compute_segmem(targets_prev)
-                  if variant == 'decoder_prepend' else None)
+        enc = self.encode(mel, targets_prev, gen)
+        prefix = None
+        if variant == 'decoder_prepend':
+            prefix = self.compute_segmem(targets_prev)
         return self.lm_head(self.decode_hidden(
-            enc, decoder_input_ids, decoder_embeds_prefix=prefix))
+            enc, decoder_input_ids, decoder_embeds_prefix=prefix,
+            generator=gen))
 
     # ---- incremental decoding with KV cache ----
 

@@ -1,25 +1,28 @@
-"""Fused unscaled-softmax attention, forward (port of
+"""Fused unscaled-softmax attention, forward and backward (port of
 mr_mt3_tpu/ops/train_attention.py::fused_attention).
 
-fused_attention runs the hand-written CUDA kernel csrc/fused_attention_fwd.cu
-(it replaces the TPU kernel's forward, train_attention.py::_fwd_kernel) on
-bfloat16 CUDA tensors, and fused_attention_reference, the plain PyTorch
-version of the same math in the same order, on CPU tensors (bfloat16 or
-float32). Nothing falls back: a CUDA tensor launches the kernel or raises,
-and the kernel takes bfloat16 only (models/mt3.py routes only bf16 models
-to it).
+fused_attention is differentiable through _FusedAttention, a
+torch.autograd.Function. On bfloat16 CUDA tensors its forward runs the
+hand-written CUDA kernel csrc/fused_attention_fwd.cu (it replaces the TPU
+kernel's forward, train_attention.py::_fwd_kernel) and its backward
+csrc/fused_attention_bwd.cu (it replaces _bwd_kernel); on CPU tensors
+(bfloat16 or float32) they run fused_attention_reference and
+fused_attention_backward_reference, the plain PyTorch versions of the same
+math in the same order. Nothing falls back: a CUDA tensor launches the
+kernels or raises, and the kernels take bfloat16 only (models/mt3.py
+routes only bf16 models to them).
 
 The math, per (batch row, head): s = q k^T with f32 sums, NOT scaled (T5);
 columns >= kv_valid and, with causal, columns > row set to -1e30; an f32
 softmax normalized before the probabilities are rounded to v's dtype; then
-o = p v with f32 sums, in q's dtype. K/V are zero-padded to a multiple of
-128 rows and masked by kv_valid, as the TPU kernel pads them (_pad_kv).
-
-Forward only: the backward (the TPU kernel's _bwd_kernel) belongs to
-training, which is not ported, so a call that would need a gradient
-raises. The TPU kernel's batch blocking (_pick_block_b) and its GSPMD
-partitioning rules have no counterpart: the CUDA grid covers (row tile,
-head, batch row) and one card runs it.
+o = p v with f32 sums, in q's dtype. The backward recomputes p and takes
+dv = bf16(p)^T dO, dp = dO v^T, ds = p (dp - rowsum(dp p)) and dq, dk from
+bf16(ds), as the TPU kernel does. K/V are zero-padded to a multiple of 128
+rows and masked by kv_valid, as the TPU kernel pads them (_pad_kv); the
+padding stays outside the Function, so autograd trims the padded rows' dk
+and dv, as the JAX VJP (_fused_bwd) does. The TPU kernel's batch blocking
+(_pick_block_b) and its GSPMD partitioning rules have no counterpart: the
+CUDA grids cover (row or key tile, head, batch row) and one card runs them.
 """
 
 from __future__ import annotations
@@ -32,22 +35,37 @@ import torch
 _LANE = 128       # K/V rows are padded to a multiple of this (TPU lane)
 _ROWS = 16        # query rows per block (csrc: ROWS)
 _KT = 128         # keys per K/V tile (csrc: KT)
+_KB = 64          # keys per block of the dk/dv kernel (csrc bwd: KB)
 _MAX_D = 128      # head width limit (csrc: MAX_D)
 # the H100's shared memory a block can opt into (227 KB)
 _MAX_SMEM = 232448
 _DTYPES = (torch.bfloat16, torch.float32)   # the plain version's
 
 KERNEL = 'fused_attention_fwd'
-# launches of the CUDA kernel; only the kernel path adds to it
-LAUNCHES = {KERNEL: 0}
+KERNEL_BWD = 'fused_attention_bwd'
+# launches of the CUDA kernels; only the kernel paths add to them (one
+# backward launch runs the dq kernel and the dk/dv kernel)
+LAUNCHES = {KERNEL: 0, KERNEL_BWD: 0}
 
 
 def smem_bytes(lk: int, d: int) -> int:
-    """Shared memory of one block (csrc: smem_bytes): ROWS f32 score rows
-    of lk columns, the ROWS query rows and one K/V tile with the head width
-    padded to a multiple of 16, and the value shares."""
+    """Shared memory of one forward block (csrc: smem_bytes): ROWS f32
+    score rows of lk columns, the ROWS query rows and one K/V tile with the
+    head width padded to a multiple of 16, and the value shares."""
     dp = -(-d // 16) * 16
     return 4 * _ROWS * lk + 2 * _ROWS * dp + 2 * _KT * dp + 4 * _ROWS * 128
+
+
+def smem_bytes_bwd(lk: int, d: int) -> Tuple[int, int]:
+    """Shared memory of one block of each backward kernel (csrc bwd:
+    smem_dq, smem_dkdv): the dq kernel's ROWS f32 score rows and ROWS f32
+    dp rows of lk columns, its query and dO rows, one K/V tile and the dq
+    shares; the dk/dv kernel's KB K and V rows, query and dO rows, its f32
+    score and dp blocks, their bf16 p and ds, and the row statistics."""
+    dp = -(-d // 16) * 16
+    dq = 8 * _ROWS * lk + 4 * _ROWS * dp + 2 * _KT * dp + 4 * _ROWS * 128
+    dkdv = 4 * _KB * dp + 4 * _ROWS * dp + 12 * _ROWS * _KB + 12 * _ROWS
+    return dq, dkdv
 
 
 def _pad_kv(k: torch.Tensor, v: torch.Tensor
@@ -87,8 +105,15 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     the -1e30 masks, max, exp, normalize, round p to v's dtype, f32 value
     sums, q's dtype. k/v are taken as given (padded or not); kv_valid
     defaults to their length."""
+    valid = k.shape[1] if kv_valid is None else kv_valid
+    p = _probabilities(q, k, causal, valid).to(v.dtype)
+    return torch.einsum('bhqk,bkhd->bqhd', p.float(), v.float()).to(q.dtype)
+
+
+def _probabilities(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   valid: int) -> torch.Tensor:
+    """f32 softmax of the masked f32 scores, (B, H, Lq, Lk)."""
     lq, lk = q.shape[1], k.shape[1]
-    valid = lk if kv_valid is None else kv_valid
     s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float())
     col = torch.arange(lk, device=q.device)
     keep = (col < valid)[None, :].expand(lq, lk)
@@ -96,10 +121,31 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
         row = torch.arange(lq, device=q.device)
         keep = keep & (col[None, :] <= row[:, None])
     s = torch.where(keep, s, torch.tensor(-1e30, device=q.device))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
-    return torch.einsum('bhqk,bkhd->bqhd', p.float(), v.float()).to(q.dtype)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def fused_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        causal: bool = False, kv_valid: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, the TPU kernel's formula written out (not
+    autograd through fused_attention_reference, whose .to(v.dtype) would
+    round dp to bf16): p recomputed in f32; dv = bf16(p)^T dO; dp = dO v^T;
+    ds = p (dp - rowsum(dp p)) in f32; dq = bf16(ds) k, dk = bf16(ds)^T q,
+    all with f32 sums. k/v as given (padded or not); returns (dq, dk, dv)
+    in the inputs' dtypes, dk/dv with k's length."""
+    valid = k.shape[1] if kv_valid is None else kv_valid
+    p = _probabilities(q, k, causal, valid)
+    pb = p.to(do.dtype).float()
+    dof = do.float()
+    dv = torch.einsum('bhqk,bqhd->bkhd', pb, dof)
+    dp = torch.einsum('bqhd,bkhd->bhqk', dof, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dsb = ds.to(q.dtype).float()
+    dq = torch.einsum('bhqk,bkhd->bqhd', dsb, k.float())
+    dk = torch.einsum('bhqk,bqhd->bkhd', dsb, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _library():
@@ -158,28 +204,128 @@ def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _library_bwd():
+    from mr_mt3_tpu_torch.ops import cuda_build
+    lib = cuda_build.load(KERNEL_BWD)
+    if lib.fab_launch.argtypes is None:
+        lib.fab_launch.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.fab_launch.restype = ctypes.c_int
+        lib.fab_error_string.argtypes = [ctypes.c_int]
+        lib.fab_error_string.restype = ctypes.c_char_p
+        for name in ('fab_rows', 'fab_key_block', 'fab_max_d'):
+            getattr(lib, name).restype = ctypes.c_int
+        lib.fab_smem_dq.argtypes = [ctypes.c_int] * 2
+        lib.fab_smem_dq.restype = ctypes.c_longlong
+        lib.fab_smem_dkdv.argtypes = [ctypes.c_int]
+        lib.fab_smem_dkdv.restype = ctypes.c_longlong
+        if (lib.fab_rows(), lib.fab_key_block(), lib.fab_max_d()) != (
+                _ROWS, _KB, _MAX_D) or any(
+                (lib.fab_smem_dq(lk, d), lib.fab_smem_dkdv(d))
+                != smem_bytes_bwd(lk, d)
+                for lk, d in ((128, 24), (1024, 64), (384, 128))):
+            raise RuntimeError('fused_attention backward: the wrapper and '
+                               'the CUDA source disagree on the tile '
+                               'constants')
+    return lib
+
+
+def fused_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, do: torch.Tensor,
+                                  causal: bool, kv_valid: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Launch the backward kernels on the current stream; q/k/v/do
+    bfloat16, contiguous, k/v already padded. Returns (dq, dk, dv)
+    bfloat16, dk/dv with the padded length (zero past kv_valid)."""
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    for name, t in (('q', q), ('k', k), ('v', v), ('do', do)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f'the CUDA kernel takes bfloat16 only ({name} '
+                             f'is {t.dtype}); float32 runs only on the CPU')
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f'{name} is on {t.device}, not {q.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+        if t.data_ptr() % 16:   # rows are read 16 bytes at a time
+            raise ValueError(f'{name} must be 16-byte aligned')
+    if do.shape != q.shape:
+        raise ValueError(f'do {tuple(do.shape)} does not match q '
+                         f'{tuple(q.shape)}')
+    if lk % _KB:
+        raise ValueError(f'Lk {lk} is not padded to a multiple of {_KB}')
+    if not 1 <= kv_valid <= lk:
+        raise ValueError(f'kv_valid {kv_valid} outside 1..{lk}')
+    need = max(smem_bytes_bwd(lk, d))
+    if need > _MAX_SMEM:
+        raise ValueError(f'Lk {lk}: {_ROWS} f32 score rows and {_ROWS} f32 '
+                         f'dp rows need {need} bytes of shared memory, more '
+                         f'than the {_MAX_SMEM} a block can use')
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((3, b, h, lq), dtype=torch.float32, device=q.device)
+    lib = _library_bwd()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.fab_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), stats.data_ptr(), b, lq, lk, h, d,
+                            int(kv_valid), int(bool(causal)), stream)
+    if rc != 0:
+        raise RuntimeError('fused_attention_bwd launch failed: '
+                           + lib.fab_error_string(rc).decode())
+    LAUNCHES[KERNEL_BWD] += 1
+    return dq, dk, dv
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernels read it: contiguous and 16-byte aligned."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Attention over already padded K/V: the CUDA kernels on the card, the
+    plain versions on the CPU. The backward keeps q, k and v and recomputes
+    the probabilities, as the TPU kernel does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_valid: int):
+        ctx.causal, ctx.kv_valid = causal, kv_valid
+        ctx.save_for_backward(q, k, v)
+        if q.is_cuda:
+            return fused_attention_cuda(_operand(q), _operand(k),
+                                        _operand(v), causal, kv_valid)
+        return fused_attention_reference(q, k, v, causal, kv_valid)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if q.is_cuda:
+            grads = fused_attention_backward_cuda(
+                _operand(q), _operand(k), _operand(v), _operand(do),
+                ctx.causal, ctx.kv_valid)
+        else:
+            grads = fused_attention_backward_reference(
+                q, k, v, do.to(q.dtype), ctx.causal, ctx.kv_valid)
+        return (*grads, None, None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Fused unscaled-softmax attention, forward.
+    """Fused unscaled-softmax attention, differentiable.
 
     q: (B, Lq, H, D); k/v: (B, Lk, H, D), bfloat16 (float32 on the CPU
-    only), D <= 128 a multiple of 8. Lk is padded to a multiple of 128 and masked by
-    kv_valid (default: the real Lk). Returns (B, Lq, H, D) in q's dtype.
-    Raises where autograd would need the backward (not ported)."""
+    only), D <= 128 a multiple of 8. Lk is padded to a multiple of 128 and
+    masked by kv_valid (default: the real Lk); the gradients of the padded
+    rows are trimmed. Returns (B, Lq, H, D) in q's dtype."""
     _check_args(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError('fused_attention: the backward is not yet '
-                           'ported; call it under torch.no_grad()')
+    if q.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'unsupported device {q.device}')
     k, v, real_lk = _pad_kv(k, v)
     valid = real_lk if kv_valid is None else int(kv_valid)
     if not 1 <= valid <= k.shape[1]:
         raise ValueError(f'kv_valid {valid} outside 1..{k.shape[1]}')
-    if q.is_cuda:
-        q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
-        return fused_attention_cuda(q, k, v, causal, valid)
-    if q.device.type == 'cpu':
-        return fused_attention_reference(q, k, v, causal, valid)
-    raise ValueError(f'unsupported device {q.device}')
+    return _FusedAttention.apply(q, k, v, bool(causal), valid)

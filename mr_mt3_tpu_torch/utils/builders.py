@@ -1,5 +1,5 @@
-"""Builders wiring configs to the port's model and weights (port of
-mr_mt3_tpu/utils/builders.py:21-51, 143-175)."""
+"""Builders wiring configs to the port's model, weights, optimizer and
+datasets (port of mr_mt3_tpu/utils/builders.py:21-93, 143-175)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 
 from mr_mt3_tpu_torch.models import MT3
 from mr_mt3_tpu_torch.models.config import config_from_dict
-from mr_mt3_tpu_torch.utils.config import ConfigNode
+from mr_mt3_tpu_torch.utils.config import ConfigNode, instantiate
 
 
 def build_model(cfg: ConfigNode) -> MT3:
@@ -48,11 +48,61 @@ def init_params(model: MT3, seed: int = 0) -> MT3:
     return model
 
 
+def build_optimizer(cfg: ConfigNode):
+    """cfg.model.task + cfg.optim (+ cfg.grad_accum) -> (optimizer,
+    schedule or None): AdamW with the cosine-warmup schedule (or a constant
+    LR), the optional optim.clip_norm, and MultiSteps for grad_accum > 1
+    (reference: accumulate_grad_batches, config/config.yaml:20,42)."""
+    from mr_mt3_tpu_torch.train.optim import (
+        MultiSteps,
+        cosine_schedule_with_warmup,
+        make_optimizer,
+    )
+    task = cfg.model.task
+    optim = cfg.optim
+    use_schedule = bool(task.get('use_scheduler', True))
+    total_steps = int(optim.num_steps_per_epoch) * int(optim.num_epochs)
+    clip_norm = optim.get('clip_norm')
+    clip_norm = None if clip_norm is None else float(clip_norm)
+    schedule = None
+    if use_schedule:
+        # built once and passed into the optimizer: the same callable is
+        # what the trainer logs (warmup_steps: null means 0, like min_lr)
+        schedule = cosine_schedule_with_warmup(
+            float(optim.lr), int(optim.warmup_steps or 0), total_steps,
+            min_lr_multiplier=float(optim.min_lr or 0.0))
+        optimizer = make_optimizer(lr=float(optim.lr), schedule=schedule,
+                                   clip_norm=clip_norm)
+    else:
+        optimizer = make_optimizer(lr=float(optim.lr), use_schedule=False,
+                                   clip_norm=clip_norm)
+    grad_accum = int(cfg.get('grad_accum') or 1)
+    if grad_accum > 1:
+        optimizer = MultiSteps(optimizer, grad_accum)
+    return optimizer, schedule
+
+
+def build_datasets(cfg: ConfigNode):
+    """cfg.dataset.train / .val -> the port's datasets (their _target_s,
+    which name mr_mt3_tpu.data classes, mapped onto mr_mt3_tpu_torch.data
+    by utils/config.py::instantiate)."""
+    train_ds = instantiate(cfg.dataset.train, seed=int(cfg.seed))
+    val_ds = instantiate(cfg.dataset.val, seed=int(cfg.seed) + 1,
+                         shuffle=False)
+    return train_ds, val_ds
+
+
 def load_weights(path: str, model: MT3, strict: bool = False) -> MT3:
-    """Load a reference torch checkpoint (.pth/.pt/.ckpt) into `model`.
+    """Load weights into `model`: a reference torch checkpoint
+    (.pth/.pt/.ckpt), or a checkpoint file of the port's trainer (its
+    params; train/trainer.py::Trainer.save_checkpoint).
 
     strict=True raises when the checkpoint misses a parameter (torch
     strict-load semantics); keys the model does not have are reported."""
+    if os.path.isfile(path) and not path.endswith(('.pth', '.pt', '.ckpt')):
+        from mr_mt3_tpu_torch.train.trainer import load_checkpoint
+        model.load_state_dict(load_checkpoint(path)['params'], strict=True)
+        return model
     if path.endswith(('.pth', '.pt', '.ckpt')) and os.path.isfile(path):
         from mr_mt3_tpu_torch.utils.checkpoint_import import (
             load_torch_checkpoint)

@@ -1,4 +1,6 @@
-"""Minimal Hydra-compatible config system.
+"""Minimal Hydra-compatible config system (copy of
+mr_mt3_tpu/utils/config.py; instantiate maps the dataset targets onto the
+port).
 
 The reference composes YAML via Hydra (reference: config/config.yaml:55-57,
 train.py:21-23): a root config with a `defaults` list of config groups
@@ -227,12 +229,31 @@ def parse_cli(argv: List[str]):
     return config_name, config_dir, overrides
 
 
+# configs/dataset/*.yaml name the JAX package's dataset classes
+# (mr_mt3_tpu.data.*); the port builds its own copies of them and nothing
+# else, so that a config never imports the JAX package
+_TARGET_PACKAGES = {'mr_mt3_tpu.data.': 'mr_mt3_tpu_torch.data.',
+                    'mr_mt3_tpu_torch.data.': 'mr_mt3_tpu_torch.data.'}
+
+
+def resolve_target(target: str) -> str:
+    """mr_mt3_tpu.data.X -> mr_mt3_tpu_torch.data.X (and the port's own
+    names as they are); any other _target_ raises."""
+    for prefix, port in _TARGET_PACKAGES.items():
+        if target.startswith(prefix):
+            return port + target[len(prefix):]
+    raise ValueError(f'_target_ {target!r}: the port builds only the '
+                     f'datasets of mr_mt3_tpu.data (mapped onto '
+                     f'mr_mt3_tpu_torch.data)')
+
+
 def instantiate(node: ConfigNode, **extra):
-    """Build the object named by node['_target_'] with the node's fields
-    (hydra.utils.instantiate equivalent for plain classes)."""
+    """Build the object named by node['_target_'] (mapped by
+    resolve_target) with the node's fields (hydra.utils.instantiate
+    equivalent for plain classes)."""
     import importlib
     node = dict(node)
-    target = node.pop('_target_')
+    target = resolve_target(node.pop('_target_'))
     module_name, cls_name = target.rsplit('.', 1)
     cls = getattr(importlib.import_module(module_name), cls_name)
     node.update(extra)

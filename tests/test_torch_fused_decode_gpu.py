@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-fused_decode_window in its three modes and fused_attention_fwd. Imports no
-JAX, so it runs where the card is:
+fused_decode_window in its three modes, fused_attention_fwd and
+fused_attention_bwd. Imports no JAX, so it runs where the card is:
 
     python -m pytest tests/test_torch_fused_decode_gpu.py -m gpu -q
 
@@ -10,6 +10,7 @@ Without a card every test here skips (the kernels have no CPU form).
 import pytest
 import torch
 
+import chip_smoke
 from mr_mt3_tpu_torch.models import MT3, MT3Config
 from mr_mt3_tpu_torch.ops import fused_decode as fd
 from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
@@ -252,14 +253,17 @@ def test_attention_kernel_matches_plain_version(cuda, b, lq, lk, h, d,
 
 
 def test_attention_wrapper_on_the_card(cuda):
-    """A gradient raises; float32 raises (the kernel is bf16 only); an Lk
-    past the shared memory raises before any launch; a model at bf16
-    routes its long attention to the kernel."""
+    """A gradient runs the backward kernel; float32 raises (the kernel is
+    bf16 only); an Lk past the shared memory raises before any launch; a
+    model at bf16 routes its long attention to the kernel."""
     from mr_mt3_tpu_torch.ops import train_attention as ta
-    q = torch.zeros((1, 16, 2, 16), device=cuda, dtype=torch.bfloat16,
+    q = torch.randn((1, 16, 2, 16), device=cuda, dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(RuntimeError, match='backward'):
-        ta.fused_attention(q, q, q)
+    before = ta.LAUNCHES[ta.KERNEL_BWD]
+    ta.fused_attention(q, q, q).sum().backward()
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES[ta.KERNEL_BWD] == before + 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     f32 = torch.zeros((1, 16, 2, 16), device=cuda)
     before = ta.LAUNCHES[ta.KERNEL]
     with pytest.raises(ValueError, match='bfloat16 only'):
@@ -278,3 +282,92 @@ def test_attention_wrapper_on_the_card(cuda):
     torch.cuda.synchronize()
     # memory encoder + 2 decoder layers x (causal self, cross)
     assert ta.LAUNCHES[ta.KERNEL] == before + 1 + 2 * 2
+
+
+# fused_attention_bwd against its plain version: sums in other orders
+# round some bf16 outputs one step apart; dq sums ds k, whose terms cancel
+# (each row of ds sums to zero), so its f32 noise is large against its
+# value and more of its roundings flip: share more than one bf16 step
+# apart read 1.49% for dq at D 128, L 40 (run Q, PERF.md), at most 1% for
+# dk and dv
+ATTN_BWD_MAX_REL = 2.0 ** -6
+ATTN_BWD_MAX_ULP_APART = {'q': 4.5e-2, 'k': 1e-2, 'v': 1e-2}
+
+
+def _bwd_inputs(cuda, b, lq, lk, h, d, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, n, h, d), generator=gen).to(cuda, torch.bfloat16)
+            for n in (lq, lk, lk, lq)]
+
+
+@pytest.mark.parametrize('b,lq,lk,h,d,causal,kv_valid', [
+    (2, 64, 64, 2, 64, False, None),
+    (2, 128, 100, 2, 24, False, None),
+    (1, 96, 96, 3, 64, True, None),
+    (1, 40, 40, 2, 128, True, None),
+    (2, 64, 256, 2, 32, False, 200),
+    (1, 48, 48, 2, 16, True, None),
+    (2, 136, 136, 2, 48, True, None),
+])
+def test_attention_backward_matches_plain_version(cuda, b, lq, lk, h, d,
+                                                  causal, kv_valid):
+    """Autograd through fused_attention on the card (the backward kernel,
+    the padding's gradient trimmed) against the plain backward on the
+    padded K/V, trimmed the same way; rows past kv_valid get zeros."""
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    q, k, v, do = _bwd_inputs(cuda, b, lq, lk, h, d, lq + lk + d)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ta.LAUNCHES[ta.KERNEL_BWD]
+    out = ta.fused_attention(*leaves, causal=causal, kv_valid=kv_valid)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert ta.LAUNCHES[ta.KERNEL_BWD] == before + 1
+    kp, vp, real = ta._pad_kv(k, v)
+    want = ta.fused_attention_backward_reference(q, kp, vp, do, causal,
+                                                 kv_valid or real)
+    for name, g, w in zip('qkv', got, want):
+        w = w[:, :g.shape[1]]
+        assert g.shape == w.shape and g.dtype == torch.bfloat16, name
+        g, w = g.float(), w.float()
+        err = float((g - w).abs().max()) / float(w.abs().max())
+        assert err <= ATTN_BWD_MAX_REL, (name, err)
+        assert chip_smoke.bf16_steps_apart(torch, g, w) <= \
+            ATTN_BWD_MAX_ULP_APART[name], name
+    if kv_valid is not None:
+        for g in got[1:]:
+            assert not g[:, kv_valid:].any()
+
+
+def test_attention_backward_is_deterministic(cuda):
+    """No atomics: the same inputs give the same bits twice."""
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    q, k, v, do = _bwd_inputs(cuda, 2, 256, 256, 3, 64, 7)
+    for causal in (False, True):
+        a = ta.fused_attention_backward_cuda(q, k, v, do, causal, 256)
+        b = ta.fused_attention_backward_cuda(q, k, v, do, causal, 256)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_attention_backward_wrapper_checks_operands(cuda):
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    q, k, v, do = _bwd_inputs(cuda, 1, 32, 128, 2, 16, 0)
+    before = ta.LAUNCHES[ta.KERNEL_BWD]
+    with pytest.raises(ValueError, match='bfloat16 only'):
+        ta.fused_attention_backward_cuda(q.float(), k, v, do, False, 128)
+    with pytest.raises(ValueError, match='padded'):
+        ta.fused_attention_backward_cuda(q, k[:, :100], v[:, :100], do,
+                                         False, 100)
+    with pytest.raises(ValueError, match='does not match'):
+        ta.fused_attention_backward_cuda(q, k, v, do[:, :16], False, 128)
+    with pytest.raises(ValueError, match='kv_valid'):
+        ta.fused_attention_backward_cuda(q, k, v, do, False, 129)
+    with pytest.raises(ValueError, match='contiguous'):
+        ta.fused_attention_backward_cuda(q.transpose(1, 2), k, v, do, False,
+                                         128)
+    with pytest.raises(ValueError, match='is on cpu'):
+        ta.fused_attention_backward_cuda(q, k, v, do.cpu(), False, 128)
+    big = torch.zeros((1, 2048, 2, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='shared memory'):
+        ta.fused_attention_backward_cuda(q, big, big, do, False, 2048)
+    assert ta.LAUNCHES[ta.KERNEL_BWD] == before

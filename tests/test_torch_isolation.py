@@ -34,6 +34,23 @@ def _port_sources():
         + [REPO / 'chip_smoke.py']
 
 
+# modules the training slice added, with their own copies of the JAX
+# package's host-only layers; the parametrization below reads the tree, and
+# test_sources_cover_the_training_modules holds it to include them
+TRAINING_MODULES = ('train/__init__.py', 'train/__main__.py',
+                    'train/losses.py', 'train/optim.py', 'train/trainer.py',
+                    'data/__init__.py', 'data/transforms.py',
+                    'data/disk_cache.py', 'data/slakh.py', 'data/commu.py',
+                    'data/loader.py', 'midi/reader.py', 'midi/sustain.py',
+                    'codec/slakh.py')
+
+
+def test_sources_cover_the_training_modules():
+    covered = {p.relative_to(PORT).as_posix() for p in _port_sources()
+               if PORT in p.parents}
+    assert set(TRAINING_MODULES) <= covered
+
+
 @pytest.mark.parametrize('path', _port_sources(),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_jax_package_imports(path):
@@ -94,3 +111,11 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_train_cli_raises_without_a_card(no_card):
+    from mr_mt3_tpu_torch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(['--config-name=config_slakh_segmem',
+                    'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',
+                    'eval.audio_dir=null'])
