@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every kernel of the main paths from csrc/ (nvcc, one process
      per source, started together): fused_decode_window,
-     fused_attention_fwd and fused_attention_bwd;
+     fused_attention_fwd, fused_attention_bwd, int8_matmul (int8_matmul
+     and int8_gated_ff) and int8_decode_attention;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -23,6 +24,14 @@ Phases (any failure exits non-zero and prints no result line):
      a plain version without the int8 requantization of q and the
      probabilities; CUDA-event timings (median) beside the
      bytes/operations bound;
+  3b. the int8 tiers' kernels against their plain versions at full width
+     (int8_kernel_cases): int8_matmul at the lm_head (512 x 1536),
+     int8_gated_ff at 512 / 1024, int8_decode_attention over a 1024 cache
+     at positions 0, 31 and 1023 and across 256 and 320 encoder rows
+     (head width 64, and 24), each at B 8 and 64 with f32 and bf16
+     inputs, within INT8_BOUNDS, which must also catch a control (the
+     attention without the requantization of p); CUDA-event times beside
+     the bound, the plain version's and a library yardstick;
   4. fused_attention_fwd against its plain version at the segment-memory
      path's shapes (ATTN_CASES: the memory encoder at B 8 and 64, the
      probe's causal decoder and 1024 x 320 cross attention, the parity
@@ -36,10 +45,13 @@ Phases (any failure exits non-zero and prints no result line):
      tests/goldens/parity_vanilla.npz (loaded with numpy through the
      port's weights bridge, its audio rebuilt and checked against the
      stored hash) decodes both songs at max_length 1024 through
-     fused_int4, fused and fused_bf16 with no token off the golden, and
-     the probe ladder walks it as the JAX ladder does (int4 demoted for a
-     material flip, int8 kept); then parity_withprev.npz (contiguous)
-     through the exact path and the three window tiers and parity_v1.npz
+     fused_int4, fused, fused_bf16, int8 and int8_kv with no token off
+     the golden, and the probe ladder walks it as the JAX ladder does
+     (int4 demoted for a material flip, int8 kept; from int8 and int8_kv,
+     each kept, as the CPU test pins JAX's walk); then
+     parity_withprev.npz (contiguous) through the exact path, the three
+     window tiers and the two int8 tiers (those also equal to the same
+     decode on their kernels' plain versions) and parity_v1.npz
      through the exact path, no token off; and the withprev model at
      bf16 gives the same tokens with its memory encoder on the kernel and
      on einsum;
@@ -55,8 +67,15 @@ Phases (any failure exits non-zero and prints no result line):
      ran (memory-encoder calls and teacher-forced forwards at L >= 512);
   8. serving through each window tier held (fused_int4, fused, fused_bf16;
      prepare_handler(probe=False)): the same clips, every answer MIDI;
-  9. one worst-case decode (B=8, 1024 steps) on each window tier and on
-     the exact path (fp32, TF32 off), and one chained segment-memory
+  8b. the int8 tiers as `serve +eval.quantize=int8|int8_kv` builds them:
+     the ladder's walk from each (printed), a handler held at each
+     serving the clips, the int8 kernels' launches equal to the greedy
+     steps times num_decoder_layers + 1 (int8) or 2 x num_decoder_layers
+     (int8_kv); and the segment-memory model at bf16 through each tier
+     held, one clip at eval.max_length 256 (cut from 1024 for time);
+  9. one worst-case decode (B=8, 1024 steps) on each window tier, each
+     int8 tier and the exact path (fp32, TF32 off), and one chained
+     segment-memory
      decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
  10. fused_attention_bwd against its plain version at the training step's
      shapes (ATTN_BWD_CASES: B 12, the memory encoder, the decoder's
@@ -77,10 +96,10 @@ Phases (any failure exits non-zero and prints no result line):
      'last' for one more; finite losses, loadable checkpoints, the step
      going on, and the attention kernels' launches equal to the long
      attentions the steps ran (forward and backward).
-Launch counts are zeroed just before each of phases 6, 7, 8 and each leg
-of 12 and read just after; the window launches must cover every window the
-decoded tokens needed. Then one JSON line of kernel numbers, the card
-line, and the result line.
+Launch counts are zeroed just before each of phases 6, 7, 8, each leg of
+8b and of 12 and read just after; the window launches must cover every
+window the decoded tokens needed. Each phase prints its seconds. Then one
+JSON line of kernel numbers, the card line, and the result line.
 """
 
 import json
@@ -164,10 +183,12 @@ BOUNDS = {
                    'max_gap_rel': 4e-2},            # 0.0136
 }
 TIMED_RUNS = 20
-# the plain version is thousands of host-launched ops (~1 s a window): its
-# median over fewer runs, with no warm-up beyond the comparison's own call
-# (its time measures the host, PERF.md)
+# the plain versions' times: a median over fewer runs, with no warm-up
+# beyond the comparison's own call (their times measure the host, PERF.md);
+# the plain window is thousands of host-launched ops (~1 s a window), so
+# one run each, which keeps the whole script inside its time limit
 PLAIN_TIMED_RUNS = 3
+PLAIN_WINDOW_TIMED_RUNS = 1
 TIERS = ('fused_bf16', 'fused', 'fused_int4')
 
 
@@ -176,8 +197,20 @@ def fail(msg):
     sys.exit(1)
 
 
+PHASE_SECONDS = {}
+_phase_now = [None, None]      # the running phase's name and start time
+
+
 def phase(name):
-    print(f'== {name}', flush=True)
+    """Start a phase: print its name, and the seconds of the one before."""
+    now = time.monotonic()
+    if _phase_now[0] is not None:
+        PHASE_SECONDS[_phase_now[0]] = round(now - _phase_now[1], 1)
+        print(f'   ({_phase_now[0]}: {now - _phase_now[1]:.1f} s)',
+              flush=True)
+    _phase_now[:] = [name, now]
+    if name is not None:
+        print(f'== {name}', flush=True)
 
 
 def card_line():
@@ -446,7 +479,7 @@ def kernel_cases(torch):
             ms = time_ms(torch, lambda: fd.fused_decode_window_cuda(*args))
             plain_ms = time_ms(
                 torch, lambda: fd.fused_decode_window_reference(*args),
-                runs=PLAIN_TIMED_RUNS, warmup=0)
+                runs=PLAIN_WINDOW_TIMED_RUNS, warmup=0)
             bound, bound_by = window_bound_ms(cfg, batch, pos0, lenc, T,
                                               tier)
             case = {'tier': tier, 'batch': batch, 'pos0': pos0,
@@ -792,7 +825,7 @@ def parity_on_card(torch):
     model, golden, max_length, audios = parity_model(
         torch, 'parity_vanilla.npz')
     flips = {}
-    for tier in ('fused_int4', 'fused', 'fused_bf16'):
+    for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS:
         handler = InferenceHandler(model=model, max_length=max_length,
                                    batch_size=4, quantize=tier)
         t0 = time.monotonic()
@@ -830,11 +863,15 @@ def parity_on_card(torch):
              f'{handler.quantize!r}, not as the JAX ladder does '
              f'({PARITY_LADDER_TIER!r} after one material-flip demotion): '
              f'{info}')
-    return {'flips': flips, 'ladder': info}
+    return {'flips': flips, 'ladder': info,
+            'int8_ladders': parity_int8_ladders(torch, model)}
 
 
 def worst_case(torch):
-    """B=8, 1024-step decode on each window tier and the exact fp32 path."""
+    """B=8, 1024-step decode on each window tier, each int8 tier and the
+    exact fp32 path; for the step-by-step tiers (int8, int8_kv, none)
+    device_per_step gives the device's busy time per step, its idle share
+    of the timed step, and the int8 kernels' share."""
     phase('worst-case decode (B=8, max_length 1024)')
     from mr_mt3_tpu_torch.models import MT3, MT3Config
     from mr_mt3_tpu_torch.ops.decode import greedy_decode
@@ -848,7 +885,8 @@ def worst_case(torch):
     mel = torch.rand((8, 256, cfg.mel_bins), generator=gen).to(dev)
     audio_s = 8 * 256 * 128 / 16000
     out, rows = {}, {}
-    for tier in ('fused_int4', 'fused', 'fused_bf16', 'none'):
+    for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS + (
+            'none',):
         dp = stack_decode_params(model, quantize=tier)
         greedy_decode(model, mel[:, :, :], 32, quantize=tier, dp=dp)
         torch.cuda.synchronize()
@@ -868,11 +906,77 @@ def worst_case(torch):
         print(f'{tier}: {secs:.3f} s, {steps} steps decoded, '
               f'{secs / max(steps, 1) * 1e3:.4f} ms/step, '
               f'realtime factor {audio_s / secs:.2f}')
-    for tier in ('fused_int4', 'fused', 'fused_bf16'):
+        if tier in INT8_TIERS + ('none',):
+            rows[tier].update(device_per_step(
+                torch, lambda n: greedy_decode(model, mel, n, quantize=tier,
+                                               dp=dp),
+                secs / max(steps, 1) * 1e3))
+            print(f'{tier}: device busy '
+                  f'{rows[tier]["device_ms_per_step"]:.4f} ms/step at '
+                  f'positions {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} '
+                  f'(idle share {rows[tier]["idle_share"]:.3f} of the '
+                  f'timed step); int8 kernels ms/step '
+                  f'{json.dumps(rows[tier]["kernel_ms_per_step"])}')
+    for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS:
         agree = float((out[tier] == out['none']).float().mean())
         rows[tier]['agreement_with_exact'] = agree
         print(f'{tier} vs exact token agreement: {agree:.4f}')
     return rows
+
+
+# The step-by-step tiers' device time per step: decodes of PROFILE_STEPS[0]
+# and PROFILE_STEPS[1] steps, each under torch.profiler; the difference of
+# their device time over the extra steps leaves out the encoder and the
+# set-up both share, so it reads the steps at positions PROFILE_STEPS[0]
+# to PROFILE_STEPS[1] - 1 (the attention's share grows with the position:
+# a lower bound of a 1024-step decode's mean)
+PROFILE_STEPS = (8, 40)
+# the CUDA kernels of the int8 tiers, by their names in a trace
+INT8_KERNEL_NAMES = {'int8_matmul': 'i8mm_kernel',
+                     'int8_gated_ff': 'i8ff_kernel',
+                     'int8_decode_attention': 'i8att_kernel'}
+
+
+def device_time(torch, fn):
+    """Device time of one call of fn from a torch.profiler trace: the
+    summed durations of the events on the card (kernels, copies, sets), in
+    all and of the int8 kernels by name (ms). Host events are left out:
+    the device time the profiler gives an operator is that of the kernels
+    it launched, which are counted once, as device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, kernels = 0.0, {name: 0.0 for name in INT8_KERNEL_NAMES}
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        ms = event.time_range.elapsed_us() / 1e3
+        total += ms
+        for name, symbol in INT8_KERNEL_NAMES.items():
+            if symbol in event.name:
+                kernels[name] += ms
+    if total <= 0:
+        fail('torch.profiler recorded no device time')
+    return total, kernels
+
+
+def device_per_step(torch, decode, wall_ms_per_step):
+    """decode(n) decodes n steps; its device busy ms per step over the
+    steps PROFILE_STEPS apart, the int8 kernels' share of it by name, and
+    the idle share of wall_ms_per_step (a timed decode's)."""
+    (short, k_short), (full, k_full) = (
+        device_time(torch, lambda n=n: decode(n)) for n in PROFILE_STEPS)
+    extra = PROFILE_STEPS[1] - PROFILE_STEPS[0]
+    per_step = (full - short) / extra
+    if per_step <= 0:
+        fail(f'device time does not grow with the steps: {short:.4f} ms '
+             f'for {PROFILE_STEPS[0]}, {full:.4f} for {PROFILE_STEPS[1]}')
+    return {'device_ms_per_step': per_step,
+            'idle_share': 1 - per_step / wall_ms_per_step,
+            'kernel_ms_per_step': {k: (k_full[k] - k_short[k]) / extra
+                                   for k in k_full}}
 
 
 # fused_attention_fwd against its plain version on the same inputs: both
@@ -1138,7 +1242,8 @@ def segmem_parity_on_card(torch):
 
     flips = {}
     for name, kw, tiers in (
-            ('parity_withprev.npz', WITHPREV_KW, ('none',) + TIERS),
+            ('parity_withprev.npz', WITHPREV_KW,
+             ('none',) + TIERS + INT8_TIERS),
             ('parity_v1.npz', V1_KW, ('none',))):
         model, golden, max_length, audios = parity_model(torch, name, **kw)
         for tier in tiers:
@@ -1152,6 +1257,20 @@ def segmem_parity_on_card(torch):
             if off:
                 fail(f'{name} {tier} flipped {off} golden tokens on the '
                      f'card')
+            if tier in INT8_TIERS:
+                plain = PlainInt8()
+                try:
+                    want = decode_songs(model, tier, audios, max_length)
+                finally:
+                    plain.close()
+                differ = sum(int((a != b).sum())
+                             for a, b in zip(tokens, want))
+                print(f'{name} {tier}: {differ} tokens differ between the '
+                      f'kernels and their plain versions')
+                flips[f'{name}:{tier}:kernels_vs_plain'] = differ
+                if differ:
+                    fail(f'{name} {tier}: the kernels and their plain '
+                         f'versions differ in {differ} tokens')
     # the withprev model at bf16: memory encoder through the kernel, then
     # through einsum; the exact decode path in both
     bf16 = {}
@@ -1358,6 +1477,486 @@ def segmem_worst_case(torch):
           f'factor {out["rtf"]:.2f}; memory encoder {mem_ms:.4f} ms per '
           f'segment (B=8, L=1024)')
     return out
+
+
+# ---- the int8 and int8_kv decode tiers -----------------------------------
+
+INT8_TIERS = ('int8', 'int8_kv')
+# The three kernels of the int8 tiers against their plain versions on the
+# same inputs, at the main path's shapes. Readings: rel_err, the largest
+# |difference| over the largest |plain output|; unequal, the share of
+# outputs not equal; heads_apart (attention), the share of (row, head)
+# outputs whose largest |difference| passes 1e-4 of their largest |plain
+# output|. Both versions sum in f32 in other orders (and the plain
+# version's products run in cuBLAS), so f32 outputs differ in their last
+# bits almost everywhere (unequal 0.38-0.86 in run W: no bound) and a bf16
+# output near a rounding midpoint lands one bf16 step apart. Largest
+# readings over the cases of run W (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+#   int8_matmul     f32 rel 3.6e-7; bf16 rel 1.6e-3 (one step of one
+#                   output), unequal 8.1e-5;
+#   int8_gated_ff   f32 rel 4.6e-4 (its intermediate is rounded to bf16,
+#                   and one rounding at a tie moves the outputs it feeds);
+#                   bf16 rel 3.3e-4, unequal 1.8e-4;
+#   int8_decode_attention  f32 rel 5.6e-7, no head apart (no requantized
+#                   code moved, in runs W-Z alike); bf16 rel 8.6e-3,
+#                   unequal 1.8e-2, heads_apart 2.1%.
+# Bounds: about 3x those; rel_err of a bf16 output at least two bf16
+# steps (2^-7) and unequal at least 1e-3 (a handful of roundings at B=8);
+# no f32 attention head apart. The control reads rel_err 0.0045-0.0175
+# and 0.92-1.0 of the heads apart (run W).
+INT8_BOUNDS = {
+    ('int8_matmul', 'float32'): {'rel_err': 1.5e-6},
+    ('int8_matmul', 'bfloat16'): {'rel_err': 2 ** -7, 'unequal': 1e-3},
+    ('int8_gated_ff', 'float32'): {'rel_err': 1.5e-3},
+    ('int8_gated_ff', 'bfloat16'): {'rel_err': 2 ** -7, 'unequal': 1e-3},
+    ('int8_decode_attention', 'float32'): {'rel_err': 2e-6,
+                                           'heads_apart': 0.0},
+    ('int8_decode_attention', 'bfloat16'): {'rel_err': 2.6e-2,
+                                            'heads_apart': 0.06},
+}
+# (name, heads, d_kv, cache length, position): the full-width decoder's
+# self-attention at the first, 32nd and last of 1024 positions, its
+# cross-attention over the vanilla encoder (256) and the segment-memory
+# model's (256 + 64), and the parity model's head width 24
+INT8_ATTN_CASES = [
+    ('self_pos0', 6, 64, 1024, 0),
+    ('self_pos31', 6, 64, 1024, 31),
+    ('self_pos1023', 6, 64, 1024, 1023),
+    ('cross_lenc256', 6, 64, 256, 255),
+    ('cross_lenc320', 6, 64, 320, 319),
+    ('d24_self_pos1023', 4, 24, 1024, 1023),
+    ('d24_cross_lenc320', 4, 24, 320, 319),
+]
+INT8_BATCHES = (8, 64)
+INT8_DTYPES = ('float32', 'bfloat16')
+
+
+def output_readings(torch, got, want, head_width=None):
+    """The readings named above INT8_BOUNDS, of got against want (B, N)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    out = {'max_abs_err': float(diff.max()),
+           'rel_err': float(diff.max()) / max(float(w.abs().max()), 1e-30),
+           'unequal': float((g != w).float().mean())}
+    if head_width:
+        d = diff.reshape(diff.shape[0], -1, head_width).amax(-1)
+        m = w.abs().reshape(diff.shape[0], -1, head_width).amax(-1)
+        out['heads_apart'] = float((d > 1e-4 * m).float().mean())
+    return out
+
+
+def int8_violations(kernel, dtype, readings):
+    return [f'{key} {readings[key]:.4g} > {bound}'
+            for key, bound in INT8_BOUNDS[(kernel, dtype)].items()
+            if readings[key] > bound]
+
+
+def int8_attention_control(torch, q, k_q, k_scale, v_q, v_scale, position):
+    """A deliberately wrong plain version of int8_decode_attention: the
+    probabilities times the V scales go into the value sums in f32, not
+    requantized to int8. The bounds must tell the kernel from it."""
+    b, h, dk = q.shape
+    n = position + 1
+    qf = q.float()
+    qs = torch.clamp(qf.abs().amax(-1, keepdim=True), min=1e-12) / 127
+    qi = torch.clamp(torch.round(qf / qs), -127, 127)
+    s = torch.einsum('bhd,bhdk->bhk', qi.double(),
+                     k_q[..., :n].double()).float()
+    s = s * qs * k_scale[:, :, 0, :n]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pv = e / e.sum(-1, keepdim=True) * v_scale[:, :, 0, :n]
+    out = torch.einsum('bhk,bhdk->bhd', pv.double(),
+                       v_q[..., :n].double()).float()
+    return out.reshape(b, h * dk).to(q.dtype)
+
+
+def int8_matmul_bound_ms(b, k, n, elt):
+    """x read once, the int8 weights and f32 scales once, y written once,
+    against HBM; 2 b k n operations at the bf16 peak (the TPU kernel's bf16
+    dot). Returns (ms, bound_by)."""
+    nbytes = b * k * elt + k * n + 4 * n + b * n * elt
+    return _bound(nbytes, 2 * b * k * n / BF16_FLOPS)
+
+
+def int8_gated_ff_bound_ms(b, d, f, elt):
+    """h in and out once, three int8 weight matrices and their scales once;
+    6 b d f operations at the bf16 peak."""
+    nbytes = 2 * b * d * elt + 3 * d * f + 4 * (2 * f + d)
+    return _bound(nbytes, 6 * b * d * f / BF16_FLOPS)
+
+
+def int8_attention_bound_ms(b, h, dk, n, elt):
+    """q in and out once, the n attended positions' K and V codes and
+    scales once; the two int8 dots (4 b h dk n operations) at the int8
+    peak."""
+    nbytes = 2 * b * h * dk * elt + 2 * b * h * n * (dk + 4)
+    return _bound(nbytes, 4 * b * h * dk * n / INT8_OPS)
+
+
+def _bound(nbytes, t_ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def int8_kernel_cases(torch):
+    """int8_matmul (the lm_head, 512 x 1536), int8_gated_ff (512 / 1024)
+    and int8_decode_attention (INT8_ATTN_CASES) against their plain
+    versions at B 8 and 64, f32 and bf16 inputs; the attention also
+    against its control. Then each kernel's time (its wrapper, as the
+    decode calls it), the plain version's, the bound and a library
+    yardstick that is not the same function: torch.matmul on weights
+    dequantized once beforehand, and scaled_dot_product_attention (scale
+    1.0) over the dequantized positions <= position; none for the
+    feed-forward."""
+    phase('int8 kernels vs plain (full width)')
+    import torch.nn.functional as F
+
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(5)
+    results = {'int8_matmul': [], 'int8_gated_ff': [],
+               'int8_decode_attention': []}
+    bad = []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def quantized(k, n):
+        codes, scale = i8m.quantize_columns(randn(k, n, scale=0.05))
+        return codes.contiguous(), scale[None].contiguous()
+
+    def record(kernel, case, got, want, head_width=None, control=None):
+        torch.cuda.synchronize()
+        readings = output_readings(torch, got, want, head_width)
+        dtype = case['dtype']
+        name = f'{kernel} {case["case"]} B={case["batch"]} {dtype}'
+        case.update(readings)
+        bad.extend(f'{name}: {v}'
+                   for v in int8_violations(kernel, dtype, readings))
+        if control is not None:
+            ctrl = output_readings(torch, got, control, head_width)
+            caught = int8_violations(kernel, dtype, ctrl)
+            case['control'] = {k: ctrl[k]
+                               for k in INT8_BOUNDS[(kernel, dtype)]}
+            case['control_caught_by'] = caught
+            if not caught:
+                bad.append(f'{name}: the bounds do not tell the kernel from '
+                           f'the control without the requantization of p')
+        return case
+
+    d, vocab, ff = 512, 1536, 1024
+    w_lm, s_lm = quantized(d, vocab)
+    w0, s0 = quantized(d, ff)
+    w1, s1 = quantized(d, ff)
+    wo, so = quantized(ff, d)
+    for dtype in INT8_DTYPES:
+        tdt = getattr(torch, dtype)
+        elt = 4 if dtype == 'float32' else 2
+        lm_deq = (w_lm.float() * s_lm).to(tdt)
+        for b in INT8_BATCHES:
+            x = randn(b, d).to(tdt)
+            case = {'case': 'lm_head', 'batch': b, 'dtype': dtype}
+            got = i8m.int8_matmul(x, w_lm, s_lm)
+            record('int8_matmul', case, got,
+                   i8m.int8_matmul_reference(x, w_lm, s_lm))
+            case['ms'] = time_ms(torch, lambda: i8m.int8_matmul_cuda(
+                x, w_lm, s_lm))
+            case['plain_ms'] = time_ms(
+                torch, lambda: i8m.int8_matmul_reference(x, w_lm, s_lm),
+                runs=PLAIN_TIMED_RUNS, warmup=0)
+            case['library_ms'] = time_ms(torch, lambda: torch.matmul(
+                x, lm_deq))
+            case['bound_ms'], case['bound_by'] = int8_matmul_bound_ms(
+                b, d, vocab, elt)
+            print(json.dumps(case), flush=True)
+            results['int8_matmul'].append(case)
+
+            h = randn(b, d).to(tdt)
+            args = (h, w0, s0, w1, s1, wo, so)
+            case = {'case': 'ff_512x1024', 'batch': b, 'dtype': dtype}
+            got = i8m.int8_gated_ff(*args)
+            record('int8_gated_ff', case, got,
+                   i8m.int8_gated_ff_reference(*args))
+            case['ms'] = time_ms(torch, lambda: i8m.int8_gated_ff_cuda(
+                *args))
+            case['plain_ms'] = time_ms(
+                torch, lambda: i8m.int8_gated_ff_reference(*args),
+                runs=PLAIN_TIMED_RUNS, warmup=0)
+            case['library_ms'] = None
+            case['bound_ms'], case['bound_by'] = int8_gated_ff_bound_ms(
+                b, d, ff, elt)
+            print(json.dumps(case), flush=True)
+            results['int8_gated_ff'].append(case)
+
+            for name, heads, dk, k_len, pos in INT8_ATTN_CASES:
+                q = randn(b, heads, dk).to(tdt)
+                (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+                    randn(b, heads, dk, k_len)) for _ in range(2))
+                args = (q, kq, ks, vq, vs, pos)
+                case = {'case': name, 'batch': b, 'dtype': dtype,
+                        'heads': heads, 'd_kv': dk, 'cache': k_len,
+                        'position': pos}
+                got = i8a.int8_decode_attention(*args)
+                # at position 0 p is 1 and requantizes exactly: the control
+                # is the same function there
+                record('int8_decode_attention', case, got,
+                       i8a.int8_decode_attention_reference(*args), dk,
+                       int8_attention_control(torch, *args) if pos else None)
+                n = pos + 1
+                qt = q[:, :, None, :]
+                # (B, H, n, dk) with dense strides (at n = 1 .contiguous()
+                # keeps the transposed strides, which SDPA refuses)
+                kt, vt = ((c[..., :n].float() * sc[..., :n]).to(tdt)
+                          .transpose(-1, -2)
+                          .clone(memory_format=torch.contiguous_format)
+                          for c, sc in ((kq, ks), (vq, vs)))
+                case['ms'] = time_ms(
+                    torch, lambda: i8a.int8_decode_attention_cuda(*args))
+                case['plain_ms'] = time_ms(
+                    torch,
+                    lambda: i8a.int8_decode_attention_reference(*args),
+                    runs=PLAIN_TIMED_RUNS, warmup=0)
+                case['library_ms'] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, scale=1.0))
+                case['bound_ms'], case['bound_by'] = \
+                    int8_attention_bound_ms(b, heads, dk, n, elt)
+                print(json.dumps(case), flush=True)
+                results['int8_decode_attention'].append(case)
+                del q, kq, ks, vq, vs, kt, vt, got
+    if bad:
+        fail('int8 kernels vs plain versions: ' + '; '.join(bad))
+    return results
+
+
+class StepLog:
+    """Stands in for fast_decode.decode_step_fast until closed, counting
+    the greedy steps of each tier (its quantize argument)."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.ops import fast_decode
+        self.mod, self.real, self.steps = fast_decode, \
+            fast_decode.decode_step_fast, {}
+        log = self
+
+        def counting(cfg, dp, tokens, position, cache, cross_kv,
+                     quantize='none'):
+            log.steps[quantize] = log.steps.get(quantize, 0) + 1
+            return log.real(cfg, dp, tokens, position, cache, cross_kv,
+                            quantize=quantize)
+        fast_decode.decode_step_fast = counting
+
+    def close(self):
+        self.mod.decode_step_fast = self.real
+
+
+def steps_needed(log, tier):
+    """Greedy steps the step-by-step loop had to run for the decodes on
+    `tier` that DecodeLog recorded: per batch, up to the first early-exit
+    check (every _EXIT_CHECK_EVERY steps) after the last row's first EOS,
+    or max_length."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.ops.fast_decode import _EXIT_CHECK_EVERY as every
+    steps = 0
+    for quantize, batch, max_length, eos_id, tokens in log.calls:
+        if quantize != tier:
+            continue
+        for start in range(0, len(tokens), batch):
+            last = 0
+            for row in tokens[start:start + batch]:
+                eos = np.flatnonzero(row[1:] == eos_id)
+                last = max(last, int(eos[0]) + 1 if len(eos)
+                           else max_length + every)
+            steps += min(max_length, -(-last // every) * every)
+    return steps
+
+
+def int8_launches():
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    return {**i8m.LAUNCHES, **i8a.LAUNCHES}
+
+
+def zero_launches():
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    for counts in (fd.LAUNCHES, ta.LAUNCHES, i8m.LAUNCHES, i8a.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def check_int8_launches(tier, steps, layers):
+    """The kernels of `tier` launched steps x their per-step count, the
+    other int8 kernels and the window kernel not at all."""
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    got = int8_launches()
+    want = ({'int8_matmul': steps, 'int8_gated_ff': steps * layers,
+             'int8_decode_attention': 0} if tier == 'int8' else
+            {'int8_matmul': 0, 'int8_gated_ff': 0,
+             'int8_decode_attention': 2 * layers * steps})
+    print(f'{tier}: {steps} greedy steps, launches {got} (expected '
+          f'{want})')
+    if got != want or steps < 1 or any(fd.LAUNCHES.values()):
+        fail(f'{tier}: launches {got} and window launches {fd.LAUNCHES} '
+             f'for {steps} steps (expected {want})')
+    return got
+
+
+def int8_tier_serving(torch):
+    """The int8 tiers as `python -m mr_mt3_tpu_torch.serve
+    +eval.quantize=<tier>` builds them: first the probe ladder's walk from
+    the tier (printed; random weights may demote it), then a handler held
+    at the tier (prepare_handler(probe=False)) serving the 4 clips over
+    HTTP; the kernels' launches must equal the steps decoded times the
+    per-step count (num_decoder_layers + 1 for int8, 2 x
+    num_decoder_layers for int8_kv)."""
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.infer import probe as probe_mod
+    out = {}
+    for tier in INT8_TIERS:
+        phase(f'ladder walk from {tier} (random weights)')
+        handler = serve.build_handler([f'+eval.quantize={tier}'])
+        if handler.quantize != tier:
+            fail(f'+eval.quantize={tier} built a {handler.quantize!r} '
+                 f'handler')
+        t0 = time.monotonic()
+        walk = probe_mod.resolve_auto_quantize(handler, verbose=True)
+        walk['seconds'] = round(time.monotonic() - t0, 1)
+        print(f'ladder from {tier}: {json.dumps(walk)}')
+        if 'probe_error' in walk or 'classify_error' in walk:
+            fail(f'the ladder from {tier} raised: {walk}')
+        del handler
+        phase(f'serving held at {tier}')
+        handler = serve.build_handler([f'+eval.quantize={tier}'])
+        zero_launches()
+        log, steps = DecodeLog(), StepLog()
+        try:
+            t0 = time.monotonic()
+            info = serve.prepare_handler(handler, probe=False)
+            print(f'prewarmed in {time.monotonic() - t0:.1f} s')
+            health = serve_clips(torch, handler, info)
+        finally:
+            steps.close()
+            log.close()
+        if health['decode'].get('quantize') != tier:
+            fail(f'/healthz decode info: {health["decode"]}')
+        ran = steps.steps.get(tier, 0)
+        need = steps_needed(log, tier)
+        if set(steps.steps) != {tier} or ran != need:
+            fail(f'{tier}: {steps.steps} greedy steps run, {need} needed by '
+                 f'the decoded tokens')
+        launches = check_int8_launches(tier, ran,
+                                       handler.cfg.num_decoder_layers)
+        out[tier] = {'walk': walk, 'steps': ran, 'launches': launches,
+                     'decodes': len(log.calls)}
+        del handler
+        torch.cuda.empty_cache()
+    return out
+
+
+SEGMEM_INT8_MAX_LENGTH = 256
+
+
+def segmem_int8_leg(torch):
+    """The segment-memory model at bf16 (SEGMEM_ARGS) through each int8
+    tier held, one 2.5 s clip (one chain of batch_size segments) at
+    eval.max_length SEGMEM_INT8_MAX_LENGTH: MIDI out, and the kernels'
+    launches equal to the steps times the per-step count."""
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.midi import note_sequence_to_midi_bytes
+    out = {}
+    for tier in INT8_TIERS:
+        phase(f'segment-memory leg held at {tier} (bf16, max_length '
+              f'{SEGMEM_INT8_MAX_LENGTH})')
+        handler = serve.build_handler(
+            SEGMEM_ARGS + [f'+eval.quantize={tier}',
+                           f'eval.max_length={SEGMEM_INT8_MAX_LENGTH}'])
+        if handler.cfg.dtype != 'bfloat16' or handler.quantize != tier:
+            fail(f'the segmem {tier} handler: {handler.cfg}, '
+                 f'{handler.quantize!r}')
+        zero_launches()
+        steps = StepLog()
+        try:
+            t0 = time.monotonic()
+            midi = note_sequence_to_midi_bytes(handler.transcribe(
+                clip(2.5, 0)))
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+        finally:
+            steps.close()
+        if midi[:4] != b'MThd':
+            fail(f'segmem {tier}: no MIDI out')
+        ran = steps.steps.get(tier, 0)
+        if set(steps.steps) != {tier}:
+            fail(f'segmem {tier}: steps {steps.steps}')
+        launches = check_int8_launches(tier, ran,
+                                       handler.cfg.num_decoder_layers)
+        print(f'segmem {tier}: {len(midi)} MIDI bytes in {secs:.2f} s, '
+              f'{ran} steps, {secs / max(ran, 1) * 1e3:.3f} ms/step')
+        out[tier] = {'steps': ran, 'seconds': secs, 'launches': launches}
+        del handler
+        torch.cuda.empty_cache()
+    return out
+
+
+class PlainInt8:
+    """Swaps the int8 kernels' wrappers for their plain versions until
+    closed (the decode then runs the plain versions on the card)."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.ops import int8_attention as i8a
+        from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+        self.real = [(i8m, 'int8_matmul', i8m.int8_matmul_reference),
+                     (i8m, 'int8_gated_ff', i8m.int8_gated_ff_reference),
+                     (i8a, 'int8_decode_attention',
+                      i8a.int8_decode_attention_reference)]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in self.real]
+        for mod, name, plain in self.real:
+            setattr(mod, name, plain)
+
+    def close(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+# the parity model's ladder from each int8 tier as
+# tests/test_torch_probe.py::TestAgainstJax::
+# test_parity_model_ladder_from_int8_tiers_equals_jax pins JAX's walk on
+# the CPU: a 64-step probe and the confirm at the 96-step serving length,
+# 0 flips in both (130 and 194 probe tokens), the tier kept
+PARITY_INT8_LADDER = {'max_length': 96, 'probe_max_length': 64}
+
+
+def parity_int8_ladders(torch, model):
+    """The probe ladder from each int8 tier on the parity model, as the
+    CPU test pins JAX's walk."""
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.infer import probe as probe_mod
+    walks = {}
+    real = probe_mod.PROBE_MAX_LENGTH
+    probe_mod.PROBE_MAX_LENGTH = PARITY_INT8_LADDER['probe_max_length']
+    try:
+        for tier in INT8_TIERS:
+            handler = InferenceHandler(
+                model=model, max_length=PARITY_INT8_LADDER['max_length'],
+                batch_size=4, quantize=tier)
+            info = probe_mod.resolve_auto_quantize(handler, verbose=False)
+            print(f'ladder from {tier} on the parity model: '
+                  f'{json.dumps(info)}')
+            if handler.quantize != tier or info.get('probe_flips') != 0 or \
+                    info.get('confirm_flips') != 0 or 'demotions' in info:
+                fail(f'the ladder from {tier} on the parity model did not '
+                     f'walk as the JAX ladder does (kept, 0 flips): {info}')
+            walks[tier] = info
+    finally:
+        probe_mod.PROBE_MAX_LENGTH = real
+    return walks
 
 
 # ---- training (the train CLI's main path) --------------------------------
@@ -1883,6 +2482,7 @@ def main():
     environment(torch)
     build_kernels()
     cases = kernel_cases(torch)
+    int8_cases = int8_kernel_cases(torch)
     attn_cases = attention_cases(torch)
     bwd_cases = attention_backward_cases(torch)
     parity = parity_on_card(torch)
@@ -1890,6 +2490,8 @@ def main():
     main = main_path(torch)
     segmem = segmem_main_path(torch)
     launches = held_tier_serving(torch)
+    int8_serving = int8_tier_serving(torch)
+    int8_segmem = segmem_int8_leg(torch)
     worst = worst_case(torch)
     worst['segmem_fused_bf16'] = segmem_worst_case(torch)
     training = {'parity': training_parity(torch),
@@ -1947,12 +2549,49 @@ def main():
         'library_note': 'torch.autograd.grad through torch.nn.functional.'
                         'scaled_dot_product_attention, scale 1.0, timed only',
         'cases': bwd_cases})
+    notes = {
+        'int8_matmul': 'torch.matmul on the weights dequantized once '
+                       'beforehand (reads bf16/f32 weights, not int8: not '
+                       'the same function), timed only',
+        'int8_gated_ff': 'none: no single PyTorch call computes the gated '
+                         'feed-forward',
+        'int8_decode_attention': 'torch.nn.functional.scaled_dot_product_'
+                                 'attention, scale 1.0, on the cache '
+                                 'dequantized beforehand (no int8 q or p: '
+                                 'not the same function), timed only'}
+    for kernel, tier, source, line, main_case in (
+            ('int8_matmul', 'int8', 'int8_matmul.cu', 'int8_matmul.py:71',
+             'lm_head'),
+            ('int8_gated_ff', 'int8', 'int8_matmul.cu',
+             'int8_matmul.py:108', 'ff_512x1024'),
+            ('int8_decode_attention', 'int8_kv', 'int8_decode_attention.cu',
+             'int8_attention.py:101', 'self_pos1023')):
+        rows = int8_cases[kernel]
+        case = next(c for c in rows if c['case'] == main_case and
+                    c['batch'] == 8 and c['dtype'] == 'float32')
+        kernels.append({
+            'name': kernel, 'route': 'cuda',
+            'source': f'mr_mt3_tpu_torch/csrc/{source}',
+            'replaces': f'mr_mt3_tpu/ops/{line}',
+            'launches': int8_serving[tier]['launches'][kernel],
+            'max_abs_err': max(c['max_abs_err'] for c in rows),
+            'ms': case['ms'], 'plain_ms': case['plain_ms'],
+            'bound_ms': case['bound_ms'], 'bound_by': case['bound_by'],
+            'library_ms': case['library_ms'],
+            'library_note': notes[kernel],
+            'segmem_path_launches': int8_segmem[tier]['launches'][kernel],
+            'cases': rows})
+    phase(None)
+    print(f'phase seconds: {json.dumps(PHASE_SECONDS)}')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_kernels.json'), 'w') as f:
         json.dump({'card': card_line(), 'kernels': kernels,
                    'parity': parity, 'main_path': main,
                    'segmem_main_path': segmem,
-                   'worst_case': worst, 'training': training}, f, indent=1)
+                   'int8_serving': int8_serving,
+                   'int8_segmem': int8_segmem,
+                   'worst_case': worst, 'training': training,
+                   'phase_seconds': PHASE_SECONDS}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

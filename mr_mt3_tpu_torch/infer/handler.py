@@ -81,7 +81,9 @@ class InferenceHandler:
         checkpoint.
       segment_bucket: contiguous mode pads a song's segment count to a
         multiple of it.
-      quantize: 'none' (exact), or a tier of the CUDA window kernel:
+      quantize: 'none' (exact); 'int8' (int8 feed-forward and lm_head
+        weights) or 'int8_kv' (int8 K/V), the step-by-step loop on the
+        CUDA int8 kernels; or a tier of the CUDA window kernel:
         'fused_bf16', 'fused' (int8) or 'fused_int4' (the serving default
         on the card, guarded by the probe ladder of infer/probe.py).
       device: None or 'cuda' (raises without a card) or 'cpu'.
@@ -89,7 +91,7 @@ class InferenceHandler:
         ablation of ops/decode.py::segmem_greedy_decode).
       segmem_memory_format: 'reference' keeps the start id in the carried
         memory, 'train_aligned' drops it.
-    A mesh and the 'int8' / 'int8_kv' tiers are not yet ported.
+    A mesh is not yet ported.
     """
 
     SAMPLE_RATE = 16000

@@ -5,7 +5,7 @@ parity model; a real checkpoint with near-uniform logits can flip tokens
 silently. This probe decodes a deterministic music-like batch through a
 handler's quantized path AND an exact twin and counts token flips, so the
 server can demote its tier ('fused_int4' -> 'fused' -> 'fused_bf16' ->
-'none') before it trusts the quantized numerics on the weights it serves.
+'none'; 'int8' and 'int8_kv' -> 'none') before it trusts the quantized numerics on the weights it serves.
 Names, info-dict keys and printed wording are the JAX package's, so
 /healthz reads the same on both servers. For an 'encoder_append' model
 the teacher-forced margins rebuild the carried memory from the decoded
@@ -260,9 +260,9 @@ PROBE_INFO_KEYS = ('probe_flips', 'probe_tokens', 'probe_tier',
 
 def demotes_on_error(handler) -> bool:
     """Whether a probe or prewarm exception may demote the handler's tier.
-    Only on the CPU, where every window tier runs its plain version, as
-    the JAX package demotes on any failure. On the card a tier runs the
-    CUDA kernel, and an exception is a fault of the kernel (its build,
+    Only on the CPU, where every quantized tier runs its kernels' plain
+    versions, as the JAX package demotes on any failure. On the card a
+    tier runs its CUDA kernels, and an exception is a fault of the kernel (its build,
     launch or operand checks) or of the port: it propagates, so the
     server never hides a broken kernel behind a lower tier."""
     return handler.device.type != 'cuda'

@@ -70,3 +70,23 @@ def load(name: str) -> ctypes.CDLL:
             path, _ = build(name)
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def check_operand(name: str, t, dtype, shape, device,
+                  align: int = 1) -> None:
+    """Raise ValueError unless tensor t is what a kernel of csrc/ reads:
+    on `device`, of `dtype` (or one of a tuple of dtypes), of `shape`,
+    contiguous, its data on an `align`-byte boundary."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype not in dtypes:
+        raise ValueError(f'{name} has dtype {t.dtype}, expected '
+                         f'{" or ".join(str(d) for d in dtypes)}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                         f'expected {tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+    if t.data_ptr() % align:
+        raise ValueError(f'{name} must be {align}-byte aligned')

@@ -26,16 +26,15 @@ from mr_mt3_tpu_torch.ops.fast_decode import (
     stack_decode_params,
 )
 
-PORTED_TIERS = ('none', 'fused_bf16', 'fused', 'fused_int4')
-_JAX_TIERS = ('none', 'int8', 'int8_kv', 'fused', 'fused_bf16', 'fused_int4')
+# every decode tier of the JAX package; all are ported
+PORTED_TIERS = ('none', 'int8', 'int8_kv', 'fused', 'fused_bf16',
+                'fused_int4')
 
 
 def check_quantize(quantize: str) -> None:
-    """Raise for a tier this port does not run (yet)."""
-    if quantize not in _JAX_TIERS:
-        raise ValueError(f'unknown quantize mode: {quantize!r}')
+    """Raise for a tier that does not exist."""
     if quantize not in PORTED_TIERS:
-        raise NotImplementedError(f'quantize={quantize!r} not yet ported')
+        raise ValueError(f'unknown quantize mode: {quantize!r}')
 
 
 @torch.no_grad()
@@ -48,6 +47,14 @@ def greedy_decode(model: MT3, mel: torch.Tensor, max_length: int = 1024,
     mel (B, frames, mel_bins) -> tokens (B, max_length + 1) with a leading
     start token. quantize:
       'none'       — the exact KV-cache loop at the model's dtype;
+      'int8'       — the same loop with each layer's feed-forward and the
+                     lm_head on int8 weights with f32 column scales (the
+                     CUDA int8_gated_ff and int8_matmul kernels; their
+                     plain PyTorch versions for CPU tensors);
+      'int8_kv'    — the same loop with the self and cross K/V in int8
+                     with f32 scales per position, attention through the
+                     CUDA int8_decode_attention kernel (its plain version
+                     for CPU tensors);
       'fused_bf16' — the whole-decoder CUDA window kernel: bf16 weights
                      and K/V with f32 sums (its plain PyTorch version for
                      CPU tensors);
@@ -55,7 +62,6 @@ def greedy_decode(model: MT3, mel: torch.Tensor, max_length: int = 1024,
                      with f32 scales, int32 attention dots;
       'fused_int4' — int4 weights and K/V (codes in [-7, 7]); the
                      serving default on the card.
-    'int8' and 'int8_kv' are not yet ported.
     dp: DecodeParams already stacked for this quantize tier (callers that
     decode repeatedly keep them)."""
     check_quantize(quantize)
@@ -150,7 +156,8 @@ def segmem_greedy_decode(model: MT3, mel_segments: torch.Tensor,
     max_length) gives each segment's memory verbatim. All segments are
     encoded in one batched pass first. 'encoder_append' appends the memory
     to the encoder output and decodes through greedy_loop_fast in the
-    quantize tier; 'decoder_prepend' (v1) prefills it as a decoder prefix
+    quantize tier (any of greedy_decode's, 'int8' and 'int8_kv'
+    included); 'decoder_prepend' (v1) prefills it as a decoder prefix
     and decodes on the exact module path only."""
     if memory_format not in ('reference', 'train_aligned'):
         raise ValueError(f'unknown memory_format: {memory_format!r}')

@@ -37,6 +37,7 @@ import torch
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
+from mr_mt3_tpu_torch.ops.cuda_build import check_operand
 from mr_mt3_tpu_torch.ops.int8_matmul import (
     pack_int4,
     quantize_columns,
@@ -419,18 +420,6 @@ def fused_decode_window_reference(cfg: MT3Config, fp: FusedParams,
     return out
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f'{name} is on {t.device}, expected {device}')
-    if t.dtype != dtype:
-        raise ValueError(f'{name} has dtype {t.dtype}, expected {dtype}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name} has shape {tuple(t.shape)}, '
-                         f'expected {tuple(shape)}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
-
-
 def _library():
     from mr_mt3_tpu_torch.ops import cuda_build
     lib = cuda_build.load('fused_decode_window')
@@ -511,14 +500,13 @@ def fused_decode_window_cuda(cfg: MT3Config, fp: FusedParams,
     for name, t, dtype, shape in checks:
         if t is None:
             raise ValueError(f'{name} is missing')
-        _check(name, t, dtype, shape, dev)
         # the weights are read 8 codes at a time with one vector load
-        if name in dict(_WEIGHTS) and t.data_ptr() % 16:
-            raise ValueError(f'{name} must be 16-byte aligned')
+        check_operand(name, t, dtype, shape, dev,
+                      align=16 if name in dict(_WEIGHTS) else 1)
     z = dict(device=dev)
     if logits_out is None:
         logits_out = torch.empty((B, V), dtype=f32, **z)
-    _check('logits_out', logits_out, f32, (B, V), dev)
+    check_operand('logits_out', logits_out, f32, (B, V), dev)
     toks_out = torch.empty((T, B), dtype=i32, **z)
     fin_out = torch.empty((B,), dtype=i32, **z)
     # bf16 window rows: the output in bf16 mode, scratch in the int modes

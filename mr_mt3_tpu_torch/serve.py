@@ -20,9 +20,12 @@ fused_attention kernel. With no path, serves seeded random weights
 (plumbing/latency testing). The
 decode tier defaults to 'fused_int4' (the CUDA window kernel in its int4
 mode) on the card, as the JAX server does on the TPU, and to the exact path
-with device=cpu; eval.quantize overrides it. Before traffic,
+with device=cpu; eval.quantize (or +eval.quantize) overrides it, with any
+tier of ops/decode.py::greedy_decode ('int8' and 'int8_kv' run the
+step-by-step loop on the CUDA int8 kernels). Before traffic,
 prepare_handler walks the probe ladder (infer/probe.py: int4 -> int8 ->
-bf16 -> exact, demoting on a material token flip) and prewarms the
+bf16 -> exact, and 'int8' or 'int8_kv' -> exact, demoting on a material
+token flip) and prewarms the
 surviving tier; on the card a failing kernel stops the server instead of
 demoting. /healthz reports the walk under "decode".
 """

@@ -81,3 +81,70 @@ def test_every_unfinished_row_diverging_fails():
                 'finished_flags_differ': 0}
     assert chip_smoke.violations('fused_bf16', readings) == [
         'every unfinished row diverged, so no logits were compared']
+
+
+# ---- the int8 tiers' phases ---------------------------------------------
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_int8_attention_bounds_catch_the_control(dtype):
+    """The attention's plain version passes INT8_BOUNDS against itself,
+    and the control (p not requantized) breaks the heads_apart bound."""
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((8, 6, 64), generator=gen).to(getattr(torch, dtype))
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        torch.randn((8, 6, 64, 256), generator=gen)) for _ in range(2))
+    args = (q, kq, ks, vq, vs, 200)
+    want = i8a.int8_decode_attention_reference(*args)
+    same = chip_smoke.output_readings(torch, want, want, 64)
+    assert chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                      same) == []
+    ctrl = chip_smoke.output_readings(
+        torch, want, chip_smoke.int8_attention_control(torch, *args), 64)
+    print(dtype, ctrl)
+    caught = chip_smoke.int8_violations('int8_decode_attention', dtype, ctrl)
+    assert any(v.startswith('heads_apart') for v in caught)
+
+
+@pytest.mark.parametrize('tier', ['int8', 'int8_kv'])
+def test_steps_needed_equals_the_steps_run(tier):
+    """chip_smoke's count of the greedy steps the decoded tokens needed
+    (early exit every _EXIT_CHECK_EVERY steps) equals the steps the loop
+    ran, on the parity model (rows that reach EOS) decoded in batches of
+    3 rows."""
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from tests.parity_common import VANILLA_CFG, load_golden, parity_corpus
+    from mr_mt3_tpu_torch.utils.checkpoint_import import (
+        state_dict_from_jax_params,
+    )
+    params, _ = load_golden('parity_vanilla.npz')
+    cfg = MT3Config(**{f: getattr(VANILLA_CFG, f)
+                       for f in MT3Config.__dataclass_fields__})
+    model = MT3(cfg).eval()
+    model.load_state_dict(state_dict_from_jax_params(params, cfg))
+    handler = InferenceHandler(model=model, max_length=300, batch_size=3,
+                               quantize=tier, device='cpu')
+    log, steps = chip_smoke.DecodeLog(), chip_smoke.StepLog()
+    try:
+        handler.transcribe(parity_corpus()[0][0])
+    finally:
+        steps.close()
+        log.close()
+    assert len(log.calls) == 1 and set(steps.steps) == {tier}
+    assert steps.steps[tier] == chip_smoke.steps_needed(log, tier) < 2 * 300
+
+
+def test_device_per_step_leaves_out_the_shared_setup(monkeypatch):
+    """The per-step device time is the difference of the two profiled
+    decodes over their extra steps: a set-up both share (the encoder)
+    drops out, and so does the int8 kernels' share of it."""
+    def device_time(torch, fn):
+        n = fn()
+        return 5.0 + 0.5 * n, {'int8_gated_ff': 1.0 + 0.25 * n}
+
+    monkeypatch.setattr(chip_smoke, 'device_time', device_time)
+    got = chip_smoke.device_per_step(torch, lambda n: n, 2.0)
+    assert got['device_ms_per_step'] == pytest.approx(0.5)
+    assert got['idle_share'] == pytest.approx(0.75)
+    assert got['kernel_ms_per_step'] == {'int8_gated_ff': 0.25}

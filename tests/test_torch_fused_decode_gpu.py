@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-fused_decode_window in its three modes, fused_attention_fwd and
-fused_attention_bwd. Imports no JAX, so it runs where the card is:
+fused_decode_window in its three modes, fused_attention_fwd,
+fused_attention_bwd, int8_matmul, int8_gated_ff and
+int8_decode_attention. Imports no JAX, so it runs where the card is:
 
     python -m pytest tests/test_torch_fused_decode_gpu.py -m gpu -q
 
@@ -371,3 +372,148 @@ def test_attention_backward_wrapper_checks_operands(cuda):
     with pytest.raises(ValueError, match='shared memory'):
         ta.fused_attention_backward_cuda(q, big, big, do, False, 2048)
     assert ta.LAUNCHES[ta.KERNEL_BWD] == before
+
+
+# ---- the int8 tiers' kernels -------------------------------------------
+# Held to chip_smoke.INT8_BOUNDS (the full-width readings' bounds) at
+# small and ragged shapes: batches that are not a multiple of the 8-row
+# tile, column counts that are not a multiple of the 64-column tile.
+
+
+def _randn(gen, *shape, scale=1.0, device='cuda', dtype=torch.float32):
+    return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+
+
+def _quantized(gen, k, n, device):
+    from mr_mt3_tpu_torch.ops.int8_matmul import quantize_columns
+    codes, scale = quantize_columns(_randn(gen, k, n, scale=0.05,
+                                           device=device))
+    return codes.contiguous(), scale[None].contiguous()
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('b,d,n,f', [(1, 32, 256, 48), (3, 96, 1536, 192),
+                                     (9, 512, 1536, 1024),
+                                     (17, 64, 132, 100)])
+def test_int8_matmul_kernels_match_plain_version(cuda, b, d, n, f, dtype):
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b + d + n)
+    x = _randn(gen, b, d, device=cuda, dtype=tdt)
+    w, s = _quantized(gen, d, n, cuda)
+    before = dict(i8m.LAUNCHES)
+    got = i8m.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert i8m.LAUNCHES['int8_matmul'] == before['int8_matmul'] + 1
+    assert got.dtype == tdt and got.shape == (b, n)
+    readings = chip_smoke.output_readings(
+        torch, got, i8m.int8_matmul_reference(x, w, s))
+    assert not chip_smoke.int8_violations('int8_matmul', dtype, readings)
+    args = (x, *_quantized(gen, d, f, cuda), *_quantized(gen, d, f, cuda),
+            *_quantized(gen, f, d, cuda))
+    got = i8m.int8_gated_ff(*args)
+    torch.cuda.synchronize()
+    assert i8m.LAUNCHES['int8_gated_ff'] == before['int8_gated_ff'] + 1
+    assert got.dtype == tdt and got.shape == (b, d)
+    readings = chip_smoke.output_readings(
+        torch, got, i8m.int8_gated_ff_reference(*args))
+    assert not chip_smoke.int8_violations('int8_gated_ff', dtype, readings)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('b,h,dk,k_len,pos', [
+    (1, 4, 8, 64, 0), (3, 4, 24, 64, 31), (2, 6, 64, 1024, 1023),
+    (5, 4, 8, 12, 11), (2, 2, 128, 260, 200), (1, 1, 4, 4, 3),
+    (9, 6, 64, 320, 319)])
+def test_int8_attention_kernel_matches_plain_version(cuda, b, h, dk, k_len,
+                                                     pos, dtype):
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b + h + dk + k_len)
+    q = _randn(gen, b, h, dk, device=cuda, dtype=tdt)
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        _randn(gen, b, h, dk, k_len, device=cuda)) for _ in range(2))
+    args = (q, kq, ks, vq, vs, pos)
+    before = i8a.LAUNCHES[i8a.KERNEL]
+    got = i8a.int8_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert i8a.LAUNCHES[i8a.KERNEL] == before + 1
+    assert got.dtype == tdt and got.shape == (b, h * dk)
+    readings = chip_smoke.output_readings(
+        torch, got, i8a.int8_decode_attention_reference(*args), dk)
+    assert not chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          readings)
+    if pos:
+        ctrl = chip_smoke.output_readings(
+            torch, got, chip_smoke.int8_attention_control(torch, *args), dk)
+        assert chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          ctrl)
+
+
+def test_int8_wrappers_check_operands(cuda):
+    """Bad operands raise before any launch: a dtype, a device, a shape,
+    contiguity, a width the kernels do not read in 4s, a position past the
+    cache, a head width past the kernel's limit."""
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    gen = torch.Generator().manual_seed(0)
+    x = _randn(gen, 3, 32, device=cuda)
+    w, s = _quantized(gen, 32, 64, cuda)
+    before = {**i8m.LAUNCHES, **i8a.LAUNCHES}
+    with pytest.raises(ValueError, match='dtype'):
+        i8m.int8_matmul(x.half(), w, s)
+    with pytest.raises(ValueError, match='is on cpu'):
+        i8m.int8_matmul(x, w.cpu(), s)
+    with pytest.raises(ValueError, match='contiguous'):
+        i8m.int8_matmul(x, w.t().contiguous().t(), s)
+    with pytest.raises(ValueError, match='shape'):
+        i8m.int8_matmul(x, w, s[0])
+    w6, s6 = _quantized(gen, 32, 6, cuda)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        i8m.int8_matmul(x, w6, s6)
+    with pytest.raises(ValueError, match='shape'):
+        i8m.int8_gated_ff(x, w, s, w, s, w, s)
+    q = _randn(gen, 2, 4, 8, device=cuda)
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        _randn(gen, 2, 4, 8, 16, device=cuda)) for _ in range(2))
+    with pytest.raises(ValueError, match='position'):
+        i8a.int8_decode_attention(q, kq, ks, vq, vs, 16)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        i8a.int8_decode_attention(q, kq[..., :6].contiguous(),
+                                  ks[..., :6].contiguous(),
+                                  vq[..., :6].contiguous(),
+                                  vs[..., :6].contiguous(), 3)
+    with pytest.raises(ValueError, match='dtype'):
+        i8a.int8_decode_attention(q, kq.float(), ks, vq, vs, 3)
+    wide = _randn(gen, 1, 1, 132, device=cuda)
+    codes = torch.zeros((1, 1, 132, 4), dtype=torch.int8, device=cuda)
+    scales = torch.ones((1, 1, 1, 4), device=cuda)
+    with pytest.raises(ValueError, match='limit'):
+        i8a.int8_decode_attention(wide, codes, scales, codes, scales, 0)
+    assert {**i8m.LAUNCHES, **i8a.LAUNCHES} == before
+
+
+@pytest.mark.parametrize('tier', ['int8', 'int8_kv'])
+def test_int8_launch_failure_stops_the_server(cuda, tier, monkeypatch):
+    """A launch the card refuses (the library returns an error code)
+    raises out of the wrapper, the decode, the probe ladder and
+    prepare_handler: the server does not start, and the tier stays."""
+    import types
+
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    refuse = lambda *args: 1                      # cudaErrorInvalidValue
+    text = lambda code: b'invalid argument'
+    monkeypatch.setattr(i8m, '_library', lambda: types.SimpleNamespace(
+        i8mm_launch=refuse, i8ff_launch=refuse, i8mm_error_string=text))
+    monkeypatch.setattr(i8a, '_library', lambda: types.SimpleNamespace(
+        i8att_launch=refuse, i8att_error_string=text))
+    cfg = SMALL.replace(mel_bins=512)
+    model = init_params(MT3(cfg), seed=0)
+    handler = InferenceHandler(model=model, max_length=8, batch_size=2,
+                               quantize=tier, device=cuda)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        serve.prepare_handler(handler)
+    assert handler.quantize == tier

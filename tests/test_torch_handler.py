@@ -1,7 +1,7 @@
 """The port's InferenceHandler (device='cpu') against the frozen parity
-goldens and the JAX handler: exact and window-kernel tokens (fused_bf16,
-fused, fused_int4) on the overfit parity model, and the host tail
-(postprocess -> NoteSequence -> MIDI)."""
+goldens and the JAX handler: exact, int8-kernel (int8, int8_kv) and
+window-kernel tokens (fused_bf16, fused, fused_int4) on the overfit parity
+model, and the host tail (postprocess -> NoteSequence -> MIDI)."""
 
 import numpy as np
 import pytest
@@ -38,15 +38,16 @@ def _handler(model, quantize='none', **kw):
                             **kw)
 
 
-FUSED_AND_EXACT = ['none', 'fused_bf16', 'fused', 'fused_int4']
+ALL_TIERS = ['none', 'int8', 'int8_kv', 'fused_bf16', 'fused', 'fused_int4']
 
 
-@pytest.mark.parametrize('quantize', FUSED_AND_EXACT)
+@pytest.mark.parametrize('quantize', ALL_TIERS)
 def test_tokens_equal_the_goldens(golden, quantize):
-    """Both corpus songs, max_length 1024: the exact path, and the window
-    in each of its tiers (its plain version on the CPU), reproduce the
-    golden token streams exactly (the JAX package pins zero flips for the
-    integer tiers on this model too)."""
+    """Both corpus songs, max_length 1024: the exact path, the int8 tiers
+    (their kernels' plain versions on the CPU) and the window in each of
+    its tiers (its plain version) reproduce the golden token streams
+    exactly (the JAX package pins zero flips for the integer tiers on this
+    model too: tests/test_int8_decode.py:134-177)."""
     _, meta, model = golden
     handler = _handler(model, quantize)
     for audio, want in zip(parity_corpus()[0], meta['tokens']):
@@ -118,13 +119,6 @@ def test_transcribe_many_equals_per_song(golden, tmp_path):
     assert ns is not None and out.read_bytes()[:4] == b'MThd'
 
 
-@pytest.mark.parametrize('quantize', ['int8', 'int8_kv'])
-def test_unported_tiers_raise(golden, quantize):
-    _, _, model = golden
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        _handler(model, quantize)
-
-
 def test_unported_paths_raise(golden):
     """A mesh is not yet ported; unknown tiers and segment-memory variants
     raise. (Contiguous inference and the segmem models are ported:
@@ -138,7 +132,7 @@ def test_unported_paths_raise(golden):
         _handler(model, 'int3')
 
 
-@pytest.mark.parametrize('quantize', FUSED_AND_EXACT)
+@pytest.mark.parametrize('quantize', ALL_TIERS)
 def test_padding_rows_start_finished(golden, quantize):
     """Rows that valid_mask marks as padding are finished from the first
     step and emit only pad; the real rows decode as without them."""

@@ -45,10 +45,21 @@ TRAINING_MODULES = ('train/__init__.py', 'train/__main__.py',
                     'codec/slakh.py')
 
 
+# the int8 decode tiers' kernel modules
+INT8_TIER_MODULES = ('ops/int8_matmul.py', 'ops/int8_attention.py')
+
+
+def _covered():
+    return {p.relative_to(PORT).as_posix() for p in _port_sources()
+            if PORT in p.parents}
+
+
 def test_sources_cover_the_training_modules():
-    covered = {p.relative_to(PORT).as_posix() for p in _port_sources()
-               if PORT in p.parents}
-    assert set(TRAINING_MODULES) <= covered
+    assert set(TRAINING_MODULES) <= _covered()
+
+
+def test_sources_cover_the_int8_tier_modules():
+    assert set(INT8_TIER_MODULES) <= _covered()
 
 
 @pytest.mark.parametrize('path', _port_sources(),
@@ -67,9 +78,11 @@ def test_importing_the_port_builds_nothing():
             '    importlib.import_module(m.name)\n'
             'from mr_mt3_tpu_torch.ops import cuda_build, fused_decode\n'
             'from mr_mt3_tpu_torch.ops import train_attention\n'
+            'from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul\n'
             'assert not cuda_build._libs\n'
-            'assert not any(fused_decode.LAUNCHES.values())\n'
-            'assert not any(train_attention.LAUNCHES.values())\n'
+            'for mod in (fused_decode, train_attention, int8_attention,\n'
+            '            int8_matmul):\n'
+            '    assert not any(mod.LAUNCHES.values())\n'
             'assert not any(n.split(".")[0] in ("jax", "mr_mt3_tpu")\n'
             '               for n in sys.modules), "jax imported"\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,

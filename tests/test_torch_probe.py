@@ -288,6 +288,28 @@ class TestKernelFaultsOnTheCard:
             serve.prepare_handler(handler)
         assert handler.quantize == 'fused_int4'
 
+    @pytest.mark.parametrize('stage', ['probe', 'prewarm'])
+    @pytest.mark.parametrize('tier,module,wrapper', [
+        ('int8', 'int8_matmul', 'int8_gated_ff'),
+        ('int8', 'int8_matmul', 'int8_matmul'),
+        ('int8_kv', 'int8_attention', 'int8_decode_attention')])
+    def test_int8_kernel_fault_stops_the_server(self, weights, tier, module,
+                                                wrapper, stage,
+                                                monkeypatch):
+        """The same for the int8 tiers, each of their kernels' wrappers
+        stubbed to raise as a failed launch does."""
+        import importlib
+        handler = port_handler(weights, tier)
+        monkeypatch.setattr(probe_mod, 'demotes_on_error', lambda h: False)
+        monkeypatch.setattr(importlib.import_module(
+            f'mr_mt3_tpu_torch.ops.{module}'), wrapper, _raise_kernel_fault)
+        if stage == 'prewarm':
+            monkeypatch.setattr(serve, 'quantize_probe',
+                                lambda h, **kw: (0, 26))
+        with pytest.raises(RuntimeError, match='launch failed'):
+            serve.prepare_handler(handler)
+        assert handler.quantize == tier
+
     def test_confirm_fault_propagates(self, weights, monkeypatch):
         monkeypatch.setattr(probe_mod, 'PROBE_MAX_LENGTH', 4)
         monkeypatch.setattr(probe_mod, 'demotes_on_error', lambda h: False)
@@ -407,6 +429,36 @@ class TestAgainstJax:
         got = probe_mod.quantize_probe(th, classify=True)
         assert got == want
         assert got['material_rows'] == 1
+
+    @pytest.mark.parametrize('tier', ['int8', 'int8_kv'])
+    def test_parity_model_ladder_from_int8_tiers_equals_jax(self, tier,
+                                                           monkeypatch):
+        """The ladder started at each int8 tier on the overfit parity
+        model, with real probes on the same probe mel (a 64-step probe,
+        then the confirm at the 96-step serving length): the same info
+        dict and the same final tier as JAX's ladder."""
+        from tests.parity_common import VANILLA_CFG, load_golden
+        params, _ = load_golden('parity_vanilla.npz')
+        jh = JaxHandler(model=JaxMT3(VANILLA_CFG),
+                        variables={'params': params}, max_length=96,
+                        batch_size=4, quantize=tier)
+        cfg = MT3Config(**{f: getattr(VANILLA_CFG, f)
+                           for f in MT3Config.__dataclass_fields__})
+        model = MT3(cfg).eval()
+        model.load_state_dict(state_dict_from_jax_params(params, cfg))
+        th = InferenceHandler(model=model, max_length=96, batch_size=4,
+                              quantize=tier, device='cpu')
+        mel = np.array(jax_probe.probe_mel(jh))
+        monkeypatch.setattr(jax_probe, 'probe_mel', lambda handler: mel)
+        monkeypatch.setattr(probe_mod, 'probe_mel',
+                            lambda handler: torch.from_numpy(mel))
+        for mod in (jax_probe, probe_mod):
+            monkeypatch.setattr(mod, 'PROBE_MAX_LENGTH', 64)
+        want = jax_probe.resolve_auto_quantize(jh, verbose=False)
+        got = probe_mod.resolve_auto_quantize(th, verbose=False)
+        print(f'{tier}: {got}')
+        assert (th.quantize, got) == (jh.quantize, want)
+        assert 'confirm_tokens' in got
 
     def test_margin_stats_equal_jax(self, weights, monkeypatch):
         """margin_stats of the exact decode on the same probe mel: the

@@ -245,15 +245,15 @@ class TestChainDecode:
                                         quantize='fused_bf16')
 
 
-GOLDEN_TIERS = ['none', 'fused_bf16', 'fused', 'fused_int4']
+GOLDEN_TIERS = ['none', 'int8', 'int8_kv', 'fused_bf16', 'fused', 'fused_int4']
 
 
 @pytest.mark.parametrize('quantize', GOLDEN_TIERS)
 def test_withprev_contiguous_tokens_equal_the_goldens(withprev, quantize):
     """Both corpus songs, contiguous, segment_bucket 1, max_length 1024:
-    the exact path and each window tier (its plain version on the CPU)
-    give the golden tokens (the JAX package pins int4 on this path too:
-    tests/test_fused_decode.py:732)."""
+    the exact path, the int8 tiers and each window tier (their kernels'
+    plain versions on the CPU) give the golden tokens (the JAX package
+    pins int4 on this path too: tests/test_fused_decode.py:732)."""
     _, meta, model = withprev
     handler = InferenceHandler(model=model, max_length=MAX_LENGTH,
                                contiguous_inference=True, segment_bucket=1,
@@ -431,6 +431,7 @@ class TestServe:
         ('none', False, 8, [1, 8, 16, 32, 64]),
         ('fused', True, 8, [1, 2, 4, 8]),
         ('none', False, 1, [1, 8, 16, 32, 64]),
+        ('int8_kv', False, 8, [1, 8, 16, 32, 64]),
     ])
     def test_prewarm_plan(self, small, quantize, contiguous, batch_size,
                           counts):

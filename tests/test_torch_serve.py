@@ -169,6 +169,20 @@ class TestServingTier:
         assert decode['probe_seconds'] >= 0 and decode['prewarmed']
 
 
+class TestBuildHandler:
+    @pytest.mark.parametrize('tier', ['int8', 'int8_kv'])
+    def test_quantize_override(self, tier):
+        """build_handler honours +eval.quantize (the JAX package's
+        TestBuildHandler); on the CPU the default stays exact."""
+        widths = ['device=cpu', 'model=MT3Net', 'model.config.num_layers=1',
+                  'model.config.d_model=32', 'model.config.d_ff=48',
+                  'model.config.num_heads=2', 'model.config.d_kv=16']
+        assert serve.build_handler(widths).quantize == 'none'
+        handler = serve.build_handler(widths + [f'+eval.quantize={tier}'])
+        assert handler.quantize == tier
+        assert handler.cfg.d_model == 32 and handler.device.type == 'cpu'
+
+
 class TestMicroBatcher:
     def test_coalesces_queued_requests(self):
         """Requests queued while the device is busy run as ONE
