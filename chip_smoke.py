@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: every kernel of the main paths from csrc/ (nvcc, one process
      per source, started together): fused_decode_window,
      fused_attention_fwd, fused_attention_bwd, int8_matmul (int8_matmul
-     and int8_gated_ff) and int8_decode_attention;
+     and int8_gated_ff), int8_decode_attention and logmel;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -32,6 +32,14 @@ Phases (any failure exits non-zero and prints no result line):
      inputs, within INT8_BOUNDS, which must also catch a control (the
      attention without the requantization of p); CUDA-event times beside
      the bound, the plain version's and a library yardstick;
+  3c. the log-mel kernel (logmel_cases) at the handler's shapes, B in
+     {8, 64} segments of 32768 samples (and a ragged 16000), a tone, white
+     noise and zeros, both filterbank styles: within LOGMEL_BOUNDS of its
+     plain version (compute_logmel: torch FFT) and of a float64 DFT by
+     products on its own constants, which a control (the products without
+     the Hann window) must break; zeros at log(1e-5); CUDA-event times of
+     the kernel and of compute_logmel beside the function's bound (an
+     FFT's operations) and the bound of the kernel's own DFT by products;
   4. fused_attention_fwd against its plain version at the segment-memory
      path's shapes (ATTN_CASES: the memory encoder at B 8 and 64, the
      probe's causal decoder and 1024 x 320 cross attention, the parity
@@ -65,6 +73,19 @@ Phases (any failure exits non-zero and prints no result line):
      trainer.precision=bf16` (the paper's model, chained decode); the
      fused_attention launches must equal the long attentions the model
      ran (memory-encoder calls and teacher-forced forwards at L >= 512);
+     on both servers the log-mel launches equal the handler's
+     _compute_mel calls (the probe's and the prewarm's counted);
+  7b. eval main path: `python -m mr_mt3_tpu_torch.eval model=MT3Net`
+     through eval.__main__.main(argv) on 4 fabricated Slakh-format songs
+     (4-10 s, tones and their notes as all_src_v2.mid), seed-0 random
+     weights saved as a port checkpoint, at +eval.quantize=auto (the
+     ladder from fused_int4) and at none: a MIDI per song,
+     evaluate_main's keys, the log-mel launches equal to the
+     _compute_mel calls, seconds per song and the tier served;
+  7c. F1 on the card against the CPU: get_scores on the parity model over
+     its corpus and notes, on the CPU and on the card held at none,
+     fused_bf16, fused and fused_int4, every score within 0.001 (the JAX
+     package's bar) of the CPU's;
   8. serving through each window tier held (fused_int4, fused, fused_bf16;
      prepare_handler(probe=False)): the same clips, every answer MIDI;
   8b. the int8 tiers as `serve +eval.quantize=int8|int8_kv` builds them:
@@ -95,14 +116,16 @@ Phases (any failure exits non-zero and prints no result line):
      Slakh-format corpus: 2 epochs with validation, then a resume from
      'last' for one more; finite losses, loadable checkpoints, the step
      going on, and the attention kernels' launches equal to the long
-     attentions the steps ran (forward and backward).
-Launch counts are zeroed just before each of phases 6, 7, 8, each leg of
-8b and of 12 and read just after; the window launches must cover every
+     attentions the steps ran (forward and backward); the eval hook
+     (TRAIN_EVAL_ARGS) logs val_f1_* after each validation.
+Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
+each leg of 8b and of 12 and read just after; the window launches must cover every
 window the decoded tokens needed. Each phase prints its seconds. Then one
 JSON line of kernel numbers, the card line, and the result line.
 """
 
 import json
+import math
 import os
 import statistics
 import struct
@@ -577,28 +600,42 @@ def serve_clips(torch, handler, info):
     return health
 
 
-class DecodeLog:
+class Patches:
+    """Stands in for named methods or module functions until closed:
+    patch(owner, name, wrapper) makes owner.name call wrapper(real, *args,
+    **kw), real being what owner.name was."""
+
+    def __init__(self):
+        self.patched = []
+
+    def patch(self, owner, name, wrapper):
+        real = getattr(owner, name)
+        self.patched.append((owner, name, real))
+        setattr(owner, name, lambda *args, **kw: wrapper(real, *args, **kw))
+
+    def close(self):
+        for owner, name, real in reversed(self.patched):
+            setattr(owner, name, real)
+        self.patched = []
+
+
+class DecodeLog(Patches):
     """Records every InferenceHandler._decode_all call (the server's
     handler, the probe's twins, the prewarm) with its tier, batch and
     length, to work out how many windows each kernel mode had to run."""
 
     def __init__(self):
         from mr_mt3_tpu_torch.infer import InferenceHandler
-        self.cls = InferenceHandler
-        self.real = InferenceHandler._decode_all
+        super().__init__()
         self.calls = []
-        log = self
 
-        def recording(handler, mel):
-            tokens = log.real(handler, mel)
-            log.calls.append((handler.quantize, handler.batch_size,
-                              handler.max_length, handler.cfg.eos_token_id,
-                              tokens))
+        def recording(real, handler, mel):
+            tokens = real(handler, mel)
+            self.calls.append((handler.quantize, handler.batch_size,
+                               handler.max_length, handler.cfg.eos_token_id,
+                               tokens))
             return tokens
-        InferenceHandler._decode_all = recording
-
-    def close(self):
-        self.cls._decode_all = self.real
+        self.patch(InferenceHandler, '_decode_all', recording)
 
     def windows(self, tier):
         """(decode calls, windows) the decodes on `tier` needed."""
@@ -613,6 +650,29 @@ class DecodeLog:
         return calls, windows
 
 
+class MelLog(Patches):
+    """Counts InferenceHandler._compute_mel calls (the served handler's,
+    the probe twins', the prewarm's) until closed: on the card each is one
+    launch of the log-mel kernel."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.infer import InferenceHandler
+        super().__init__()
+        self.calls = 0
+
+        def counting(real, handler, segments, valid):
+            self.calls += 1
+            return real(handler, segments, valid)
+        self.patch(InferenceHandler, '_compute_mel', counting)
+
+    def check(self, launches, where):
+        print(f'logmel: {launches} launches for {self.calls} '
+              f'_compute_mel calls ({where})')
+        if launches != self.calls or self.calls < 1:
+            fail(f'logmel: {launches} launches for {self.calls} '
+                 f'_compute_mel calls ({where})')
+
+
 def check_launches(launches, log, tiers):
     """Each tier's launches cover the windows its decodes needed."""
     for tier in tiers:
@@ -624,7 +684,7 @@ def check_launches(launches, log, tiers):
                  f'windows decoded')
 
 
-class ProbeWalk:
+class ProbeWalk(Patches):
     """Stands in for serve.quantize_probe, the server's probe entry point,
     until closed, recording each probe of the ladder: its tier, length,
     counts and seconds, or the error it raised."""
@@ -635,14 +695,15 @@ class ProbeWalk:
 
     def __init__(self):
         from mr_mt3_tpu_torch import serve
-        self.serve, self.real, self.steps = serve, serve.quantize_probe, []
-        serve.quantize_probe = self.probe
+        super().__init__()
+        self.steps = []
+        self.patch(serve, 'quantize_probe', self.probe)
 
-    def probe(self, handler, max_length=None, **kw):
+    def probe(self, real, handler, max_length=None, **kw):
         t0 = time.monotonic()
         tier = handler.quantize
         try:
-            res = self.real(handler, max_length=max_length, **kw)
+            res = real(handler, max_length=max_length, **kw)
         except Exception as e:
             self.steps.append({'tier': tier, 'error': repr(e)[:200]})
             raise
@@ -654,9 +715,6 @@ class ProbeWalk:
             step['flips'], step['total'] = res
         self.steps.append(step)
         return res
-
-    def close(self):
-        self.serve.quantize_probe = self.real
 
     def print(self):
         for step in self.steps:
@@ -687,9 +745,13 @@ def main_path(torch):
     from mr_mt3_tpu_torch import serve
     from mr_mt3_tpu_torch.ops import fused_decode as fd
 
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+
     for tier in TIERS:
         fd.LAUNCHES[tier] = 0
+    mk.LAUNCHES[mk.KERNEL] = 0
     log = DecodeLog()
+    mels = MelLog()
     walk = ProbeWalk()
     try:
         t0 = time.monotonic()
@@ -704,12 +766,15 @@ def main_path(torch):
         health = serve_clips(torch, handler, info)
     finally:
         walk.close()
+        mels.close()
         log.close()
     launches = dict(fd.LAUNCHES)
+    launches[mk.KERNEL] = mk.LAUNCHES[mk.KERNEL]
     decode = health['decode']
     print(f'healthz: {json.dumps(health)}')
     walk.check(handler, decode)
     check_launches(launches, log, TIERS)
+    mels.check(launches[mk.KERNEL], 'the serving main path')
     if launches['fused_int4'] < 1:
         fail('the int4 kernel was not launched on the main path')
     return {'tier': handler.quantize, 'walk': walk.steps,
@@ -756,13 +821,15 @@ PARITY_LADDER_TIER = 'fused'
 
 
 def parity_corpus():
-    """The two fixed parity songs (audios only): a numpy copy of
-    tests/parity_common.py:91-123, which imports the JAX package."""
+    """The two fixed parity songs, (audios, note lists of (start, end,
+    pitch)): a numpy copy of tests/parity_common.py:91-123, which imports
+    the JAX package."""
     import numpy as np
     rng = np.random.default_rng(2024)
     sr, t_total = 16000, 3 * 256 * 128
-    audios = []
+    audios, note_lists = [], []
     for _ in range(2):
+        notes = []
         audio = rng.normal(size=t_total).astype(np.float32) * 1e-3
         starts = np.sort(rng.choice(np.arange(1, 11), size=9,
                                     replace=False)) / 2.0
@@ -776,8 +843,10 @@ def parity_corpus():
                                            (length - seg_t) / 0.05))
             audio[i0:i1] += (0.5 * np.sin(2 * np.pi * f * seg_t)
                              * env).astype(np.float32)
+            notes.append((s, s + length, pitch))
         audios.append(audio)
-    return audios
+        note_lists.append(notes)
+    return audios, note_lists
 
 
 def parity_model(torch, name, **cfg_kw):
@@ -801,7 +870,7 @@ def parity_model(torch, name, **cfg_kw):
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             node[parts[-1]] = blob[key]
-    audios = parity_corpus()
+    audios, _ = parity_corpus()
     sha = hashlib.sha256()
     for a in audios:
         sha.update(np.ascontiguousarray(a, np.float32).tobytes())
@@ -1300,7 +1369,7 @@ def segmem_parity_on_card(torch):
     return flips
 
 
-class SegmemLog:
+class SegmemLog(Patches):
     """Records every memory-chain decode (InferenceHandler._segmem_decode)
     with its tier, length, tokens and valid rows, every memory-encoder
     call (MT3.compute_segmem) and every teacher-forced forward, to work out
@@ -1311,9 +1380,7 @@ class SegmemLog:
         from mr_mt3_tpu_torch.infer import InferenceHandler
         from mr_mt3_tpu_torch.models import MT3
         from mr_mt3_tpu_torch.models import mt3
-        self.handler_cls, self.model_cls = InferenceHandler, MT3
-        self.real = (InferenceHandler._segmem_decode, MT3.compute_segmem,
-                     MT3.forward)
+        super().__init__()
         self.decodes, self.attention_calls = [], 0
         self.memory_encoder_calls = self.forwards = 0
         log = self
@@ -1325,32 +1392,28 @@ class SegmemLog:
                 mt3.resolve_attention_kernel(
                     model.cfg, model.proj.weight.device) == 'fused'
 
-        def segmem_decode(handler, mel_segments, valid_mask):
-            tokens = log.real[0](handler, mel_segments, valid_mask)
+        def segmem_decode(real, handler, mel_segments, valid_mask):
+            tokens = real(handler, mel_segments, valid_mask)
             log.decodes.append((handler.quantize, handler.max_length,
                                 handler.cfg.eos_token_id, tokens,
                                 valid_mask.cpu().numpy()))
             return tokens
 
-        def compute_segmem(model, prev_ids):
+        def compute_segmem(real, model, prev_ids):
             log.memory_encoder_calls += 1
             if fused(model, prev_ids.shape[1]):
                 log.attention_calls += model.cfg.segmem_num_layers
-            return log.real[1](model, prev_ids)
+            return real(model, prev_ids)
 
-        def forward(model, mel, decoder_input_ids, targets_prev=None):
+        def forward(real, model, mel, decoder_input_ids, targets_prev=None):
             log.forwards += 1
             if fused(model, decoder_input_ids.shape[1]):
                 # each decoder layer: causal self- and cross-attention
                 log.attention_calls += 2 * model.cfg.num_decoder_layers
-            return log.real[2](model, mel, decoder_input_ids, targets_prev)
-        InferenceHandler._segmem_decode = segmem_decode
-        MT3.compute_segmem = compute_segmem
-        MT3.forward = forward
-
-    def close(self):
-        (self.handler_cls._segmem_decode, self.model_cls.compute_segmem,
-         self.model_cls.forward) = self.real
+            return real(model, mel, decoder_input_ids, targets_prev)
+        self.patch(InferenceHandler, '_segmem_decode', segmem_decode)
+        self.patch(MT3, 'compute_segmem', compute_segmem)
+        self.patch(MT3, 'forward', forward)
 
     def windows(self, tier):
         """(chain decodes, windows) the chains on `tier` needed: per
@@ -1382,10 +1445,14 @@ def segmem_main_path(torch):
     from mr_mt3_tpu_torch.ops import fused_decode as fd
     from mr_mt3_tpu_torch.ops import train_attention as ta
 
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+
     for tier in TIERS:
         fd.LAUNCHES[tier] = 0
     ta.LAUNCHES[ta.KERNEL] = 0
+    mk.LAUNCHES[mk.KERNEL] = 0
     log = SegmemLog()
+    mels = MelLog()
     walk = ProbeWalk()
     try:
         t0 = time.monotonic()
@@ -1405,9 +1472,12 @@ def segmem_main_path(torch):
         health = serve_clips(torch, handler, info)
     finally:
         walk.close()
+        mels.close()
         log.close()
     launches = dict(fd.LAUNCHES)
     launches[ta.KERNEL] = ta.LAUNCHES[ta.KERNEL]
+    launches[mk.KERNEL] = mk.LAUNCHES[mk.KERNEL]
+    mels.check(launches[mk.KERNEL], 'the segment-memory main path')
     decode = health['decode']
     print(f'healthz: {json.dumps(health)}')
     walk.check(handler, decode)
@@ -1731,25 +1801,21 @@ def int8_kernel_cases(torch):
     return results
 
 
-class StepLog:
+class StepLog(Patches):
     """Stands in for fast_decode.decode_step_fast until closed, counting
     the greedy steps of each tier (its quantize argument)."""
 
     def __init__(self):
         from mr_mt3_tpu_torch.ops import fast_decode
-        self.mod, self.real, self.steps = fast_decode, \
-            fast_decode.decode_step_fast, {}
-        log = self
+        super().__init__()
+        self.steps = {}
 
-        def counting(cfg, dp, tokens, position, cache, cross_kv,
+        def counting(real, cfg, dp, tokens, position, cache, cross_kv,
                      quantize='none'):
-            log.steps[quantize] = log.steps.get(quantize, 0) + 1
-            return log.real(cfg, dp, tokens, position, cache, cross_kv,
-                            quantize=quantize)
-        fast_decode.decode_step_fast = counting
-
-    def close(self):
-        self.mod.decode_step_fast = self.real
+            self.steps[quantize] = self.steps.get(quantize, 0) + 1
+            return real(cfg, dp, tokens, position, cache, cross_kv,
+                        quantize=quantize)
+        self.patch(fast_decode, 'decode_step_fast', counting)
 
 
 def steps_needed(log, tier):
@@ -1904,25 +1970,22 @@ def segmem_int8_leg(torch):
     return out
 
 
-class PlainInt8:
+class PlainInt8(Patches):
     """Swaps the int8 kernels' wrappers for their plain versions until
     closed (the decode then runs the plain versions on the card)."""
 
     def __init__(self):
         from mr_mt3_tpu_torch.ops import int8_attention as i8a
         from mr_mt3_tpu_torch.ops import int8_matmul as i8m
-        self.real = [(i8m, 'int8_matmul', i8m.int8_matmul_reference),
-                     (i8m, 'int8_gated_ff', i8m.int8_gated_ff_reference),
-                     (i8a, 'int8_decode_attention',
-                      i8a.int8_decode_attention_reference)]
-        self.saved = [(mod, name, getattr(mod, name))
-                      for mod, name, _ in self.real]
-        for mod, name, plain in self.real:
-            setattr(mod, name, plain)
-
-    def close(self):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
+        super().__init__()
+        for mod, name, plain in (
+                (i8m, 'int8_matmul', i8m.int8_matmul_reference),
+                (i8m, 'int8_gated_ff', i8m.int8_gated_ff_reference),
+                (i8a, 'int8_decode_attention',
+                 i8a.int8_decode_attention_reference)):
+            self.patch(mod, name,
+                       lambda real, *args, plain=plain, **kw: plain(*args,
+                                                                    **kw))
 
 
 # the parity model's ladder from each int8 tier as
@@ -1961,13 +2024,407 @@ def parity_int8_ladders(torch, model):
 
 # ---- training (the train CLI's main path) --------------------------------
 
+# The log-mel kernel (csrc/logmel.cu) against (a) its plain version,
+# audio/frontend.py::compute_logmel (torch FFT), at tests/test_mel_pallas.py's
+# bounds, the ones the JAX package holds logmel_pallas to: 2e-3 in log space
+# where the plain log-mel is above -4, 0.02 in mel space everywhere (an FFT
+# and a DFT by products round apart most in the noise-floor bins); and (b) a
+# float64 DFT by products on the kernel's own constants (logmel_f64), the
+# kernel's arithmetic without its f32 rounding, bounds at ~3x the largest
+# reading of run AC (NVIDIA H100 80GB HBM3, 700 W; PERF.md): log_err 2.2e-4,
+# mel_err 1.8e-4 (against compute_logmel 5.7e-4 and 2.9e-4). The control,
+# the same products with the Hann window left out of the constants, must
+# break both (it read log_err 5.7-7.1, mel_err 24.7-248).
+LOGMEL_BOUNDS = {'vs_plain': {'log_err': 2e-3, 'mel_err': 2e-2},
+                 'vs_f64': {'log_err': 7e-4, 'mel_err': 6e-4}}
+LOGMEL_BATCHES = (8, 64)
+LOGMEL_SAMPLES = 256 * 128          # one 2.048 s segment
+FP32_FLOPS = 67e12                  # H100 SXM f32 on the CUDA cores
+
+
+def logmel_inputs(kind, batch, n=LOGMEL_SAMPLES, seed=0):
+    """(batch, n) f32 segments: 'tone' is tests/test_mel_pallas.py::_tone
+    (440 and 1200 Hz), each row shifted by 1000 samples and at gain 1 or
+    0.3 in turn; 'noise' white noise at 0.1; 'zeros' the log floor."""
+    import numpy as np
+    if kind == 'zeros':
+        return np.zeros((batch, n), np.float32)
+    if kind == 'noise':
+        rng = np.random.default_rng(seed)
+        return (rng.normal(size=(batch, n)) * 0.1).astype(np.float32)
+    rows = []
+    for i in range(batch):
+        t = (np.arange(n) + 1000 * i) / 16000
+        x = np.sin(2 * np.pi * 440 * t) + 0.5 * np.sin(2 * np.pi * 1200 * t
+                                                       + 1)
+        rows.append((x / 1.5) * (1.0 if i % 2 == 0 else 0.3))
+    return np.stack(rows).astype(np.float32)
+
+
+def logmel_f64(torch, samples, config, hann=True):
+    """(B, n) -> log-mel in float64, by the kernel's products: pad_end
+    frames times the constants of ops/mel_kernel.py::_dft_constants (upcast
+    from f32), the magnitude, the filterbank, safe_log (eps 1e-5). With
+    hann=False the constants are cos and -sin with no window (the
+    control)."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    hop, fft = config.hop_width, config.fft_size
+    bins = fft // 2 + 1
+    cos_m, sin_m, fbank = mel_kernel._dft_constants(config)
+    cos_m, sin_m, fbank = cos_m[:, :bins], sin_m[:, :bins], fbank[:bins]
+    if not hann:
+        angle = 2.0 * np.pi * np.outer(np.arange(fft), np.arange(bins)) / fft
+        cos_m, sin_m = np.cos(angle), -np.sin(angle)
+    dev = samples.device
+    x = samples.double()
+    frames = -(-x.shape[-1] // hop)
+    pad = fft + hop * (frames - 1) - x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, pad)).unfold(-1, fft, hop)
+    re = x @ torch.as_tensor(np.asarray(cos_m, np.float64), device=dev)
+    im = x @ torch.as_tensor(np.asarray(sin_m, np.float64), device=dev)
+    mel = torch.sqrt(re * re + im * im) @ torch.as_tensor(
+        np.asarray(fbank, np.float64), device=dev)
+    return torch.log(torch.where(mel <= 0, torch.full_like(mel, 1e-5), mel))
+
+
+def logmel_readings(torch, got, want):
+    """log_err: the largest |difference| where want's log-mel is above -4;
+    mel_err: the largest |difference| of exp() everywhere."""
+    got, want = got.double(), want.double()
+    energy = want > -4
+    diff = (got - want).abs()
+    return {'log_err': float(diff[energy].max()) if energy.any() else 0.0,
+            'mel_err': float((got.exp() - want.exp()).abs().max()),
+            'energy_share': float(energy.double().mean())}
+
+
+def logmel_violations(bounds, readings):
+    return [f'{k} {readings[k]:.3g} > {v:g}' for k, v in bounds.items()
+            if readings[k] > v]
+
+
+def logmel_bound_ms(batch, n, config):
+    """The least time the function needs, whatever the algorithm: per
+    frame the window (N products), a real FFT (2.5 N log2 N operations,
+    half a complex FFT's 5 N log2 N), the magnitudes (4 a bin), the mel
+    products over the filterbank's nonzeros (2 each) and the log (1 an
+    output), in f32 at 67 TFLOP/s; against its bytes (the audio read
+    once, the filterbank's nonzeros, the output written once) at 3.35
+    TB/s."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    hop, fft, mel = config.hop_width, config.fft_size, config.num_mel_bins
+    frames, bins = -(-n // hop), fft // 2 + 1
+    nnz = int(np.count_nonzero(mel_kernel._dft_constants(config)[2]))
+    per_frame = fft + 2.5 * fft * math.log2(fft) + 4 * bins + 2 * nnz + mel
+    nbytes = 4 * (batch * n + nnz + batch * frames * mel)
+    return _bound(nbytes, batch * frames * per_frame / FP32_FLOPS)
+
+
+def logmel_dft_bound_ms(batch, n, config):
+    """The bound of the kernel's own algorithm, not of the function: the
+    DFT by products over 1025 bins and the dense mel products (an FMA
+    counts 2) at 67 TFLOP/s, how far the kernel is from the arithmetic it
+    chose."""
+    hop, fft, mel = config.hop_width, config.fft_size, config.num_mel_bins
+    frames, bins = -(-n // hop), fft // 2 + 1
+    flops = batch * (2 * frames * fft * bins * 2 + 2 * frames * bins * mel)
+    return flops / FP32_FLOPS * 1e3
+
+
+def logmel_cases(torch):
+    """The log-mel kernel at the handler's shapes (B in {8, 64} segments
+    of 32768 samples; a ragged 16000 at B 8), tone / noise / zeros, both
+    filterbank styles: against compute_logmel and logmel_f64 within
+    LOGMEL_BOUNDS, the control breaking both, zeros at log(1e-5); CUDA-
+    event times of the kernel and of compute_logmel (cuFFT and cuBLAS: the
+    plain version, and the library yardstick) beside the bound."""
+    phase('log-mel kernel vs compute_logmel and a float64 DFT')
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig, compute_logmel
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    cases = []
+    plan = [(style, batch, kind, LOGMEL_SAMPLES)
+            for style in ('torch', 'tf') for batch in LOGMEL_BATCHES
+            for kind in ('tone', 'noise', 'zeros')]
+    plan.append(('torch', 8, 'tone', 16000))
+    for style, batch, kind, n in plan:
+        cfg = SpectrogramConfig(filterbank_style=style)
+        x = torch.from_numpy(logmel_inputs(kind, batch, n)).cuda()
+        got = mk.logmel(x, cfg)
+        torch.cuda.synchronize()
+        want_shape = (batch, -(-n // 128), cfg.num_mel_bins)
+        if tuple(got.shape) != want_shape or not torch.isfinite(got).all():
+            fail(f'logmel {style} B={batch} {kind}: shape '
+                 f'{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}')
+        plain = compute_logmel(x, cfg)
+        f64 = logmel_f64(torch, x, cfg)
+        case = {'style': style, 'batch': batch, 'kind': kind, 'samples': n,
+                'vs_plain': logmel_readings(torch, got, plain),
+                'vs_f64': logmel_readings(torch, got, f64),
+                'plain_vs_f64': logmel_readings(torch, plain, f64)}
+        case['max_abs_err'] = float((got.double() - plain.double()).abs()
+                                    .max())
+        bad = [f'{ref}: {v}' for ref in ('vs_plain', 'vs_f64')
+               for v in logmel_violations(LOGMEL_BOUNDS[ref], case[ref])]
+        if kind == 'zeros':
+            floor = float((got.double() - math.log(1e-5)).abs().max())
+            case['floor_err'] = floor
+            if floor > 1e-4:
+                bad.append(f'zeros: {floor:.3g} off log(1e-5)')
+        else:
+            ctrl = logmel_f64(torch, x, cfg, hann=False)
+            for ref, want in (('vs_plain', plain), ('vs_f64', f64)):
+                r = logmel_readings(torch, ctrl, want)
+                case[f'control_{ref}'] = r
+                if not logmel_violations(LOGMEL_BOUNDS[ref], r):
+                    bad.append(f'the control passes {ref}: {r}')
+        if kind == 'tone' and n == LOGMEL_SAMPLES:
+            case['ms'] = time_ms(torch, lambda: mk.logmel(x, cfg))
+            case['plain_ms'] = time_ms(torch, lambda: compute_logmel(x, cfg))
+            case['library_ms'] = case['plain_ms']
+            case['bound_ms'], case['bound_by'] = logmel_bound_ms(
+                batch, n, cfg)
+            case['dft_bound_ms'] = logmel_dft_bound_ms(batch, n, cfg)
+        print(f'logmel {style} B={batch} {kind} n={n}: ' + json.dumps(
+            {k: v for k, v in case.items()
+             if k not in ('style', 'batch', 'kind', 'samples')}))
+        if bad:
+            fail(f'logmel {style} B={batch} {kind} n={n}: {bad}')
+        cases.append(case)
+    return cases
+
+
+EVAL_DIR = os.path.join(REPO, '.chip_smoke_eval')
+# the eval main path: `python -m mr_mt3_tpu_torch.eval` on vanilla MT3 at
+# full width (configs/config.yaml, seed-0 random weights saved as a port
+# checkpoint) over 4 fabricated Slakh-format songs (14 segments)
+EVAL_SONG_SECONDS = (4.0, 5.5, 7.0, 10.0)
+EVAL_ARGS = ['model=MT3Net']
+# evaluate_main's keys
+SCORE_KEYS = {'Onset precision', 'Onset recall', 'Onset F1'} | {
+    f'Onset + program {m} ({g})' for m in ('precision', 'recall', 'F1')
+    for g in ('flat', 'full', 'midi_class')}
+# the JAX package's bar for a quantized tier's scores (infer/scores.py)
+F1_TOLERANCE = 1e-3
+
+
+def write_song(path, notes, program=0, is_drum=False):
+    """notes [(start, end, pitch)] -> a MIDI file (the port's writer)."""
+    from mr_mt3_tpu_torch.codec import note_sequences as nsq
+    from mr_mt3_tpu_torch.midi import note_sequence_to_midi_file
+    ns = nsq.NoteSequence()
+    for start, end, pitch in notes:
+        ns.add_note(start_time=start, end_time=end, pitch=int(pitch),
+                    velocity=100, program=program, is_drum=is_drum,
+                    instrument=9 if is_drum else 0)
+        ns.total_time = max(ns.total_time, end)
+    note_sequence_to_midi_file(ns, path)
+
+
+def eval_set(root, audios, note_lists, subtype='PCM_16'):
+    """A Slakh-format eval set: <root>/<song>/mix_16k.wav (the port's
+    audio/io.write_wav) and the notes as <root>/<song>/all_src_v2.mid.
+    Returns the WAV paths."""
+    from mr_mt3_tpu_torch.audio import write_wav
+    files = []
+    for i, (audio, notes) in enumerate(zip(audios, note_lists)):
+        d = os.path.join(root, f'Track{i:05d}')
+        os.makedirs(d)
+        write_wav(os.path.join(d, 'mix_16k.wav'), audio, 16000,
+                  subtype=subtype)
+        write_song(os.path.join(d, 'all_src_v2.mid'), notes)
+        files.append(os.path.join(d, 'mix_16k.wav'))
+    return files
+
+
+def tone_songs(seconds, seed):
+    """Songs of sine notes (a note every 0.5 s, 0.4 s long, random
+    pitches 48-84) over -60 dB noise: (audios, note lists)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    audios, note_lists = [], []
+    for sec in seconds:
+        audio = rng.normal(size=int(16000 * sec)) * 1e-3
+        notes = []
+        for start in np.arange(0.25, sec - 0.5, 0.5):
+            pitch = int(rng.integers(48, 85))
+            i0, n = int(start * 16000), int(0.4 * 16000)
+            t = np.arange(n) / 16000
+            env = np.minimum(1, np.minimum(t / 0.02, (0.4 - t) / 0.05))
+            audio[i0:i0 + n] += 0.3 * env * np.sin(
+                2 * np.pi * 440 * 2 ** ((pitch - 69) / 12) * t)
+            notes.append((float(start), float(start) + 0.4, pitch))
+        audios.append(audio.astype('float32'))
+        note_lists.append(notes)
+    return audios, note_lists
+
+
+class TierLog(Patches):
+    """Records the tier of every InferenceHandler.transcribe_many call
+    until closed (the tier get_scores served after its ladder), and what
+    any call raised: get_scores catches it and retries song by song, and
+    chip_smoke must not pass over it."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.infer import InferenceHandler
+        super().__init__()
+        self.tiers, self.errors = [], []
+
+        def recording(real, handler, audios):
+            self.tiers.append(handler.quantize)
+            try:
+                return real(handler, audios)
+            except Exception as e:
+                self.errors.append(repr(e)[:300])
+                raise
+        self.patch(InferenceHandler, 'transcribe_many', recording)
+
+    def close(self):
+        super().close()
+        if self.errors:
+            fail(f'transcribe_many raised: {self.errors}')
+
+
+def eval_main_path(torch):
+    """`python -m mr_mt3_tpu_torch.eval model=MT3Net` as users run it,
+    through eval.__main__.main(argv), on 4 fabricated songs at
+    +eval.quantize=auto (the probe ladder from fused_int4) and at none:
+    every song's MIDI written, evaluate_main's keys returned, the log-mel
+    kernel's launches equal to the _compute_mel calls (the probe's
+    counted), the window launches covering the windows decoded."""
+    phase('eval main path: python -m mr_mt3_tpu_torch.eval '
+          + ' '.join(EVAL_ARGS))
+    import shutil
+
+    from mr_mt3_tpu_torch.eval.__main__ import main as eval_main
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    from mr_mt3_tpu_torch.utils import builders
+    from mr_mt3_tpu_torch.utils.config import load_config
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    results = {}
+    try:
+        songs = os.path.join(EVAL_DIR, 'songs')
+        files = eval_set(songs, *tone_songs(EVAL_SONG_SECONDS, seed=3))
+        model = builders.init_params(builders.build_model(load_config(
+            os.path.join(REPO, 'configs'), 'config', EVAL_ARGS)), 0)
+        ckpt = os.path.join(EVAL_DIR, 'weights')
+        torch.save({'params': model.state_dict(), 'step': 0}, ckpt)
+        del model
+        for quantize in ('auto', 'none'):
+            out = os.path.join(EVAL_DIR, f'midis_{quantize}')
+            for tier in TIERS:
+                fd.LAUNCHES[tier] = 0
+            mk.LAUNCHES[mk.KERNEL] = 0
+            decodes, mels, tiers = DecodeLog(), MelLog(), TierLog()
+            t0 = time.monotonic()
+            try:
+                scores = eval_main(EVAL_ARGS + [
+                    f'path={ckpt}', f'eval.audio_dir={songs}/*/mix_16k.wav',
+                    f'eval.exp_tag_name={out}', f'eval.midi_dir={songs}',
+                    f'+eval.quantize={quantize}'])
+            finally:
+                tiers.close()
+                mels.close()
+                decodes.close()
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+            launches = dict(fd.LAUNCHES)
+            launches[mk.KERNEL] = mk.LAUNCHES[mk.KERNEL]
+            served = tiers.tiers[-1] if tiers.tiers else None
+            print(f'eval at {quantize}: {secs:.1f} s for {len(files)} songs '
+                  f'({secs / len(files):.2f} s a song, probe included), '
+                  f'tier served {served!r}, Onset F1 '
+                  f'{scores.get("Onset F1")}, launches {launches}')
+            midis = [os.path.join(out, os.path.basename(os.path.dirname(f)),
+                                  'mix.mid') for f in files]
+            missing = [m for m in midis if not os.path.exists(m)
+                       or open(m, 'rb').read(4) != b'MThd']
+            if missing or set(scores) != SCORE_KEYS:
+                fail(f'eval at {quantize}: missing MIDI {missing}, score '
+                     f'keys {sorted(scores)}')
+            # at auto the ladder may end at any tier: random weights give
+            # material flips (serving's ladder walks them the same way)
+            if tiers.tiers != [served] or \
+                    (quantize == 'none' and served != 'none'):
+                fail(f'eval at {quantize}: tiers {tiers.tiers}')
+            mels.check(launches[mk.KERNEL], f'eval at {quantize}')
+            check_launches(launches, decodes, TIERS)
+            if quantize == 'auto' and launches['fused_int4'] < 1:
+                fail('the ladder did not launch the int4 kernel')
+            results[quantize] = {
+                'seconds': secs, 'seconds_per_song': secs / len(files),
+                'songs': len(files), 'tier': served, 'scores': scores,
+                'launches': launches, 'compute_mel_calls': mels.calls}
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    return results
+
+
+def eval_f1_card_vs_cpu(torch):
+    """get_scores on the overfit parity model over its own corpus (float
+    WAVs) and notes: on the CPU, then on the card held at each tier (the
+    exact path and the three window tiers): every score within
+    F1_TOLERANCE of the CPU's."""
+    phase('F1 on the card vs the CPU (tests/goldens/parity_vanilla.npz)')
+    import shutil
+
+    from mr_mt3_tpu_torch.infer.scores import get_scores
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    model, _, max_length, _ = parity_model(torch, 'parity_vanilla.npz')
+    results = {}
+    try:
+        gt = os.path.join(EVAL_DIR, 'parity')
+        files = eval_set(gt, *parity_corpus(), subtype='FLOAT')
+        for tier in ('cpu', 'none') + TIERS:
+            t0 = time.monotonic()
+            tiers = TierLog()
+            try:
+                scores = get_scores(
+                    model=model, eval_audio_dir=files,
+                    exp_tag_name=os.path.join(EVAL_DIR, f'midis_{tier}'),
+                    ground_truth_midi_dir=gt, max_length=max_length,
+                    quantize='none' if tier == 'cpu' else tier,
+                    device='cpu' if tier == 'cpu' else 'cuda',
+                    verbose=False)
+            finally:
+                tiers.close()
+            results[tier] = {'scores': scores,
+                             'seconds': time.monotonic() - t0}
+            apart = max((abs(scores[k] - results['cpu']['scores'][k])
+                         for k in SCORE_KEYS if k in scores), default=None)
+            results[tier]['max_apart'] = apart
+            print(f'{tier}: Onset F1 {scores.get("Onset F1")}, program F1 '
+                  f'(full) {scores.get("Onset + program F1 (full)")}, '
+                  f'largest score apart from the CPU {apart} '
+                  f'({results[tier]["seconds"]:.1f} s)')
+            if set(scores) != SCORE_KEYS or apart > F1_TOLERANCE:
+                fail(f'{tier}: scores {scores} against the CPU\'s '
+                     f'{results["cpu"]["scores"]}')
+        if results['cpu']['scores']['Onset F1'] < 0.5:
+            fail(f'the parity model scores {results["cpu"]["scores"]}')
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    return results
+
+
 TRAIN_DIR = os.path.join(REPO, '.chip_smoke_train')
-# the paper's recipe (train.py:5-7) at bf16 on the card, its eval hook off
-# (not ported); every override below the model's is a cut of scale
+# the paper's recipe (train.py:5-7) at bf16 on the card; every override
+# below the model's is a cut of scale. Its eval hook is off here and on in
+# the training main path (TRAIN_EVAL_ARGS)
 TRAIN_ARGS = ['--config-name=config_slakh_segmem',
               'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',
               'model_segmem_length=64', 'trainer.precision=bf16',
               'eval.audio_dir=null']
+# the eval hook on the training main path, every epoch, over the first val
+# song (15 segments, two memory chains); decodes cut to 64 steps (the
+# exact path's eager loop takes ~10 ms a step, 8 segments a chain in turn)
+TRAIN_EVAL_ARGS = ['eval.eval_after_num_epoch=0', 'eval.eval_per_epoch=1',
+                   'eval.eval_first_n_examples=1', 'eval.max_length=64']
 # The bf16 training step of the full-width model (one batch, dropout off)
 # with the attention kernels, per parameter gradient, against (a)
 # attention_kernel='einsum', which rounds its scores to bf16 before the
@@ -2013,7 +2470,8 @@ def training_corpus(root, songs, seconds, dense, seed):
     (WAV) and three stems (piano, bass, drums) written as MIDI by the
     port's writer, one note every 0.05 s per stem where `dense` (so a
     2.048 s segment's targets bucket to 768 or 1024 tokens and the
-    decoder's attentions take the kernels), every 0.4 s otherwise."""
+    decoder's attentions take the kernels), every 0.4 s otherwise; and
+    the stems merged into all_src_v2.mid, the eval hook's ground truth."""
     import numpy as np
 
     from mr_mt3_tpu_torch.codec import note_sequences as nsq
@@ -2029,6 +2487,7 @@ def training_corpus(root, songs, seconds, dense, seed):
             f.write(wav_bytes(audio * 0.05))
         gap = 0.05 if dense[si] else 0.4
         names = {}
+        merged = nsq.NoteSequence()
         for ti, (name, program, drum) in enumerate(stems):
             ns = nsq.NoteSequence()
             for i in range(int((seconds - 0.5) / gap)):
@@ -2040,11 +2499,15 @@ def training_corpus(root, songs, seconds, dense, seed):
             note_sequence_to_midi_file(
                 ns, os.path.join(d, 'MIDI', f'S{ti:02d}.mid'))
             names[f'S{ti:02d}'] = name
+            merged.notes.extend(ns.notes)
+        merged.total_time = seconds
+        note_sequence_to_midi_file(merged,
+                                   os.path.join(d, 'all_src_v2.mid'))
         with open(os.path.join(d, 'inst_names.json'), 'w') as f:
             json.dump(names, f)
 
 
-class TrainLog:
+class TrainLog(Patches):
     """Stands in for the trainer's train step and the model's forward and
     memory encoder until closed: times each train step (synchronized),
     counts its real target tokens, and counts the long attentions the
@@ -2055,10 +2518,7 @@ class TrainLog:
         from mr_mt3_tpu_torch.models import MT3
         from mr_mt3_tpu_torch.models import mt3
         from mr_mt3_tpu_torch.train import trainer
-        self.torch, self.mt3, self.trainer = torch, mt3, trainer
-        self.model_cls = MT3
-        self.real = (trainer.make_train_step, MT3.forward,
-                     MT3.compute_segmem)
+        super().__init__()
         self.steps = []            # (seconds, target tokens, target length)
         self.fwd = self.bwd = 0
         log = self
@@ -2073,8 +2533,8 @@ class TrainLog:
             if torch.is_grad_enabled():
                 log.bwd += n
 
-        def make_train_step(*args, **kw):
-            step = log.real[0](*args, **kw)
+        def make_train_step(real, *args, **kw):
+            step = real(*args, **kw)
 
             def timed(state, batch, seed):
                 torch.cuda.synchronize()
@@ -2087,26 +2547,22 @@ class TrainLog:
                 return metrics
             return timed
 
-        def forward(model, mel, decoder_input_ids=None, targets_prev=None,
-                    labels=None, generator=None):
+        def forward(real, model, mel, decoder_input_ids=None,
+                    targets_prev=None, labels=None, generator=None):
             length = (labels if decoder_input_ids is None
                       else decoder_input_ids).shape[1]
             if fused(model, length):
                 count(2 * model.cfg.num_decoder_layers)
-            return log.real[1](model, mel, decoder_input_ids, targets_prev,
-                               labels, generator)
+            return real(model, mel, decoder_input_ids, targets_prev,
+                        labels, generator)
 
-        def compute_segmem(model, prev_ids):
+        def compute_segmem(real, model, prev_ids):
             if fused(model, prev_ids.shape[1]):
                 count(model.cfg.segmem_num_layers)
-            return log.real[2](model, prev_ids)
-        trainer.make_train_step = make_train_step
-        MT3.forward = forward
-        MT3.compute_segmem = compute_segmem
-
-    def close(self):
-        (self.trainer.make_train_step, self.model_cls.forward,
-         self.model_cls.compute_segmem) = self.real
+            return real(model, prev_ids)
+        self.patch(trainer, 'make_train_step', make_train_step)
+        self.patch(MT3, 'forward', forward)
+        self.patch(MT3, 'compute_segmem', compute_segmem)
 
 
 def step_breakdown(torch, state, batch):
@@ -2356,15 +2812,21 @@ def training_main_path(torch):
     resume from 'last' for one more. Every logged loss finite; the
     checkpoints load; the step and the optimizer count go on from the
     resumed ones; the kernels' launches equal the long attentions the
-    steps and validations ran."""
+    steps and validations ran; the eval hook (TRAIN_EVAL_ARGS) logs
+    val_f1_* after each validation, its decodes on the exact path, its
+    log-mel launches equal to its _compute_mel calls."""
     phase('training main path: python -m mr_mt3_tpu_torch.train '
-          + ' '.join(TRAIN_ARGS[1:]))
+          + ' '.join([a for a in TRAIN_ARGS[1:]
+                      if not a.startswith('eval.audio_dir')]
+                     + ['eval.audio_dir=<val>/*/mix_16k.wav']
+                     + TRAIN_EVAL_ARGS))
     import shutil
 
     import numpy as np
 
     from mr_mt3_tpu_torch import train
     from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
     from mr_mt3_tpu_torch.ops import train_attention as ta
     from mr_mt3_tpu_torch.train.trainer import load_checkpoint
     from mr_mt3_tpu_torch.utils import builders
@@ -2379,7 +2841,9 @@ def training_main_path(torch):
     training_corpus(corpus['val'], 2, 30.0, [True, False], seed=2)
     print(f'corpus written in {time.monotonic() - t0:.1f} s')
     out_dir = os.path.join(TRAIN_DIR, 'run')
-    argv = TRAIN_ARGS + [
+    argv = TRAIN_ARGS + TRAIN_EVAL_ARGS + [
+        f'eval.audio_dir={corpus["val"]}/*/mix_16k.wav',
+        f'eval.midi_dir={corpus["val"]}',
         f'dataset.train.root_dir={corpus["train"]}',
         f'dataset.val.root_dir={corpus["val"]}', f'out_dir={out_dir}',
         'trainer.check_val_every_n_epoch=1', 'trainer.log_every_n_steps=1',
@@ -2392,15 +2856,21 @@ def training_main_path(torch):
                                         f'path={out_dir}/checkpoints/last'])):
             for k in ta.LAUNCHES:
                 ta.LAUNCHES[k] = 0
+            mk.LAUNCHES[mk.KERNEL] = 0
             log = TrainLog(torch)
+            mels, tiers = MelLog(), TierLog()
             t0 = time.monotonic()
             try:
                 state = train.main(argv + extra)
             finally:
+                tiers.close()
+                mels.close()
                 log.close()
             torch.cuda.synchronize()
             secs = time.monotonic() - t0
             launches = dict(ta.LAUNCHES)
+            mels.check(mk.LAUNCHES[mk.KERNEL], f'the eval hook, {leg} leg')
+            launches[mk.KERNEL] = mk.LAUNCHES[mk.KERNEL]
             steps = log.steps
             timed = steps[1:] or steps   # the first step pays the warm-up
             ms = statistics.median(s for s, _, _ in timed) * 1e3
@@ -2419,7 +2889,8 @@ def training_main_path(torch):
                   f'{log.fwd} long attentions forward, {log.bwd} backward',
                   flush=True)
             if launches[ta.KERNEL] != log.fwd or \
-                    launches[ta.KERNEL_BWD] != log.bwd or log.bwd < 1:
+                    launches[ta.KERNEL_BWD] != log.bwd or log.bwd < 1 or \
+                    tiers.tiers != ['none'] * len(tiers.tiers):
                 fail(f'{leg}: kernel launches {launches} for {log.fwd} '
                      f'forward and {log.bwd} backward long attentions')
             if not any(L >= 512 for _, _, L in steps) or \
@@ -2440,6 +2911,15 @@ def training_main_path(torch):
         if len(train_losses) != 12 or len(val_losses) != 3 or not all(
                 np.isfinite(train_losses + val_losses)):
             fail(f'losses: train {train_losses}, val {val_losses}')
+        # the eval hook after each of the 3 validations
+        val_f1 = [{k: r[k] for k in ('val_f1_flat', 'val_f1_midi_class',
+                                     'val_f1_full')}
+                  for r in records if 'val_f1_flat' in r]
+        print(f'eval hook scores: {val_f1}')
+        if len(val_f1) != 3 or not all(0 <= v <= 1 for r in val_f1
+                                       for v in r.values()):
+            fail(f'eval hook: {val_f1} in the metrics')
+        results['val_f1'] = val_f1
         # save_top_k 1: each leg keeps its own best (a resumed run prunes
         # only the top-k files it wrote)
         ckpts = sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))
@@ -2483,12 +2963,15 @@ def main():
     build_kernels()
     cases = kernel_cases(torch)
     int8_cases = int8_kernel_cases(torch)
+    mel_cases = logmel_cases(torch)
     attn_cases = attention_cases(torch)
     bwd_cases = attention_backward_cases(torch)
     parity = parity_on_card(torch)
     parity['segmem'] = segmem_parity_on_card(torch)
     main = main_path(torch)
     segmem = segmem_main_path(torch)
+    evaluation = {'main_path': eval_main_path(torch),
+                  'f1_card_vs_cpu': eval_f1_card_vs_cpu(torch)}
     launches = held_tier_serving(torch)
     int8_serving = int8_tier_serving(torch)
     int8_segmem = segmem_int8_leg(torch)
@@ -2581,13 +3064,36 @@ def main():
             'library_note': notes[kernel],
             'segmem_path_launches': int8_segmem[tier]['launches'][kernel],
             'cases': rows})
+    case = next(c for c in mel_cases if c['style'] == 'torch' and
+                c['batch'] == 8 and c['kind'] == 'tone' and
+                c['samples'] == LOGMEL_SAMPLES)
+    kernels.append({
+        'name': 'logmel', 'route': 'cuda',
+        'source': 'mr_mt3_tpu_torch/csrc/logmel.cu',
+        'replaces': 'mr_mt3_tpu/ops/mel_pallas.py:137',
+        'launches': evaluation['main_path']['auto']['launches']['logmel'],
+        'max_abs_err': max(c['vs_plain']['mel_err'] for c in mel_cases),
+        'max_abs_err_note': 'mel space (exp of the output) against '
+                            'compute_logmel over all cases; in log space '
+                            'where log-mel > -4 at most '
+                            f'{max(c["vs_plain"]["log_err"] for c in mel_cases):.3g}',
+        'ms': case['ms'], 'plain_ms': case['plain_ms'],
+        'bound_ms': case['bound_ms'], 'bound_by': case['bound_by'],
+        'library_ms': case['library_ms'],
+        'library_note': 'compute_logmel, the plain version: torch.fft.rfft '
+                        '(cuFFT) and a matmul (cuBLAS), timed as both',
+        'eval_none_launches':
+            evaluation['main_path']['none']['launches']['logmel'],
+        'serving_main_path_launches': main['launches']['logmel'],
+        'segmem_path_launches': segmem['launches']['logmel'],
+        'cases': mel_cases})
     phase(None)
     print(f'phase seconds: {json.dumps(PHASE_SECONDS)}')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_kernels.json'), 'w') as f:
         json.dump({'card': card_line(), 'kernels': kernels,
                    'parity': parity, 'main_path': main,
-                   'segmem_main_path': segmem,
+                   'segmem_main_path': segmem, 'evaluation': evaluation,
                    'int8_serving': int8_serving,
                    'int8_segmem': int8_segmem,
                    'worst_case': worst, 'training': training,

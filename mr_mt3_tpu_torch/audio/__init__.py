@@ -12,4 +12,5 @@ from mr_mt3_tpu_torch.audio.io import (
     read_wav,
     read_wav_bytes,
     resample,
+    write_wav,
 )

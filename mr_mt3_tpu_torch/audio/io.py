@@ -1,5 +1,5 @@
-"""WAV reading and resampling without librosa/soundfile (copy of
-read_wav_bytes, read_wav, read_audio and resample from
+"""WAV reading, writing and resampling without librosa/soundfile (copy of
+read_wav_bytes, read_wav, write_wav, read_audio and resample from
 mr_mt3_tpu/audio/io.py).
 
 The reference loads audio with librosa (reference: test.py:37,
@@ -22,6 +22,36 @@ def read_wav(path) -> Tuple[np.ndarray, int]:
     with open(path, 'rb') as f:
         data = f.read()
     return read_wav_bytes(data, name=str(path))
+
+
+def write_wav(path, samples: np.ndarray, sample_rate: int,
+              subtype: str = 'PCM_16') -> None:
+    """Write mono float samples as PCM_16 / PCM_24 / FLOAT wav."""
+    samples = np.asarray(samples, dtype=np.float64)
+    if subtype == 'PCM_16':
+        payload = (np.clip(samples, -1, 1 - 2**-15) * 32768.0).astype(
+            '<i2').tobytes()
+        bits, fmt_tag = 16, 1
+    elif subtype == 'PCM_24':
+        ints = (np.clip(samples, -1, 1 - 2**-23) * 8388608.0).astype(np.int32)
+        b = np.zeros((len(ints), 3), dtype=np.uint8)
+        b[:, 0] = ints & 0xFF
+        b[:, 1] = (ints >> 8) & 0xFF
+        b[:, 2] = (ints >> 16) & 0xFF
+        payload = b.tobytes()
+        bits, fmt_tag = 24, 1
+    elif subtype == 'FLOAT':
+        payload = samples.astype('<f4').tobytes()
+        bits, fmt_tag = 32, 3
+    else:
+        raise ValueError(f'unsupported subtype: {subtype}')
+    byte_rate = sample_rate * bits // 8
+    header = (b'RIFF' + struct.pack('<I', 36 + len(payload)) + b'WAVE' +
+              b'fmt ' + struct.pack('<IHHIIHH', 16, fmt_tag, 1, sample_rate,
+                                    byte_rate, bits // 8, bits) +
+              b'data' + struct.pack('<I', len(payload)))
+    with open(path, 'wb') as f:
+        f.write(header + payload)
 
 
 def read_audio(path) -> Tuple[np.ndarray, int]:

@@ -42,6 +42,7 @@ from mr_mt3_tpu_torch.ops.decode import (
     greedy_decode,
     segmem_greedy_decode,
 )
+from mr_mt3_tpu_torch.ops.mel_kernel import logmel
 from mr_mt3_tpu_torch.utils.device import resolve_device
 
 
@@ -176,10 +177,15 @@ class InferenceHandler:
                      ) -> torch.Tensor:
         """Segments -> log-mel (N, 256, mel_bins) on the handler's device;
         frames past each segment's valid count are zeroed (reference:
-        inference.py:125-127)."""
+        inference.py:125-127). On the card the log-mel is the CUDA kernel
+        ops/mel_kernel.py::logmel (a DFT by products); on the CPU its plain
+        version, compute_logmel (an FFT)."""
         x = torch.as_tensor(np.asarray(segments, np.float32),
                             device=self.device)
-        mel = compute_logmel(x, self.spectrogram_config)
+        if x.is_cuda:
+            mel = logmel(x, self.spectrogram_config)
+        else:
+            mel = compute_logmel(x, self.spectrogram_config)
         if self.mel_norm:
             mel = normalize_logmel(mel)
         frames = torch.arange(mel.shape[1], device=self.device)

@@ -3,16 +3,21 @@ losses, optimizer and schedules, train step and loop, and the CLI.
 
     python -m mr_mt3_tpu_torch.train --config-name=config_slakh_segmem \\
         model=MT3NetSegMemV2WithPrev dataset=SlakhPrev \\
-        model_segmem_length=64 trainer.precision=bf16 eval.audio_dir=null \\
-        dataset.train.root_dir=... dataset.val.root_dir=... [device=cpu]
+        model_segmem_length=64 trainer.precision=bf16 \\
+        dataset.train.root_dir=... dataset.val.root_dir=... \\
+        [eval.audio_dir='.../*/mix_16k.wav' eval.midi_dir=...] [device=cpu]
 
 It trains on the card unless device=cpu is given (and raises without a
 card). Checkpoints go to <out_dir>/checkpoints ('last', the top-k
 'epoch={e}-val_loss={v}', 'final'); path=<checkpoint> resumes one with its
 optimizer state and step, and path=<reference .pth/.pt/.ckpt> warm-starts
-from its weights. Not ported, and raising rather than skipped:
-the eval hook (eval.audio_dir, ROADMAP A7), multihost and more than one
-device (A9). trainer.fast_rng, the JAX package's TPU hardware-RNG switch,
+from its weights. With eval.audio_dir set, the eval hook transcribes and
+scores that set (infer/scores.py::get_scores, exact decode) after
+validation from epoch eval.eval_after_num_epoch on, every
+eval.eval_per_epoch epochs, and logs val_f1_flat, val_f1_midi_class and
+val_f1_full, which modelcheckpoint.monitor may rank by. Not ported, and
+raising rather than skipped: multihost and more than one device (A9).
+trainer.fast_rng, the JAX package's TPU hardware-RNG switch,
 is accepted and has no effect.
 """
 
@@ -43,16 +48,6 @@ REPO_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), 'configs')
 
 
-def _device_count(devices) -> int:
-    """How many devices `devices=` asks for: null -> 1 (the port's one
-    card), an int, or a list of ids."""
-    if devices is None:
-        return 1
-    if isinstance(devices, (list, tuple)):
-        return len(devices)
-    return int(devices)
-
-
 def main(argv=None) -> TrainState:
     """Run the CLI on `argv` (default sys.argv[1:]); returns the final
     state."""
@@ -62,7 +57,10 @@ def main(argv=None) -> TrainState:
     from mr_mt3_tpu_torch.data import DataLoader
     from mr_mt3_tpu_torch.utils import builders
     from mr_mt3_tpu_torch.utils.config import load_config, parse_cli
-    from mr_mt3_tpu_torch.utils.device import resolve_device
+    from mr_mt3_tpu_torch.utils.device import (
+        requested_device_count,
+        resolve_device,
+    )
 
     config_name, config_dir, overrides = parse_cli(
         sys.argv[1:] if argv is None else argv)
@@ -72,16 +70,12 @@ def main(argv=None) -> TrainState:
         raise NotImplementedError('multihost training is not yet ported '
                                   '(ROADMAP A9): the port trains on one '
                                   'card')
-    if _device_count(cfg.get('devices')) > 1 or \
+    if requested_device_count(cfg.get('devices')) > 1 or \
             int(cfg.get('model_devices') or 1) > 1:
         raise NotImplementedError(
             f'devices={cfg.get("devices")} model_devices='
             f'{cfg.get("model_devices")}: training on more than one device '
             f'is not yet ported (ROADMAP A9)')
-    if cfg.eval.get('audio_dir'):
-        raise NotImplementedError(
-            'the training eval hook (get_scores over eval.audio_dir) is not '
-            'yet ported (ROADMAP A7); pass eval.audio_dir=null')
     device = resolve_device(cfg.get('device'))
     if 'fast_rng' in (cfg.get('trainer') or {}):
         print('note: trainer.fast_rng (the TPU hardware RNG) has no effect '
@@ -107,6 +101,42 @@ def main(argv=None) -> TrainState:
           f'{len(train_loader)} batches an epoch; device {device}; '
           f'dtype {model.cfg.dtype}; out_dir {out_dir}')
 
+    eval_hook = None
+    if cfg.eval.get('audio_dir'):
+        import glob as globlib
+
+        from mr_mt3_tpu_torch.infer.scores import get_scores
+
+        def eval_hook(model, epoch):
+            files = sorted(globlib.glob(cfg.eval.audio_dir))
+            if cfg.eval.eval_dataset == 'NSynth':
+                # same filter the eval CLI applies (no vocals/mallets in
+                # the training vocab) so train-time and test-time F1 score
+                # the identical file set
+                files = [f for f in files
+                         if 'vocal' not in f and 'mallet' not in f]
+            if cfg.eval.get('eval_first_n_examples'):
+                files = files[:int(cfg.eval.eval_first_n_examples)]
+            scores = get_scores(
+                model=model,
+                eval_audio_dir=files,
+                eval_dataset=cfg.eval.eval_dataset,
+                exp_tag_name=os.path.join(out_dir, cfg.eval.exp_tag_name),
+                ground_truth_midi_dir=cfg.eval.midi_dir,
+                contiguous_inference=bool(
+                    cfg.eval.get('contiguous_inference')),
+                use_tf_spectral_ops=bool(
+                    cfg.eval.get('use_tf_spectral_ops')),
+                batch_size=int(cfg.eval.get('batch_size') or 8),
+                max_length=int(cfg.eval.get('max_length') or 1024),
+                verbose=False, device=device)
+            return {
+                'f1_flat': scores.get('Onset F1', 0.0),
+                'f1_midi_class': scores.get(
+                    'Onset + program F1 (midi_class)', 0.0),
+                'f1_full': scores.get('Onset + program F1 (full)', 0.0),
+            }
+
     mc = cfg.get('modelcheckpoint') or {}
     trainer = Trainer(
         model, optimizer,
@@ -121,6 +151,9 @@ def main(argv=None) -> TrainState:
         log_every_n_steps=int(cfg.trainer.get('log_every_n_steps', 100)),
         check_val_every_n_epoch=int(
             cfg.trainer.get('check_val_every_n_epoch', 1) or 1),
+        eval_hook=eval_hook,
+        eval_after_num_epoch=int(cfg.eval.get('eval_after_num_epoch') or 0),
+        eval_per_epoch=int(cfg.eval.get('eval_per_epoch') or 1),
         lr_schedule=schedule,
         seed=seed,
         bucket_targets=bool(cfg.trainer.get('bucket_targets', True)),

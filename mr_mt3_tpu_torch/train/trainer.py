@@ -215,9 +215,9 @@ class CheckpointPolicy:
     """ModelCheckpoint-equivalent knobs (reference: config/config.yaml:30-36).
 
     monitor ranks top-k by a metric logged at validation time: 'val_loss'
-    (the eval hook's metrics are not ported, ROADMAP A7) — on epochs where
-    the monitored metric was not produced, top-k selection is skipped with
-    a warning and only 'last' is written."""
+    or one of the eval hook's, logged as 'val_<key>' (val_f1_flat, ...) —
+    on epochs where the monitored metric was not produced, top-k selection
+    is skipped with a warning and only 'last' is written."""
     monitor: str = 'val_loss'
     mode: str = 'min'
     save_last: bool = True
@@ -238,7 +238,13 @@ def load_checkpoint(path: str) -> Dict:
 
 
 class Trainer:
-    """Minimal but complete training loop."""
+    """Minimal but complete training loop.
+
+    eval_hook(model, epoch) -> {name: score}, when given, runs at the end
+    of each epoch >= eval_after_num_epoch with epoch % eval_per_epoch ==
+    0, after that epoch's validation; its scores are logged as
+    'val_<name>' before the checkpoints are ranked, so a policy can
+    monitor them."""
 
     def __init__(
         self,
@@ -249,6 +255,9 @@ class Trainer:
         checkpoint_policy: CheckpointPolicy = CheckpointPolicy(),
         log_every_n_steps: int = 100,
         check_val_every_n_epoch: int = 1,
+        eval_hook: Optional[Callable[[MT3, int], Dict[str, float]]] = None,
+        eval_after_num_epoch: int = 0,
+        eval_per_epoch: int = 1,
         lr_schedule: Optional[Callable] = None,
         seed: int = 365,
         bucket_targets: bool = True,
@@ -260,6 +269,9 @@ class Trainer:
         self.policy = checkpoint_policy
         self.log_every_n_steps = log_every_n_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
+        self.eval_hook = eval_hook
+        self.eval_after_num_epoch = eval_after_num_epoch
+        self.eval_per_epoch = eval_per_epoch
         self.lr_schedule = lr_schedule
         self.seed = seed
         self.bucket_targets = bucket_targets
@@ -376,14 +388,40 @@ class Trainer:
                     self.writer.log(step, scalars)
             epoch_time = time.time() - t0
 
-            if val_loader is not None and \
-                    (epoch + 1) % self.check_val_every_n_epoch == 0:
+            run_val = (val_loader is not None and
+                       (epoch + 1) % self.check_val_every_n_epoch == 0)
+            if run_val:
                 val_loss = self.validate(state, val_loader)
                 self.writer.log(state.step,
                                 {'val_loss': val_loss,
                                  'epoch': epoch,
                                  'epoch_time_s': epoch_time})
-                self._maybe_save_topk(state, epoch, {'val_loss': val_loss})
+
+            # the eval hook runs BEFORE checkpoint ranking so a policy
+            # monitoring an eval metric (val_f1_flat, ...) sees it — as
+            # Lightning, where the reference logs F1 in
+            # on_validation_epoch_end and ModelCheckpoint reads the logged
+            # metrics (tasks/mt3_base.py:27-46)
+            eval_scores = {}
+            if (self.eval_hook is not None and
+                    epoch >= self.eval_after_num_epoch and
+                    epoch % max(1, self.eval_per_epoch) == 0):
+                # guarded: a hook crash (bad eval glob, decode OOM) must
+                # not cost the epoch's 'last'/top-k checkpoints — rank on
+                # val_loss alone instead
+                try:
+                    scores = self.eval_hook(state.model, epoch)
+                except Exception:
+                    import traceback
+                    traceback.print_exc()
+                    scores = None
+                if scores:
+                    eval_scores = {f'val_{k}': v for k, v in scores.items()}
+                    self.writer.log(state.step, eval_scores)
+
+            if run_val:
+                self._maybe_save_topk(
+                    state, epoch, {'val_loss': val_loss, **eval_scores})
             elif self.policy.save_last:
                 self.save_checkpoint(state, 'last')
         return state

@@ -517,3 +517,67 @@ def test_int8_launch_failure_stops_the_server(cuda, tier, monkeypatch):
     with pytest.raises(RuntimeError, match='launch failed'):
         serve.prepare_handler(handler)
     assert handler.quantize == tier
+
+
+@pytest.mark.parametrize('kind', ['tone', 'noise', 'zeros'])
+@pytest.mark.parametrize('style', ['torch', 'tf'])
+def test_logmel_kernel_matches_compute_logmel(cuda, style, kind):
+    """The log-mel kernel against its plain version at
+    tests/test_mel_pallas.py's bounds (chip_smoke.LOGMEL_BOUNDS), one
+    launch a call; zeros give log(1e-5)."""
+    import math
+
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig, compute_logmel
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    cfg = SpectrogramConfig(filterbank_style=style)
+    x = torch.from_numpy(chip_smoke.logmel_inputs(kind, 4, 20000)).to(cuda)
+    before = mel_kernel.LAUNCHES['logmel']
+    got = mel_kernel.logmel(x, cfg)
+    torch.cuda.synchronize()
+    assert mel_kernel.LAUNCHES['logmel'] == before + 1
+    assert got.shape == (4, 157, 512)
+    readings = chip_smoke.logmel_readings(torch, got, compute_logmel(x, cfg))
+    assert chip_smoke.logmel_violations(
+        chip_smoke.LOGMEL_BOUNDS['vs_plain'], readings) == []
+    if kind == 'zeros':
+        assert (got - math.log(1e-5)).abs().max() < 1e-4
+
+
+def test_logmel_wrapper_checks_operands(cuda):
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    before = dict(mel_kernel.LAUNCHES)
+    x = torch.zeros((2, 4096), device=cuda)
+    with pytest.raises(ValueError, match='float32'):
+        mel_kernel.logmel(x.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        mel_kernel.logmel(torch.zeros((4096, 2), device=cuda).t())
+    # the launcher refuses a hop, fft_size or mel count it does not take
+    for cfg in (SpectrogramConfig(hop_width=256),
+                SpectrogramConfig(fft_size=1024),
+                SpectrogramConfig(num_mel_bins=1024)):
+        with pytest.raises(RuntimeError, match='launch failed for hop'):
+            mel_kernel.logmel(x, cfg)
+    assert mel_kernel.LAUNCHES == before
+
+
+def test_handler_mel_on_the_card_is_the_kernel(cuda):
+    """InferenceHandler._compute_mel on the card launches the kernel once
+    per call; its normalized mel meets the CPU handler's (compute_logmel)
+    within 2e-3 of log-mel where that is above -4, and zeroes the frames
+    past `valid` alike."""
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    model = init_params(MT3(SMALL.replace(mel_bins=512)), seed=0)
+    audio = chip_smoke.parity_corpus()[0][0][:50000]
+    on_card = InferenceHandler(model=model, device=cuda)
+    on_cpu = InferenceHandler(model=model, device='cpu')
+    segments, _, valid = on_card._audio_to_segments(audio)
+    before = mel_kernel.LAUNCHES['logmel']
+    got = on_card._compute_mel(segments, valid).cpu()
+    assert mel_kernel.LAUNCHES['logmel'] == before + 1
+    want = on_cpu._compute_mel(segments, valid)
+    energy = want > 8 / 17           # log-mel > -4 in [0, 1] units
+    assert energy.float().mean() > 0.5
+    assert (got - want).abs()[energy].max() < 2e-3 / 17
+    assert not got[1, valid[1]:].any()

@@ -48,6 +48,11 @@ TRAINING_MODULES = ('train/__init__.py', 'train/__main__.py',
 # the int8 decode tiers' kernel modules
 INT8_TIER_MODULES = ('ops/int8_matmul.py', 'ops/int8_attention.py')
 
+# the evaluation slice's modules and the log-mel kernel's
+EVAL_MODULES = ('eval/__init__.py', 'eval/__main__.py', 'eval/evaluate.py',
+                'eval/transcription.py', 'infer/scores.py',
+                'ops/mel_kernel.py')
+
 
 def _covered():
     return {p.relative_to(PORT).as_posix() for p in _port_sources()
@@ -60,6 +65,10 @@ def test_sources_cover_the_training_modules():
 
 def test_sources_cover_the_int8_tier_modules():
     assert set(INT8_TIER_MODULES) <= _covered()
+
+
+def test_sources_cover_the_eval_modules():
+    assert set(EVAL_MODULES) <= _covered()
 
 
 @pytest.mark.parametrize('path', _port_sources(),
@@ -79,9 +88,10 @@ def test_importing_the_port_builds_nothing():
             'from mr_mt3_tpu_torch.ops import cuda_build, fused_decode\n'
             'from mr_mt3_tpu_torch.ops import train_attention\n'
             'from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul\n'
+            'from mr_mt3_tpu_torch.ops import mel_kernel\n'
             'assert not cuda_build._libs\n'
             'for mod in (fused_decode, train_attention, int8_attention,\n'
-            '            int8_matmul):\n'
+            '            int8_matmul, mel_kernel):\n'
             '    assert not any(mod.LAUNCHES.values())\n'
             'assert not any(n.split(".")[0] in ("jax", "mr_mt3_tpu")\n'
             '               for n in sys.modules), "jax imported"\n')
@@ -124,6 +134,13 @@ def test_chip_smoke_alone_fails(tmp_path):
                          env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_eval_cli_raises_without_a_card(no_card, tmp_path):
+    from mr_mt3_tpu_torch.eval.__main__ import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([f'path={tmp_path}/weights', 'eval.exp_tag_name=out',
+              f'eval.audio_dir={tmp_path}/*.wav'])
 
 
 def test_train_cli_raises_without_a_card(no_card):
