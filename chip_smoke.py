@@ -8,9 +8,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
   1. environment: card name and power limit, torch / CUDA / nvcc versions;
   2. build: every kernel of the main paths from csrc/ (nvcc, one process
-     per source, started together): fused_decode_window,
-     fused_attention_fwd, fused_attention_bwd, int8_matmul (int8_matmul
-     and int8_gated_ff), int8_decode_attention and logmel;
+     per source, started together): fused_decode_window (the window and
+     the grouped int8 window), fused_decode_step, fused_attention_fwd,
+     fused_attention_bwd, int8_matmul (int8_matmul and int8_gated_ff),
+     int8_decode_attention and logmel;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -40,6 +41,21 @@ Phases (any failure exits non-zero and prints no result line):
      the Hann window) must break; zeros at log(1e-5); CUDA-event times of
      the kernel and of compute_logmel beside the function's bound (an
      FFT's operations) and the bound of the kernel's own DFT by products;
+  3d. the step kernel (step_cases) against its plain version at full
+     width in each mode: B in {8, 64} at positions 0, 255, 256, 700 and
+     1023 of a 1024 cache filled from a seed (Lenc 256: chunk 256, up to
+     four live chunks), and B 8 at 511, 512 and 1023 at Lenc 320 (chunk
+     512): logits, emitted rows (bf16) or codes and scales within
+     STEP_BOUNDS; in the integer modes a control, the plain version with
+     one chunk (the window's softmax, not the step's function), must
+     break them wherever two or more chunks are live; CUDA-event times
+     beside the plain version's and the bound;
+  3e. the grouped int8 window (grouped_cases) against its plain version:
+     G in {2, 8} x pos0 in {0, 224, 992}, 32-step windows, chunk 256, the
+     cache rows < pos0 decoded by the kernel itself; tokens, codes and
+     scales within the `fused` window's BOUNDS, the emitted scales
+     bf16-representable; the `fused` window kernel on the same inputs
+     ungrouped timed beside it (a yardstick, not the same function);
   4. fused_attention_fwd against its plain version at the segment-memory
      path's shapes (ATTN_CASES: the memory encoder at B 8 and 64, the
      probe's causal decoder and 1024 x 320 cross attention, the parity
@@ -98,6 +114,17 @@ Phases (any failure exits non-zero and prints no result line):
      int8 tier and the exact path (fp32, TF32 off), and one chained
      segment-memory
      decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
+  9b. the step path (step_path): 1024 greedy steps of B=8 segments through
+     fused_decode_step in each mode, the argmax taken outside: launches
+     equal to the steps, ms per step and RTF, tokens against the same loop
+     on the plain version (a row may part only at a near-tie, BOUNDS'
+     max_gap_rel); on the parity model the step-driven tokens equal the
+     window's in fused_bf16 and fused, up to each row's EOS;
+  9c. the grouped path (grouped_path): benchmarks/dev_fused_group_axis.py's
+     decode, 8 groups of 8 segments (B 64), 32-step windows, chunk 256,
+     1024 steps, against the `fused` window at B 64 on the same encoder
+     states: ms per step, RTF, launches (32 windows each); on the parity
+     model tiled to 16 rows the grouped tokens equal the window's;
  10. fused_attention_bwd against its plain version at the training step's
      shapes (ATTN_BWD_CASES: B 12, the memory encoder, the decoder's
      causal and cross attentions, head width 24), called through autograd
@@ -119,7 +146,7 @@ Phases (any failure exits non-zero and prints no result line):
      attentions the steps ran (forward and backward); the eval hook
      (TRAIN_EVAL_ARGS) logs val_f1_* after each validation.
 Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
-each leg of 8b and of 12 and read just after; the window launches must cover every
+each leg of 8b, 9b and 9c and of 12 and read just after; the window launches must cover every
 window the decoded tokens needed. Each phase prints its seconds. Then one
 JSON line of kernel numbers, the card line, and the result line.
 """
@@ -279,6 +306,21 @@ def build_kernels():
     print(f'build seconds: {time.monotonic() - t0:.1f}')
 
 
+def decoder_bytes(cfg, tier):
+    """Bytes of the decoder's weights, lm_head and norms (and the f32
+    column scales of the integer tiers) in a tier, with the per-code width
+    (2, 1 or 0.5 B) and the projections' multiply-adds per row."""
+    L, D, inner = cfg.num_decoder_layers, cfg.d_model, cfg.inner_dim
+    F, V = cfg.d_ff, cfg.vocab_size
+    width = {'fused_bf16': 2, 'fused': 1, 'fused_int4': 0.5}[tier]
+    per_layer = D * 3 * inner + inner * D + D * inner + inner * D \
+        + D * 2 * F + F * D
+    weights = width * (L * per_layer + D * V) + 4 * (L * 3 * D + D)
+    if tier != 'fused_bf16':
+        weights += 4 * (L * (3 * inner + D + inner + D + 2 * F + D) + V)
+    return weights, width, L * per_layer + D * V
+
+
 def window_bound_ms(cfg, batch, pos0, lenc, t_window, tier='fused_bf16'):
     """Least time for one window as a function: each input byte read once
     (only the cache rows < pos0 and the embedding rows the window uses),
@@ -289,22 +331,15 @@ def window_bound_ms(cfg, batch, pos0, lenc, t_window, tier='fused_bf16'):
     codes at 2 B (bf16), 1 B (int8) or 0.5 B (int4), plus the f32 scales
     (per column, per position, per emitted row). Returns (ms, bound_by)."""
     L, H, dk, D = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv, cfg.d_model
-    inner, F, V = cfg.inner_dim, cfg.d_ff, cfg.vocab_size
-    width = {'fused_bf16': 2, 'fused': 1, 'fused_int4': 0.5}[tier]
     scaled = tier != 'fused_bf16'
-    per_layer = D * 3 * inner + inner * D + D * inner + inner * D \
-        + D * 2 * F + F * D
-    cols = 3 * inner + D + inner + D + 2 * F + D     # column scales a layer
-    weights = width * (L * per_layer + D * V) + 4 * (L * 3 * D + D)
-    if scaled:
-        weights += 4 * (L * cols + V)
+    weights, width, macs = decoder_bytes(cfg, tier)
     kv_pos = L * H * batch * (lenc + pos0)           # K/V positions read
     read = (weights + 2 * t_window * batch * D + 4 * t_window * D
             + 2 * kv_pos * (width * dk + (4 if scaled else 0)) + 8 * batch)
     rows = 2 * t_window * L * H * batch              # emitted K/V rows
     written = 4 * t_window * batch + 4 * batch + (
         rows * (dk + 4) if scaled else rows * 2 * dk)
-    proj = t_window * 2 * batch * (L * per_layer + D * V)
+    proj = t_window * 2 * batch * macs
     attn = 0
     for t in range(t_window):
         attn += L * batch * H * 2 * 2 * dk * (pos0 + t + 1 + lenc)
@@ -515,6 +550,518 @@ def kernel_cases(torch):
     if bad:
         fail('kernel vs plain version: ' + '; '.join(bad))
     return results
+
+
+# The step kernel (fused_decode_step) against its plain version. Readings,
+# per case: logit_rel_err, the largest |logit difference| over the largest
+# |logit|; bf16: kv_rel_err, the emitted rows' largest |difference| over
+# their largest |value|, and layer1_kv_rel_err, the same over the second
+# layer's rows; integer modes: codes_unequal (share of emitted codes not
+# equal, all layers), layer1_codes_unequal (the same over the second
+# layer's rows), code_max_diff and scale_rel_err. The second layer's rows
+# follow one layer of chunked attention from equal inputs: sum-order
+# differences move them only at rounding ties, a wrong chunking moves them
+# broadly. Over all eight layers the same differences grow: with a cache of
+# seeded random rows the function itself turns a 1-ulp change of its input
+# into 3-4% of the logits and 4-7% of the last layer's rows (the plain
+# version on the CPU at B 16, position 255), so the all-layer readings are
+# wide. In the integer modes a control (the plain version with one chunk:
+# the window's softmax, not the step's function) must break a bound
+# wherever two or more chunks are live. The layer-1 readings are tied to
+# rounding ties, so they jump: one requantized probability code that flips
+# in layer 0 moves its row's whole attention output by ~1/127 (run AJ's
+# int8 case at position 255, one live chunk, read 0.0456 where run AI's
+# cases read at most 0.0101). Bounds about 3x the largest reading of runs
+# AI and AJ (NVIDIA H100 80GB HBM3, 700 W; PERF.md), the layer-1 code
+# bounds between the kernel's largest reading and the control's smallest
+# (int8 0.0456 and 0.343, int4 0.00358 and 0.0176).
+STEP_BOUNDS = {
+    'fused_bf16': {'logit_rel_err': 0.4,             # read 0.134
+                   'kv_rel_err': 0.4,                # 0.136
+                   'layer1_kv_rel_err': 1.5e-2},     # 0.00469
+    'fused': {'logit_rel_err': 0.25,                 # 0.0759
+              'codes_unequal': 0.45,                 # 0.166 (control 0.596)
+              'layer1_codes_unequal': 0.12,          # 0.0456
+              'code_max_diff': 48,                   # 20
+              'scale_rel_err': 0.13},                # 0.0431
+    'fused_int4': {'logit_rel_err': 0.4,             # 0.131
+                   'codes_unequal': 0.05,            # 0.0194 (control 0.068)
+                   'layer1_codes_unequal': 8e-3,     # 0.00358
+                   'code_max_diff': 3,               # 2
+                   'scale_rel_err': 0.25},           # 0.0840
+}
+# (batch, position, Lenc) of a 1024-position cache: vanilla MT3's 256
+# encoder rows (chunk 256: positions 0 and 255 one live chunk, 256 one, 700
+# three, 1023 four) and the segment-memory model's 320 (chunk 512)
+STEP_CASES = [(b, p, 256) for b in (8, 64) for p in (0, 255, 256, 700, 1023)] \
+    + [(8, p, 320) for p in (511, 512, 1023)]
+STEP_PATH_STEPS = 1024
+# the grouped window's cases (groups, pos0) and its path's shape, after
+# benchmarks/dev_fused_group_axis.py: 8 groups (B 64), t_window 32, chunk 256
+GROUPED_CASES = [(g, p) for g in (2, 8) for p in (0, 224, 992)]
+GROUPED_T, GROUPED_CHUNK, GROUPED_PATH_GROUPS = 32, 256, 8
+SEGMENT_S = 256 * 128 / 16000            # audio seconds in one segment
+
+
+def step_bound_ms(cfg, batch, position, lenc, tier):
+    """Least time for one step as a function: the weights, lm_head, the
+    input rows, the cross K/V and the cache rows < position read once, the
+    logits and the emitted rows written once, against HBM bandwidth; the
+    projections' and attention's operations at the bf16 (or int8) peak.
+    Returns (ms, bound_by)."""
+    L, H, dk, D = cfg.num_decoder_layers, cfg.num_heads, cfg.d_kv, cfg.d_model
+    scaled = tier != 'fused_bf16'
+    weights, width, macs = decoder_bytes(cfg, tier)
+    kv_pos = L * H * batch * (lenc + position)
+    read = weights + 4 * batch * D \
+        + 2 * kv_pos * (width * dk + (4 if scaled else 0))
+    rows = 2 * L * H * batch
+    written = 4 * batch * cfg.vocab_size + (
+        rows * (dk + 4) if scaled else rows * 2 * dk)
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    attn = L * batch * H * 2 * 2 * dk * (position + 1 + lenc)
+    t_ops = 2 * batch * macs / BF16_FLOPS \
+        + attn / (INT8_OPS if scaled else BF16_FLOPS)
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def seeded_cache(torch, fd, cfg, batch, tier, gen, max_len=1024):
+    """A cache whose every position holds a row from gen (a generator on
+    the cache's device): bf16 N(0, 1) values, or codes uniform in +-qmax
+    with scales 0.5-1.5 / qmax."""
+    from mr_mt3_tpu_torch.ops.int8_matmul import pack_int4
+    dev = gen.device
+    cache = fd.init_fused_cache(cfg, batch, max_len, dev, tier)
+    shape = (cfg.num_decoder_layers, cfg.num_heads, batch, cfg.d_kv, max_len)
+    for key in ('k', 'v'):
+        if tier == 'fused_bf16':
+            cache[key + 'q'] = torch.randn(shape, generator=gen,
+                                           device=dev).to(torch.bfloat16)
+            continue
+        qmax = fd.QMAX[tier]
+        codes = torch.randint(-qmax, qmax + 1, shape, generator=gen,
+                              dtype=torch.int8, device=dev)
+        cache[key + 'q'] = pack_int4(codes) if tier == 'fused_int4' \
+            else codes
+        cache[key + 's'] = (torch.rand(shape[:3] + shape[4:], generator=gen,
+                                       device=dev) + 0.5) / qmax
+    return cache
+
+
+def compare_step(torch, tier, got, want):
+    """Readings of a step's outputs against another version's (above
+    STEP_BOUNDS)."""
+    lk, rk = got[0].float(), {k: v.float() for k, v in got[1].items()}
+    lp, rp = want[0].float(), {k: v.float() for k, v in want[1].items()}
+    err = float((lk - lp).abs().max())
+    out = {'max_abs_err': err,
+           'logit_rel_err': err / float(lp.abs().max())}
+    if tier == 'fused_bf16':
+        for name, cut in (('kv_rel_err', slice(None)),
+                          ('layer1_kv_rel_err', 1)):
+            out[name] = max(float((rk[k][cut] - rp[k][cut]).abs().max()
+                                  / rp[k][cut].abs().max())
+                            for k in ('kq', 'vq'))
+        return out
+    out['codes_unequal'] = max(float((rk[k] != rp[k]).float().mean())
+                               for k in ('kq', 'vq'))
+    out['layer1_codes_unequal'] = max(
+        float((rk[k][1] != rp[k][1]).float().mean()) for k in ('kq', 'vq'))
+    out['code_max_diff'] = int(max(float((rk[k] - rp[k]).abs().max())
+                                   for k in ('kq', 'vq')))
+    out['scale_rel_err'] = max(
+        float((rk[k] - rp[k]).abs().max() / rp[k].abs().max())
+        for k in ('ks', 'vs'))
+    return out
+
+
+def step_violations(tier, readings):
+    return [f'{key} {readings[key]:.4g} > {bound}'
+            for key, bound in STEP_BOUNDS[tier].items()
+            if readings[key] > bound]
+
+
+def step_cases(torch):
+    """The step kernel vs its plain version at full width on the card."""
+    phase('step kernel vs plain (full width)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+    from mr_mt3_tpu_torch.utils.builders import init_params
+
+    cfg = MT3Config()
+    dev = torch.device('cuda')
+    model = init_params(MT3(cfg), seed=0).to(dev).eval()
+    results, bad = {}, []
+    for tier in TIERS:
+        dp = stack_decode_params(model, quantize=tier)
+        fp = dp.fused
+        results[tier] = []
+        gen = torch.Generator().manual_seed(5)
+        cache_gen = torch.Generator(device=dev).manual_seed(6)
+        for batch, pos, lenc in STEP_CASES:
+            enc = (torch.randn((batch, lenc, cfg.d_model), generator=gen)
+                   * 0.5).to(dev)
+            cross = fd.precompute_cross_kv_fused(dp, cfg, enc)
+            cache = seeded_cache(torch, fd, cfg, batch, tier, cache_gen)
+            chunk = fd.cache_chunk(cache, cross)
+            tokens = torch.randint(3, cfg.vocab_size, (batch,),
+                                   generator=gen).to(dev)
+            x = dp.token_embed[tokens].float() + dp.pos_table[pos].float()
+            args = (cfg, fp, x, pos, cache, cross, chunk)
+            got = fd.fused_decode_step_cuda(*args)
+            torch.cuda.synchronize()
+            errs = compare_step(torch, tier, got,
+                                fd.fused_decode_step_reference(*args))
+            name = f'{tier} B={batch} pos={pos} Lenc={lenc}'
+            bad += [f'{name}: {v}' for v in step_violations(tier, errs)]
+            live = -(-pos // chunk)
+            if tier != 'fused_bf16' and live > 1:
+                ctrl = compare_step(torch, tier, got,
+                                    fd.fused_decode_step_reference(
+                                        *args[:-1], 1024))
+                errs['control'] = {k: ctrl[k] for k in STEP_BOUNDS[tier]}
+                errs['control_caught_by'] = step_violations(tier, ctrl)
+                if not errs['control_caught_by']:
+                    bad.append(f'{name}: the bounds do not tell the kernel '
+                               f'from the one-chunk control')
+            ms = time_ms(torch, lambda: fd.fused_decode_step_cuda(*args))
+            plain_ms = time_ms(
+                torch, lambda: fd.fused_decode_step_reference(*args),
+                runs=PLAIN_TIMED_RUNS, warmup=0)
+            bound, bound_by = step_bound_ms(cfg, batch, pos, lenc, tier)
+            case = {'tier': tier, 'batch': batch, 'position': pos,
+                    'lenc': lenc, 'chunk': chunk, 'live_chunks': live,
+                    **errs, 'ms': ms, 'plain_ms': plain_ms,
+                    'bound_ms': bound, 'bound_by': bound_by}
+            print(json.dumps(case), flush=True)
+            results[tier].append(case)
+        del dp, fp, cross, cache
+    if bad:
+        fail('step kernel vs plain version: ' + '; '.join(bad))
+    return results
+
+
+def first_eos_cut(torch, tokens, eos_id):
+    """Per row, the tokens up to and including the first EOS (all if
+    none), as lists: what a decode that pads after EOS must agree on."""
+    rows = []
+    for row in tokens.cpu().tolist():
+        rows.append(row[:row.index(eos_id) + 1] if eos_id in row else row)
+    return rows
+
+
+def parity_encoder_states(torch, dev):
+    """The parity model on dev, the encoder states of the first song's
+    segments under it, and its golden max_length."""
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    model, _, max_length, audios = parity_model(torch, 'parity_vanilla.npz')
+    model = model.to(dev)
+    handler = InferenceHandler(model=model, max_length=max_length,
+                               batch_size=4, quantize='fused')
+    segments, _, valid = handler._audio_to_segments(audios[0])
+    with torch.no_grad():
+        enc = model.encode_audio(torch.as_tensor(
+            handler._compute_mel(segments, valid), device=dev))
+    return model, enc, max_length
+
+
+def step_loop(torch, fd, cfg, dp, cross, batch, steps, plain=False):
+    """Greedy decode through the step (the kernel through fused_decode_step,
+    or with plain its plain version), argmax outside; returns the tokens
+    (B, steps) and each step's logits if plain."""
+    dev = cross['ckq'].device
+    # a cache length that both chunk bases (256 and 512) divide
+    cache = fd.init_fused_cache(cfg, batch, -(-steps // 512) * 512, dev,
+                                fd.fused_tier(dp.fused))
+    chunk = fd.cache_chunk(cache, cross)
+    tok = torch.full((batch,), cfg.decoder_start_token_id, device=dev)
+    out, logits = [], []
+    for pos in range(steps):
+        if plain:
+            x = dp.token_embed[tok].float() + dp.pos_table[pos].float()
+            lg, rows = fd.fused_decode_step_reference(
+                cfg, dp.fused, x, pos, cache, cross, chunk)
+            fd.scatter_step_rows(cfg, cache, rows, pos)
+            logits.append(lg)
+        else:
+            lg, cache = fd.fused_decode_step(cfg, dp.fused, dp, tok, pos,
+                                             cache, cross)
+        tok = lg.argmax(-1)
+        out.append(tok)
+    return torch.stack(out, 1), logits
+
+
+def step_path(torch):
+    """The slice's step path: 1024 greedy steps of B=8 segments through
+    fused_decode_step in each mode, the launches counted, tokens against
+    the same loop on the plain version (margin rule); the parity model's
+    step-driven tokens against its window's."""
+    phase(f'step path (fused_decode_step, B=8, {STEP_PATH_STEPS} steps)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops.fast_decode import (
+        greedy_loop_fused,
+        stack_decode_params,
+    )
+    from mr_mt3_tpu_torch.utils.builders import init_params
+
+    cfg = MT3Config()
+    dev = torch.device('cuda')
+    model = init_params(MT3(cfg), seed=0).to(dev).eval()
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        enc = model.encode_audio(torch.rand((8, 256, cfg.mel_bins),
+                                            generator=gen).to(dev))
+    out = {}
+    for tier in TIERS:
+        dp = stack_decode_params(model, quantize=tier)
+        cross = fd.precompute_cross_kv_fused(dp, cfg, enc)
+        step_loop(torch, fd, cfg, dp, cross, 8, 8)          # warm-up
+        torch.cuda.synchronize()
+        fd.STEP_LAUNCHES[tier] = 0
+        t0 = time.monotonic()
+        toks, _ = step_loop(torch, fd, cfg, dp, cross, 8, STEP_PATH_STEPS)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        launches = fd.STEP_LAUNCHES[tier]
+        if launches != STEP_PATH_STEPS:
+            fail(f'{tier}: {launches} step launches for {STEP_PATH_STEPS} '
+                 f'steps')
+        t0 = time.monotonic()
+        plain, logits = step_loop(torch, fd, cfg, dp, cross, 8,
+                                  STEP_PATH_STEPS, plain=True)
+        torch.cuda.synchronize()
+        plain_secs = time.monotonic() - t0
+        gaps, agreeing = [], 0
+        for b in range(8):
+            diff = (toks[b] != plain[b]).nonzero()
+            if not len(diff):
+                agreeing += 1
+                continue
+            d = int(diff[0])
+            row = logits[d][b]
+            gaps.append(float((row[plain[b, d]] - row[toks[b, d]]).abs()
+                              / row.abs().max()))
+        max_gap = max(gaps, default=0.0)
+        if max_gap > BOUNDS[tier]['max_gap_rel']:
+            fail(f'{tier} step path: a row parts from the plain loop at a '
+                 f'score gap of {max_gap:.4g} (bound '
+                 f'{BOUNDS[tier]["max_gap_rel"]})')
+        out[tier] = {'steps': STEP_PATH_STEPS, 'launches': launches,
+                     'seconds': secs,
+                     'ms_per_step': secs / STEP_PATH_STEPS * 1e3,
+                     'rtf': 8 * SEGMENT_S / secs,
+                     'plain_ms_per_step': plain_secs / STEP_PATH_STEPS * 1e3,
+                     'rows_agreeing_with_plain': agreeing,
+                     'max_gap_rel': max_gap}
+        print(f'{tier}: {json.dumps(out[tier])}', flush=True)
+    # the overfit parity model: step-driven tokens equal the window's
+    # (tests/test_fused_decode.py:225-284), up to each row's first EOS
+    pmodel, penc, max_length = parity_encoder_states(torch, dev)
+    for tier in ('fused_bf16', 'fused'):
+        dp = stack_decode_params(pmodel, quantize=tier)
+        cross = fd.precompute_cross_kv_fused(dp, pmodel.cfg, penc)
+        stepped, _ = step_loop(torch, fd, pmodel.cfg, dp, cross,
+                               penc.shape[0], max_length)
+        window = greedy_loop_fused(pmodel.cfg, dp, penc, max_length)[:, 1:]
+        eos = pmodel.cfg.eos_token_id
+        if first_eos_cut(torch, stepped, eos) != \
+                first_eos_cut(torch, window, eos):
+            fail(f'{tier}: the step-driven tokens on the parity model '
+                 f'differ from the window\'s')
+        out[f'parity_{tier}'] = {'rows': penc.shape[0], 'steps': max_length,
+                                 'equal_to_window': True}
+        print(f'parity model {tier}: {penc.shape[0]} rows x {max_length} '
+              f'step-driven tokens equal the window\'s up to each EOS')
+    return out
+
+
+def grouped_as_window(rows, groups, layers, heads):
+    """Grouped rows (T, L*G, H*8, ...) -> the window's (T, L, H*B, ...)."""
+    out = {}
+    for key, r in rows.items():
+        tail = r.shape[3:]
+        r = r.reshape((r.shape[0], layers, groups, heads, 8) + tail)
+        out[key] = r.movedim(3, 2).reshape(
+            (r.shape[0], layers, heads * groups * 8) + tail)
+    return out
+
+
+def grouped_cases(torch):
+    """The grouped int8 window kernel vs its plain version at full width:
+    tokens, codes and scales within the `fused` window's BOUNDS, the
+    emitted scales bf16-representable; the `fused` window on the same
+    inputs timed beside it (a yardstick, not the same function)."""
+    phase('grouped kernel vs plain (full width, int8)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+    from mr_mt3_tpu_torch.utils.builders import init_params
+
+    cfg = MT3Config()
+    dev = torch.device('cuda')
+    model = init_params(MT3(cfg), seed=0).to(dev).eval()
+    dp = stack_decode_params(model, quantize='fused')
+    fp, T, L, H = dp.fused, GROUPED_T, cfg.num_decoder_layers, cfg.num_heads
+    gen = torch.Generator().manual_seed(3)
+    results, bad = [], []
+    for groups, pos0 in GROUPED_CASES:
+        batch = 8 * groups
+        enc = (torch.randn((batch, 256, cfg.d_model), generator=gen)
+               * 0.5).to(dev)
+        cross = gk.regroup_cross_kv(fd.precompute_cross_kv_fused(dp, cfg, enc),
+                                    groups)
+        cache = gk.init_fused_cache_grouped(cfg, groups, 1024, dev)
+        tokens = torch.randint(3, cfg.vocab_size, (batch,), generator=gen,
+                               dtype=torch.int32).to(dev)
+        finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+        for p in range(0, pos0, T):         # rows < pos0 by the kernel
+            toks_w, finished, cache = gk.fused_decode_window_grouped(
+                cfg, fp, dp, tokens, finished, p, cache, cross, T,
+                GROUPED_CHUNK)
+            tokens = toks_w[:, -1].contiguous()
+        finished = finished.clone()
+        finished[batch - 1] = True
+        pos_rows = fd.window_pos_rows(dp, pos0, T)
+        args = (cfg, fp, pos_rows, tokens, finished, pos0, cache, cross, T,
+                GROUPED_CHUNK)
+        last_logits = torch.empty((batch, cfg.vocab_size), device=dev)
+        got = gk.fused_decode_window_grouped_cuda(*args,
+                                                  logits_out=last_logits)
+        torch.cuda.synchronize()
+        want = gk.fused_decode_window_grouped_reference(*args,
+                                                        return_logits=True)
+        name = f'grouped G={groups} pos0={pos0}'
+        if not bool((got[0][:, batch - 1] == cfg.pad_token_id).all()):
+            bad.append(f'{name}: a finished row emitted a non-pad token')
+        for key in ('ks', 'vs'):
+            s = got[2][key]
+            if not torch.equal(s, s.to(torch.bfloat16).float()):
+                bad.append(f'{name}: emitted {key} not bf16-representable')
+        errs = compare_window(
+            torch, cfg, 'fused',
+            (got[0], got[1], grouped_as_window(got[2], groups, L, H)),
+            (want[0], want[1], grouped_as_window(want[2], groups, L, H)),
+            want[3], last_logits)
+        bad += [f'{name}: {v}' for v in violations('fused', errs)]
+        ms = time_ms(torch, lambda: gk.fused_decode_window_grouped_cuda(*args))
+        plain_ms = time_ms(
+            torch, lambda: gk.fused_decode_window_grouped_reference(*args),
+            runs=PLAIN_WINDOW_TIMED_RUNS, warmup=0)
+        flat = {k: gk.ungroup(v, groups).contiguous()
+                for k, v in cache.items()}
+        flat_cross = {k: gk.ungroup(v, groups).contiguous()
+                      for k, v in cross.items()}
+        window_ms = time_ms(torch, lambda: fd.fused_decode_window_cuda(
+            cfg, fp, pos_rows, tokens, finished, pos0, flat, flat_cross, T))
+        bound, bound_by = window_bound_ms(cfg, batch, pos0, 256, T, 'fused')
+        case = {'groups': groups, 'batch': batch, 'pos0': pos0,
+                'chunk': GROUPED_CHUNK, **errs, 'ms': ms,
+                'plain_ms': plain_ms, 'bound_ms': bound,
+                'bound_by': bound_by, 'fused_window_ms': window_ms}
+        print(json.dumps(case), flush=True)
+        results.append(case)
+    if bad:
+        fail('grouped kernel vs plain version: ' + '; '.join(bad))
+    return results
+
+
+def grouped_decode(torch, cfg, dp, cross, batch, steps, grouped):
+    """Chained 32-step windows over `steps` positions from the start token:
+    the grouped kernel on group-major operands, or the `fused` window.
+    Returns the tokens (B, steps)."""
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    dev = next(iter(cross.values())).device
+    if grouped:
+        cache = gk.init_fused_cache_grouped(cfg, batch // 8, steps, dev)
+    else:
+        cache = fd.init_fused_cache(cfg, batch, steps, dev, 'fused')
+    tok = torch.full((batch,), cfg.decoder_start_token_id, device=dev,
+                     dtype=torch.int32)
+    fin = torch.zeros(batch, dtype=torch.bool, device=dev)
+    out = []
+    for i in range(0, steps, GROUPED_T):
+        if grouped:
+            w, fin, cache = gk.fused_decode_window_grouped(
+                cfg, dp.fused, dp, tok, fin, i, cache, cross, GROUPED_T,
+                GROUPED_CHUNK)
+        else:
+            w, fin, cache = fd.fused_decode_window(
+                cfg, dp.fused, dp, tok, fin, i, cache, cross, GROUPED_T)
+        out.append(w)
+        tok = w[:, -1].contiguous()
+    return torch.cat(out, 1)
+
+
+def grouped_path(torch):
+    """benchmarks/dev_fused_group_axis.py's decode on the card: 8 groups of
+    8 segments (B 64), 32-step windows, chunk 256, 1024 steps, its ms and
+    RTF against the `fused` window at B 64 on the same encoder states; the
+    launches counted; on the parity model tiled to 16 rows the grouped
+    tokens equal the window's (tests/test_fused_decode.py:377-438)."""
+    groups = GROUPED_PATH_GROUPS
+    batch = 8 * groups
+    phase(f'grouped path (G={groups}, B={batch}, {STEP_PATH_STEPS} steps)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+    from mr_mt3_tpu_torch.utils.builders import init_params
+
+    cfg = MT3Config()
+    dev = torch.device('cuda')
+    model = init_params(MT3(cfg), seed=0).to(dev).eval()
+    dp = stack_decode_params(model, quantize='fused')
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        enc = model.encode_audio(torch.rand((batch, 256, cfg.mel_bins),
+                                            generator=gen).to(dev))
+    cross = fd.precompute_cross_kv_fused(dp, cfg, enc)
+    cross_g = gk.regroup_cross_kv(cross, groups)
+    grouped_decode(torch, cfg, dp, cross_g, batch, 64, True)     # warm-up
+    grouped_decode(torch, cfg, dp, cross, batch, 64, False)
+    torch.cuda.synchronize()
+    out = {}
+    for name, grouped, c in (('grouped', True, cross_g),
+                             ('fused_window', False, cross)):
+        gk.LAUNCHES['fused'] = 0
+        fd.LAUNCHES['fused'] = 0
+        t0 = time.monotonic()
+        toks = grouped_decode(torch, cfg, dp, c, batch, STEP_PATH_STEPS,
+                              grouped)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        launches = (gk.LAUNCHES if grouped else fd.LAUNCHES)['fused']
+        if launches != STEP_PATH_STEPS // GROUPED_T:
+            fail(f'{name}: {launches} launches for '
+                 f'{STEP_PATH_STEPS // GROUPED_T} windows')
+        out[name] = {'seconds': secs, 'launches': launches,
+                     'ms_per_step': secs / STEP_PATH_STEPS * 1e3,
+                     'rtf': batch * SEGMENT_S / secs, 'tokens': toks}
+    out['token_agreement'] = float(
+        (out['grouped'].pop('tokens') == out['fused_window'].pop('tokens'))
+        .float().mean())
+    print(json.dumps(out), flush=True)
+    # the parity model's two confident rows tiled to 16 (two groups)
+    pmodel, penc, max_length = parity_encoder_states(torch, dev)
+    penc = penc[:2].repeat(8, 1, 1)
+    pdp = stack_decode_params(pmodel, quantize='fused')
+    pcross = fd.precompute_cross_kv_fused(pdp, pmodel.cfg, penc)
+    steps = -(-max_length // GROUPED_T) * GROUPED_T
+    got = grouped_decode(torch, pmodel.cfg, pdp,
+                         gk.regroup_cross_kv(pcross, 2), 16, steps, True)
+    want = grouped_decode(torch, pmodel.cfg, pdp, pcross, 16, steps, False)
+    if not torch.equal(got, want):
+        fail('the grouped tokens on the parity model differ from the '
+             'window\'s')
+    out['parity_tiled_16'] = {'steps': steps, 'equal_to_window': True}
+    print(f'parity model tiled to 16 rows: {steps} grouped tokens equal the '
+          f'window\'s')
+    return out
 
 
 def wav_bytes(samples, sr=16000):
@@ -2962,6 +3509,8 @@ def main():
     environment(torch)
     build_kernels()
     cases = kernel_cases(torch)
+    stepped = step_cases(torch)
+    grouped = grouped_cases(torch)
     int8_cases = int8_kernel_cases(torch)
     mel_cases = logmel_cases(torch)
     attn_cases = attention_cases(torch)
@@ -2977,6 +3526,8 @@ def main():
     int8_segmem = segmem_int8_leg(torch)
     worst = worst_case(torch)
     worst['segmem_fused_bf16'] = segmem_worst_case(torch)
+    step_main = step_path(torch)
+    grouped_main = grouped_path(torch)
     training = {'parity': training_parity(torch),
                 'main_path': training_main_path(torch)}
     train_launches = {
@@ -3005,6 +3556,40 @@ def main():
             'main_path_launches': main['launches'][tier],
             'segmem_path_launches': segmem['launches'][tier],
             'cases': cases[tier]})
+    for tier in TIERS:
+        main_case = next(c for c in stepped[tier] if c['batch'] == 8
+                         and c['position'] == 1023 and c['lenc'] == 256)
+        kernels.append({
+            'name': f'fused_decode_step[{tier}]', 'mode': tier,
+            'route': 'cuda',
+            'source': 'mr_mt3_tpu_torch/csrc/fused_decode_step.cu',
+            'replaces': 'mr_mt3_tpu/ops/fused_decode.py:676',
+            'launches': step_main[tier]['launches'],
+            'max_abs_err': max(c['max_abs_err'] for c in stepped[tier]),
+            'max_abs_err_note': 'logits, over all cases',
+            'ms': main_case['ms'], 'plain_ms': main_case['plain_ms'],
+            'bound_ms': main_case['bound_ms'],
+            'bound_by': main_case['bound_by'], 'library_ms': None,
+            'library_note': 'none: no PyTorch call computes a decoder step',
+            'cases': stepped[tier]})
+    main_case = next(c for c in grouped if c['groups'] == 8
+                     and c['pos0'] == 992)
+    kernels.append({
+        'name': 'fused_decode_window_grouped', 'mode': 'fused',
+        'route': 'cuda',
+        'source': 'mr_mt3_tpu_torch/csrc/fused_decode_window.cu',
+        'replaces': 'benchmarks/group_axis_kernel.py:385',
+        'launches': grouped_main['grouped']['launches'],
+        'max_abs_err': max(c['max_abs_err'] for c in grouped),
+        'ms': main_case['ms'], 'plain_ms': main_case['plain_ms'],
+        'bound_ms': main_case['bound_ms'], 'bound_by': main_case['bound_by'],
+        'library_ms': None,
+        'library_note': 'none: no PyTorch call computes a grouped window; '
+                        'yardstick fused_window_ms, the `fused` window kernel '
+                        'on the same inputs ungrouped (one cache chunk: not '
+                        'the same function)',
+        'fused_window_ms': main_case['fused_window_ms'],
+        'cases': grouped})
     enc = next(c for c in attn_cases if c['case'] == 'memory_encoder_b8')
     kernels.append({
         'name': 'fused_attention_fwd', 'route': 'cuda',
@@ -3097,6 +3682,7 @@ def main():
                    'int8_serving': int8_serving,
                    'int8_segmem': int8_segmem,
                    'worst_case': worst, 'training': training,
+                   'step_path': step_main, 'grouped_path': grouped_main,
                    'phase_seconds': PHASE_SECONDS}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())

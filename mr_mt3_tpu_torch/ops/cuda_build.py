@@ -6,7 +6,8 @@ plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited source is rebuilt.
+The hash covers the source, the headers of csrc/ (*.cuh) and the flags, so
+an edited source or header is rebuilt.
 _build/ is listed in .gitignore. Nothing is built when a module is
 imported: only a launch on a CUDA tensor calls load().
 """
@@ -42,6 +43,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f'{name}.cu').read_bytes()
+    src += b''.join(h.read_bytes() for h in sorted(CSRC_DIR.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}-{digest[:12]}.so'
 

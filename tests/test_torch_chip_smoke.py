@@ -148,3 +148,113 @@ def test_device_per_step_leaves_out_the_shared_setup(monkeypatch):
     assert got['device_ms_per_step'] == pytest.approx(0.5)
     assert got['idle_share'] == pytest.approx(0.75)
     assert got['kernel_ms_per_step'] == {'int8_gated_ff': 0.25}
+
+
+# ---- the step and grouped kernels' phases ---------------------------------
+
+
+def _step_args(tier, batch=8, pos=700):
+    """One step's arguments at full cache length 1024 filled from a seed
+    (chunk 256: three live chunks at position 700)."""
+    model = init_params(MT3(CFG), seed=0).eval()
+    dp = stack_decode_params(model, quantize=tier)
+    gen = torch.Generator().manual_seed(5)
+    enc = torch.randn((batch, 16, CFG.d_model), generator=gen) * 0.5
+    cross = fd.precompute_cross_kv_fused(dp, CFG, enc)
+    cache = chip_smoke.seeded_cache(torch, fd, CFG, batch, tier, gen)
+    tokens = torch.randint(3, CFG.vocab_size, (batch,), generator=gen)
+    x = dp.token_embed[tokens].float() + dp.pos_table[pos].float()
+    return (CFG, dp.fused, x, pos, cache, cross, fd.cache_chunk(cache, cross))
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+def test_step_plain_version_passes_its_own_bounds(tier):
+    args = _step_args(tier)
+    assert args[-1] == 256
+    want = fd.fused_decode_step_reference(*args)
+    readings = chip_smoke.compare_step(torch, tier, want, want)
+    assert chip_smoke.step_violations(tier, readings) == []
+    assert readings['max_abs_err'] == 0.0
+
+
+@pytest.mark.parametrize('tier', ['fused', 'fused_int4'])
+def test_step_bounds_catch_the_one_chunk_control(tier):
+    """The plain step with one chunk in place of the function's three
+    breaks the layer-1 code bound (read here: 34% int8, 2.7% int4)."""
+    args = _step_args(tier)
+    want = fd.fused_decode_step_reference(*args)
+    ctrl = fd.fused_decode_step_reference(*args[:-1], 1024)
+    readings = chip_smoke.compare_step(torch, tier, want, ctrl)
+    print(tier, readings)
+    caught = chip_smoke.step_violations(tier, readings)
+    assert any(v.startswith('layer1_codes_unequal') for v in caught)
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused_int4'])
+def test_step_loop_drives_the_wrapper_as_the_plain_loop(tier):
+    """step_loop through fused_decode_step (here its plain version) and
+    through the plain version directly give the same tokens; on the CPU
+    no kernel launch is counted."""
+    model = init_params(MT3(CFG), seed=0).eval()
+    dp = stack_decode_params(model, quantize=tier)
+    enc = torch.randn((3, 16, CFG.d_model),
+                      generator=torch.Generator().manual_seed(2))
+    cross = fd.precompute_cross_kv_fused(dp, CFG, enc)
+    before = dict(fd.STEP_LAUNCHES)
+    toks, _ = chip_smoke.step_loop(torch, fd, CFG, dp, cross, 3, 12)
+    plain, logits = chip_smoke.step_loop(torch, fd, CFG, dp, cross, 3, 12,
+                                         plain=True)
+    assert toks.shape == (3, 12) and len(logits) == 12
+    assert torch.equal(toks, plain)
+    assert fd.STEP_LAUNCHES == before
+
+
+def test_grouped_rows_map_to_the_window_layout():
+    """grouped_as_window puts the grouped plain version's emitted codes
+    where the window's plain version puts them (same tokens, one chunk)."""
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    model = init_params(MT3(CFG), seed=0).eval()
+    dp = stack_decode_params(model, quantize='fused')
+    enc = torch.randn((16, 16, CFG.d_model),
+                      generator=torch.Generator().manual_seed(3))
+    cross = fd.precompute_cross_kv_fused(dp, CFG, enc)
+    tokens = torch.arange(3, 19, dtype=torch.int32)
+    fin = torch.zeros(16, dtype=torch.bool)
+    pos_rows = fd.window_pos_rows(dp, 0, 4)
+    want = fd.fused_decode_window_reference(
+        CFG, dp.fused, pos_rows, tokens, fin, 0,
+        fd.init_fused_cache(CFG, 16, 16, 'cpu', 'fused'), cross, 4)
+    got = gk.fused_decode_window_grouped_reference(
+        CFG, dp.fused, pos_rows, tokens, fin, 0,
+        gk.init_fused_cache_grouped(CFG, 2, 16, 'cpu'),
+        gk.regroup_cross_kv(cross, 2), 4, 16)
+    rows = chip_smoke.grouped_as_window(got[2], 2, 2, CFG.num_heads)
+    assert torch.equal(got[0], want[0])
+    for key in ('kq', 'vq'):
+        assert torch.equal(rows[key], want[2][key])
+    for key in ('ks', 'vs'):
+        assert torch.equal(rows[key], want[2][key].to(torch.bfloat16).float())
+
+
+def test_grouped_decode_on_the_cpu():
+    """grouped_decode's two routes at B 16 run their plain versions on the
+    CPU, chained over two windows, and count no launch."""
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    model = init_params(MT3(CFG), seed=0).eval()
+    dp = stack_decode_params(model, quantize='fused')
+    enc = torch.randn((16, 16, CFG.d_model),
+                      generator=torch.Generator().manual_seed(4))
+    cross = fd.precompute_cross_kv_fused(dp, CFG, enc)
+    before = dict(gk.LAUNCHES), dict(fd.LAUNCHES)
+    got = chip_smoke.grouped_decode(torch, CFG, dp,
+                                    gk.regroup_cross_kv(cross, 2), 16, 64,
+                                    True)
+    want = chip_smoke.grouped_decode(torch, CFG, dp, cross, 16, 64, False)
+    assert got.shape == want.shape == (16, 64)
+    assert (got[:, :32] == want[:, :32]).float().mean() > 0.9
+    assert (dict(gk.LAUNCHES), dict(fd.LAUNCHES)) == before
+
+
+def test_first_eos_cut():
+    t = torch.tensor([[5, 1, 7, 0], [4, 6, 8, 9]])
+    assert chip_smoke.first_eos_cut(torch, t, 1) == [[5, 1], [4, 6, 8, 9]]

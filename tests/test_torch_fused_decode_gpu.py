@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-fused_decode_window in its three modes, fused_attention_fwd,
-fused_attention_bwd, int8_matmul, int8_gated_ff and
-int8_decode_attention. Imports no JAX, so it runs where the card is:
+fused_decode_window and fused_decode_step in their three modes, the
+grouped int8 window, fused_attention_fwd, fused_attention_bwd,
+int8_matmul, int8_gated_ff, int8_decode_attention and logmel. Imports no JAX, so it runs where the card is:
 
     python -m pytest tests/test_torch_fused_decode_gpu.py -m gpu -q
 
@@ -581,3 +581,166 @@ def test_handler_mel_on_the_card_is_the_kernel(cuda):
     assert energy.float().mean() > 0.5
     assert (got - want).abs()[energy].max() < 2e-3 / 17
     assert not got[1, valid[1]:].any()
+
+
+# ---- fused_decode_step and the grouped window ------------------------------
+
+
+def _step_case(dev, tier, batch, pos, cache_len=512):
+    """A step at pos of a cache whose rows < 320 the window kernel decoded
+    (chunk 256 at Lenc 8: pos 300 reads two live chunks)."""
+    cfg = SMALL
+    dp, cross, cache, tokens = _setup(cfg, batch, 8, cache_len, dev,
+                                      tier=tier)
+    finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+    for p in range(0, 320, 32):
+        toks_w, finished, cache = fd.fused_decode_window(
+            cfg, dp.fused, dp, tokens, finished, p, cache, cross, 32)
+        tokens = toks_w[:, -1].contiguous()
+    x = dp.token_embed[tokens.long()].float() + dp.pos_table[pos].float()
+    return dp, (cfg, dp.fused, x, pos, cache, cross,
+                fd.cache_chunk(cache, cross))
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+@pytest.mark.parametrize('batch,pos', [(3, 0), (8, 255), (8, 300), (64, 301)])
+def test_step_kernel_matches_plain_version(cuda, tier, batch, pos):
+    """Logits and emitted rows against the plain version, before, at and
+    across the first chunk boundary (read on an H100: within 1e-7)."""
+    _, args = _step_case(cuda, tier, batch, pos)
+    before = fd.STEP_LAUNCHES[tier]
+    logits, rows = fd.fused_decode_step_cuda(*args)
+    torch.cuda.synchronize()
+    assert fd.STEP_LAUNCHES[tier] == before + 1
+    want, w_rows = fd.fused_decode_step_reference(*args)
+    scale = float(want.abs().max())
+    assert float((logits - want).abs().max()) <= LOGIT_RTOL * scale
+    assert set(rows) == set(w_rows)
+    for key in ('kq', 'vq'):
+        a, r = rows[key].float(), w_rows[key].float()
+        if tier == 'fused_bf16':
+            assert float((a - r).abs().max()) <= \
+                KV_RTOL * float(r.abs().max())
+        else:
+            assert float((a == r).float().mean()) >= CODE_SHARE, key
+            assert float((a - r).abs().max()) <= CODE_DIFF, key
+    for key in set(rows) & {'ks', 'vs'}:
+        assert float((rows[key] - w_rows[key]).abs().max()) <= \
+            SCALE_RTOL * float(w_rows[key].abs().max())
+
+
+def test_int4_odd_position_scatter_on_the_card(cuda):
+    """An int4 step at odd position 301 through the wrapper writes the high
+    nibble of byte 150 and keeps position 300's low nibble; no other
+    position of the cache moves."""
+    from mr_mt3_tpu_torch.ops.int8_matmul import unpack_int4
+    dp, args = _step_case(cuda, 'fused_int4', 8, 301)
+    cfg, cache, cross = args[0], args[4], args[5]
+    tokens = torch.arange(3, 11, device=cuda)
+    x = dp.token_embed[tokens].float() + dp.pos_table[301].float()
+    before = {k: unpack_int4(cache[k]).clone() for k in ('kq', 'vq')}
+    _, rows = fd.fused_decode_step_reference(cfg, args[1], x, 301, cache,
+                                             cross, args[6])
+    fd.fused_decode_step(cfg, dp.fused, dp, tokens, 301, cache, cross)
+    for key in ('kq', 'vq'):
+        after = unpack_int4(cache[key])
+        keep = [p for p in range(after.shape[-1]) if p != 301]
+        assert torch.equal(after[..., keep], before[key][..., keep])
+        got = after[..., 301].reshape(cfg.num_decoder_layers, -1)
+        want = rows[key].reshape(cfg.num_decoder_layers, -1)
+        assert float((got == want).float().mean()) >= CODE_SHARE
+
+
+def test_step_wrapper_checks_operands(cuda):
+    """A bad dtype, a position past the cache, a chunk of 0 and a tensor on
+    the CPU raise before any launch; a cache length that the chunk does not
+    divide raises in the wrapper."""
+    dp, args = _step_case(cuda, 'fused', 3, 4, cache_len=512)
+    cfg, fp, x, pos, cache, cross, chunk = args
+    before = dict(fd.STEP_LAUNCHES)
+    with pytest.raises(ValueError, match='dtype'):
+        fd.fused_decode_step_cuda(cfg, fp, x.half(), pos, cache, cross, chunk)
+    with pytest.raises(ValueError, match='outside'):
+        fd.fused_decode_step_cuda(cfg, fp, x, 512, cache, cross, chunk)
+    with pytest.raises(ValueError, match='chunk'):
+        fd.fused_decode_step_cuda(cfg, fp, x, pos, cache, cross, 0)
+    with pytest.raises(ValueError, match='expected cpu'):
+        fd.fused_decode_step_cuda(cfg, fp, x.cpu(), pos, cache, cross, chunk)
+    bad = fd.init_fused_cache(cfg, 3, 300, cuda, 'fused')
+    with pytest.raises(ValueError, match='multiple'):
+        fd.fused_decode_step(cfg, fp, dp, torch.zeros(3, device=cuda,
+                                                      dtype=torch.long),
+                             0, bad, cross)
+    assert fd.STEP_LAUNCHES == before
+
+
+def _grouped_case(dev, groups, pos0, t_window=8, chunk=8, cache_len=32):
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    cfg, batch = SMALL, 8 * groups
+    dp, cross, _, tokens = _setup(cfg, batch, 8, cache_len, dev,
+                                  tier='fused')
+    cross = gk.regroup_cross_kv(cross, groups)
+    cache = gk.init_fused_cache_grouped(cfg, groups, cache_len, dev)
+    finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+    for p in range(0, pos0, t_window):
+        toks_w, finished, cache = gk.fused_decode_window_grouped(
+            cfg, dp.fused, dp, tokens, finished, p, cache, cross, t_window,
+            chunk)
+        tokens = toks_w[:, -1].contiguous()
+    finished = finished.clone()
+    finished[-1] = True
+    return dp, (cfg, dp.fused, fd.window_pos_rows(dp, pos0, t_window), tokens,
+                finished, pos0, cache, cross, t_window, chunk)
+
+
+@pytest.mark.parametrize('groups,pos0', [(1, 0), (2, 8), (2, 16), (8, 16)])
+def test_grouped_kernel_matches_plain_version(cuda, groups, pos0):
+    """Tokens (up to an allowed near-tie divergence), codes and the
+    bf16-rounded scales of the window against the plain version; the cache
+    rows < pos0 in chunks of 8 (two live at pos0 16)."""
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    _, args = _grouped_case(cuda, groups, pos0)
+    cfg = args[0]
+    before = gk.LAUNCHES['fused']
+    toks, _, rows = gk.fused_decode_window_grouped_cuda(*args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES['fused'] == before + 1
+    w_toks, _, w_rows, logits = gk.fused_decode_window_grouped_reference(
+        *args, return_logits=True)
+    assert (toks[:, -1] == cfg.pad_token_id).all()
+    agree = _agreeing_rows(cfg, toks, w_toks, logits)
+    for key in ('ks', 'vs'):
+        assert torch.equal(rows[key], rows[key].to(torch.bfloat16).float())
+    if agree.all():
+        for key in ('kq', 'vq'):
+            a, r = rows[key].int(), w_rows[key].int()
+            assert float((a == r).float().mean()) >= CODE_SHARE, key
+            assert int((a - r).abs().max()) <= CODE_DIFF, key
+        for key in ('ks', 'vs'):
+            assert float((rows[key] - w_rows[key]).abs().max()) <= \
+                SCALE_RTOL * float(w_rows[key].abs().max())
+
+
+def test_grouped_wrapper_checks_operands(cuda):
+    """Rows that are not whole groups, an int4 model and an ungrouped cache
+    (its leading axis reads as one group of 8) raise before any launch."""
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    dp, args = _grouped_case(cuda, 2, 0)
+    cfg, fp, pos_rows, tokens, finished, pos0, cache, cross, T, chunk = args
+    before = dict(gk.LAUNCHES)
+    with pytest.raises(ValueError, match='groups'):
+        gk.fused_decode_window_grouped_cuda(cfg, fp, pos_rows, tokens[:12],
+                                            finished[:12], pos0, cache,
+                                            cross, T, chunk)
+    int4 = stack_decode_params(init_params(MT3(cfg), seed=0).to(cuda),
+                               quantize='fused_int4').fused
+    with pytest.raises(NotImplementedError, match='int8'):
+        gk.fused_decode_window_grouped_cuda(cfg, int4, pos_rows, tokens,
+                                            finished, pos0, cache, cross, T,
+                                            chunk)
+    flat = {k: gk.ungroup(v, 2).contiguous() for k, v in cache.items()}
+    with pytest.raises(ValueError, match='groups'):
+        gk.fused_decode_window_grouped_cuda(cfg, fp, pos_rows, tokens,
+                                            finished, pos0, flat, cross, T,
+                                            chunk)
+    assert gk.LAUNCHES == before

@@ -54,6 +54,10 @@ EVAL_MODULES = ('eval/__init__.py', 'eval/__main__.py', 'eval/evaluate.py',
                 'ops/mel_kernel.py')
 
 
+# the step and grouped-window kernels' modules
+STEP_MODULES = ('ops/fused_decode.py', 'ops/group_axis_kernel.py')
+
+
 def _covered():
     return {p.relative_to(PORT).as_posix() for p in _port_sources()
             if PORT in p.parents}
@@ -69,6 +73,10 @@ def test_sources_cover_the_int8_tier_modules():
 
 def test_sources_cover_the_eval_modules():
     assert set(EVAL_MODULES) <= _covered()
+
+
+def test_sources_cover_the_step_and_grouped_modules():
+    assert set(STEP_MODULES) <= _covered()
 
 
 @pytest.mark.parametrize('path', _port_sources(),
@@ -88,11 +96,12 @@ def test_importing_the_port_builds_nothing():
             'from mr_mt3_tpu_torch.ops import cuda_build, fused_decode\n'
             'from mr_mt3_tpu_torch.ops import train_attention\n'
             'from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul\n'
-            'from mr_mt3_tpu_torch.ops import mel_kernel\n'
+            'from mr_mt3_tpu_torch.ops import mel_kernel, group_axis_kernel\n'
             'assert not cuda_build._libs\n'
             'for mod in (fused_decode, train_attention, int8_attention,\n'
-            '            int8_matmul, mel_kernel):\n'
+            '            int8_matmul, mel_kernel, group_axis_kernel):\n'
             '    assert not any(mod.LAUNCHES.values())\n'
+            'assert not any(fused_decode.STEP_LAUNCHES.values())\n'
             'assert not any(n.split(".")[0] in ("jax", "mr_mt3_tpu")\n'
             '               for n in sys.modules), "jax imported"\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
