@@ -59,12 +59,14 @@ Phases (any failure exits non-zero and prints no result line):
   4. fused_attention_fwd against its plain version at the segment-memory
      path's shapes (ATTN_CASES: the memory encoder at B 8 and 64, the
      probe's causal decoder and 1024 x 320 cross attention, the parity
-     model's head width 24), called as the model calls it (fused_attention
-     on the unpadded K/V: its padding and kv_valid included) and compared
-     with the plain version on the padded K/V, within ATTN_BOUNDS, with the
-     kernel's time, the plain
-     version's, the bound and scaled_dot_product_attention's (a yardstick
-     the port never calls);
+     model's head width 24, a ragged causal 520 and 4096 keys), called as
+     the model calls it (fused_attention on the unpadded K/V: its padding
+     and kv_valid included) and compared with the plain version on the
+     padded K/V, within ATTN_BOUNDS, which must also catch a control (the
+     output divided by the row sum after the value product), with the
+     kernel's time and TFLOP/s, the plain version's time, the bound and
+     scaled_dot_product_attention's time (a yardstick the port never
+     calls);
   5. parity on the card: the overfit parity model of
      tests/goldens/parity_vanilla.npz (loaded with numpy through the
      port's weights bridge, its audio rebuilt and checked against the
@@ -127,17 +129,20 @@ Phases (any failure exits non-zero and prints no result line):
      model tiled to 16 rows the grouped tokens equal the window's;
  10. fused_attention_bwd against its plain version at the training step's
      shapes (ATTN_BWD_CASES: B 12, the memory encoder, the decoder's
-     causal and cross attentions, head width 24), called through autograd
-     as the model calls it, within ATTN_BWD_BOUNDS, two runs bit-identical,
-     with the kernel's time, the plain version's, the bound and the
-     backward of scaled_dot_product_attention (a yardstick);
+     causal and cross attentions, head width 24, a ragged causal 520; 4096
+     keys at B 2), called through autograd as the model calls it, within
+     ATTN_BWD_BOUNDS, two runs bit-identical, a rowsum(dO * O) delta
+     control read against the bounds (recorded), with the kernel's time
+     and TFLOP/s, the plain version's, the bound and the backward of
+     scaled_dot_product_attention (a yardstick);
  11. training parity on the card: the full-width segment-memory model at
      bf16, one batch on each of two seeds, loss and every gradient with
      the attention kernels against attention_kernel='einsum' and against
      the kernels' plain versions, the plain versions against einsum at
      fp32 (TRAIN_PARITY_BOUNDS), a control (dk scaled) the bounds must
-     catch, ms per train step on both routes, and an fp32 step on the card
-     against the CPU;
+     catch, ms per train step on both routes with a profile of one step
+     (device ms, idle share, the attention kernels' ms), and an fp32 step
+     on the card against the CPU;
  12. training main path: `python -m mr_mt3_tpu_torch.train` with TRAIN_ARGS
      (the paper's recipe at bf16) through train.main(argv) on a fabricated
      Slakh-format corpus: 2 epochs with validation, then a resume from
@@ -149,6 +154,8 @@ Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
 each leg of 8b, 9b and 9c and of 12 and read just after; the window launches must cover every
 window the decoded tokens needed. Each phase prints its seconds. Then one
 JSON line of kernel numbers, the card line, and the result line.
+attention_versus is not a phase: it times the attention kernels against
+another design's sources, which a run has to be given.
 """
 
 import json
@@ -1553,29 +1560,32 @@ INT8_KERNEL_NAMES = {'int8_matmul': 'i8mm_kernel',
                      'int8_decode_attention': 'i8att_kernel'}
 
 
-def device_time(torch, fn):
+def device_time(torch, fn, by_name=False):
     """Device time of one call of fn from a torch.profiler trace: the
     summed durations of the events on the card (kernels, copies, sets), in
-    all and of the int8 kernels by name (ms). Host events are left out:
-    the device time the profiler gives an operator is that of the kernels
-    it launched, which are counted once, as device events."""
+    all and of the int8 kernels by name (ms); with by_name, also every
+    device event's ms by its name. Host events are left out: the device
+    time the profiler gives an operator is that of the kernels it
+    launched, which are counted once, as device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     total, kernels = 0.0, {name: 0.0 for name in INT8_KERNEL_NAMES}
+    names = {}
     for event in prof.events():
         if event.device_type != DeviceType.CUDA:
             continue
         ms = event.time_range.elapsed_us() / 1e3
         total += ms
+        names[event.name] = names.get(event.name, 0.0) + ms
         for name, symbol in INT8_KERNEL_NAMES.items():
             if symbol in event.name:
                 kernels[name] += ms
     if total <= 0:
         fail('torch.profiler recorded no device time')
-    return total, kernels
+    return (total, kernels, names) if by_name else (total, kernels)
 
 
 def device_per_step(torch, decode, wall_ms_per_step):
@@ -1607,14 +1617,31 @@ ATTN_BOUNDS = {'rel_err': 1e-2, 'unequal': 1.5e-3}
 # (name, batch, Lq, Lk, heads, head width, causal): the memory encoder
 # (B 8 chains, and 64, the per-call cap), the probe's teacher-forced
 # decoder self-attention and cross-attention (Lk 256 + 64 = 320, padded
-# to 384) at full width, and the parity model's head width 24
+# to 384) at full width, the parity model's head width 24, a ragged causal
+# length (520: not a multiple of the kernels' 64-row tiles) and a key
+# length past the ~3400 keys at which the earlier design (f32 score rows
+# in shared memory) refused to launch (4096 keys)
 ATTN_CASES = [
     ('memory_encoder_b8', 8, 1024, 1024, 6, 64, False),
     ('memory_encoder_b64', 64, 1024, 1024, 6, 64, False),
     ('decoder_causal_b8', 8, 1024, 1024, 6, 64, True),
     ('cross_1024x320_b8', 8, 1024, 320, 6, 64, False),
     ('parity_d24_b8', 8, 1024, 1024, 4, 24, False),
+    ('ragged_causal_520_b8', 8, 520, 520, 6, 64, True),
+    ('long_kv_1024x4096_b2', 2, 1024, 4096, 6, 64, False),
 ]
+
+
+def attention_columns(lq, kv_valid, causal):
+    """The key columns the Lq rows see in all."""
+    return sum(min(kv_valid, i + 1) if causal else kv_valid
+               for i in range(lq))
+
+
+def attention_flops(b, lq, kv_valid, h, d, causal, products=2):
+    """Operations of the function (q.k and p.v, or the backward's five
+    products) over the columns each row sees."""
+    return 2 * products * b * h * d * attention_columns(lq, kv_valid, causal)
 
 
 def attention_bound_ms(b, lq, lk, kv_valid, h, d, causal):
@@ -1622,13 +1649,34 @@ def attention_bound_ms(b, lq, lk, kv_valid, h, d, causal):
     the output moved once (bf16), against HBM; and the multiply-adds this
     data needs (q.k and p.v over the columns each row sees) at the bf16
     tensor-core peak. Returns (ms, bound_by)."""
-    cols = sum(min(kv_valid, i + 1) if causal else kv_valid
-               for i in range(lq))
-    flops = 4 * b * h * d * cols
+    flops = attention_flops(b, lq, kv_valid, h, d, causal)
     nbytes = 2 * b * h * d * (2 * lq + 2 * kv_valid)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
+
+
+def attention_control(torch, q, k, v, causal, kv_valid):
+    """A deliberately wrong plain forward, the one-pass flash shortcut:
+    e = exp(s - max) rounded to bf16 before it is normalized, the output
+    divided by the row sum after the value product. ATTN_BOUNDS must catch
+    it (the function normalizes p in f32 before it rounds it). e = p /
+    max(p) and the row sum is 1 / max(p), since e is 1 at the max."""
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    p = ta._probabilities(q, k, causal, kv_valid)
+    top = p.amax(-1, keepdim=True)
+    o = torch.einsum('bhqk,bkhd->bhqd', (p / top).to(v.dtype).float(),
+                     v.float())
+    return (o * top).transpose(1, 2).to(q.dtype)
+
+
+def attention_readings(torch, got, want):
+    """max_abs_err; rel_err, the largest |difference| over the largest
+    |plain output|; unequal, the share of outputs not equal."""
+    diff = (got.float() - want.float()).abs()
+    return {'max_abs_err': float(diff.max()),
+            'rel_err': float(diff.max()) / float(want.float().abs().max()),
+            'unequal': float((got != want).float().mean())}
 
 
 def attention_cases(torch):
@@ -1656,14 +1704,18 @@ def attention_cases(torch):
             fail(f'{name}: fused_attention did not launch the kernel')
         kp, vp, valid = ta._pad_kv(k, v)
         want = ta.fused_attention_reference(q, kp, vp, causal, valid)
-        diff = (got.float() - want.float()).abs()
         scale = float(want.float().abs().max())
-        readings = {'max_abs_err': float(diff.max()),
-                    'rel_err': float(diff.max()) / scale,
-                    'unequal': float((got != want).float().mean())}
+        readings = attention_readings(torch, got, want)
         bad += [f'{name}: {key} {readings[key]:.4g} > {bound}'
                 for key, bound in ATTN_BOUNDS.items()
                 if readings[key] > bound]
+        control = attention_readings(
+            torch, attention_control(torch, q, kp, vp, causal, valid), want)
+        caught = [key for key, bound in ATTN_BOUNDS.items()
+                  if control[key] > bound]
+        if not caught:
+            bad.append(f'{name}: ATTN_BOUNDS pass the control (divide '
+                       f'after the product): {control}')
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kp, vp))
         mask = None
         if valid < kp.shape[1]:
@@ -1681,16 +1733,21 @@ def attention_cases(torch):
         library_ms = time_ms(torch, library)
         bound, bound_by = attention_bound_ms(b, lq, kp.shape[1], valid, h,
                                              d, causal)
+        tflops = attention_flops(b, lq, valid, h, d, causal) / ms / 1e9
         case = {'case': name, 'batch': b, 'lq': lq, 'lk': kp.shape[1],
                 'kv_valid': valid, 'heads': h, 'head_width': d,
                 'causal': causal, **readings,
+                'control': control, 'control_caught_by': caught,
                 'library_rel_diff': float((lib_out - want.float()).abs()
                                           .max()) / scale,
                 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-                'bound_ms': bound, 'bound_by': bound_by}
+                'bound_ms': bound, 'bound_by': bound_by, 'tflops': tflops}
         print(json.dumps(case), flush=True)
+        print(f'{name}: {ms:.4f} ms, {tflops:.1f} TFLOP/s of the '
+              f'function (bound {bound:.4f} ms by {bound_by}); control '
+              f'caught by {caught}', flush=True)
         results.append(case)
-        del q, k, v, kp, vp, got, want, diff, lib_out
+        del q, k, v, kp, vp, got, want, lib_out
         torch.cuda.empty_cache()
     if bad:
         fail('fused_attention_fwd vs plain version: ' + '; '.join(bad))
@@ -1713,12 +1770,16 @@ ATTN_BWD_BOUNDS = {'rel_err': 1e-2, 'unequal': 2.5e-2, 'ulp_apart': 1.5e-2}
 # (name, batch, Lq, Lk, heads, head width, causal) at the training step's
 # B 12 (num_rows_per_batch): the memory encoder, the decoder's causal
 # self-attention and its cross-attention over 256 + 64 rows (padded to
-# 384) at a bucketed target length of 1024, and the head width 24
+# 384) at a bucketed target length of 1024, the head width 24, a ragged
+# causal length (520) and a key length past the earlier design's
+# shared-memory cap (4096 keys, B 2)
 ATTN_BWD_CASES = [
     ('memory_encoder_b12', 12, 1024, 1024, 6, 64, False),
     ('decoder_causal_b12', 12, 1024, 1024, 6, 64, True),
     ('cross_1024x320_b12', 12, 1024, 320, 6, 64, False),
     ('d24_b12', 12, 1024, 1024, 4, 24, False),
+    ('ragged_causal_520_b12', 12, 520, 520, 6, 64, True),
+    ('long_kv_1024x4096_b2', 2, 1024, 4096, 6, 64, False),
 ]
 
 
@@ -1737,13 +1798,46 @@ def attention_backward_bound_ms(b, lq, kv_valid, h, d, causal):
     and the multiply-adds of its five products (q k^T, dO v^T, p^T dO,
     ds k, ds^T q) over the columns each row sees, at the bf16 tensor-core
     peak. Returns (ms, bound_by)."""
-    cols = sum(min(kv_valid, i + 1) if causal else kv_valid
-               for i in range(lq))
-    flops = 10 * b * h * d * cols
+    flops = attention_flops(b, lq, kv_valid, h, d, causal, products=5)
     nbytes = 2 * b * h * d * (3 * lq + 4 * kv_valid)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
+
+
+def attention_backward_control(torch, q, k, v, do, causal, kv_valid):
+    """The backward with FlashAttention-2's delta, rowsum(dO * O) from the
+    forward's bf16 output, in place of the function's rowsum(dp * p) from
+    f32 p and dp (O came from the rounded p, so the two differ). Read
+    against ATTN_BWD_BOUNDS; a miss is recorded, not a failure."""
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    p = ta._probabilities(q, k, causal, kv_valid)
+    out = ta.fused_attention_reference(q, k, v, causal, kv_valid).float()
+    dof = do.float()
+    pb = p.to(do.dtype).float()
+    dv = torch.einsum('bhqk,bqhd->bkhd', pb, dof)
+    dp = torch.einsum('bqhd,bkhd->bhqk', dof, v.float())
+    delta = (dof * out).sum(-1).transpose(1, 2)[..., None]
+    dsb = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.einsum('bhqk,bkhd->bqhd', dsb, k.float())
+    dk = torch.einsum('bhqk,bqhd->bkhd', dsb, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_backward_readings(torch, got, want):
+    """Per gradient (dq, dk, dv; want trimmed to got's length): max_abs_err,
+    rel_err, unequal and ulp_apart (ATTN_BWD_BOUNDS' readings)."""
+    readings = {}
+    for g_name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+        w = w[:, :g.shape[1]].float()
+        g = g.float()
+        diff = (g - w).abs()
+        readings[g_name] = {
+            'max_abs_err': float(diff.max()),
+            'rel_err': float(diff.max()) / float(w.abs().max()),
+            'unequal': float((g != w).float().mean()),
+            'ulp_apart': bf16_steps_apart(torch, g, w)}
+    return readings
 
 
 def attention_backward_cases(torch):
@@ -1776,19 +1870,17 @@ def attention_backward_cases(torch):
         kp, vp, valid = ta._pad_kv(k, v)
         want = ta.fused_attention_backward_reference(q, kp, vp, do, causal,
                                                      valid)
-        readings = {}
-        for g_name, g, w in zip(('dq', 'dk', 'dv'), got, want):
-            w = w[:, :g.shape[1]].float()
-            g = g.float()
-            diff = (g - w).abs()
-            readings[g_name] = {
-                'max_abs_err': float(diff.max()),
-                'rel_err': float(diff.max()) / float(w.abs().max()),
-                'unequal': float((g != w).float().mean()),
-                'ulp_apart': bf16_steps_apart(torch, g, w)}
-            bad += [f'{name} {g_name}: {key} {readings[g_name][key]:.4g} > '
-                    f'{bound}' for key, bound in ATTN_BWD_BOUNDS.items()
-                    if readings[g_name][key] > bound]
+        readings = attention_backward_readings(torch, got, want)
+        bad += [f'{name} {g_name}: {key} {reading[key]:.4g} > {bound}'
+                for g_name, reading in readings.items()
+                for key, bound in ATTN_BWD_BOUNDS.items()
+                if reading[key] > bound]
+        control = attention_backward_readings(
+            torch, attention_backward_control(torch, q, kp, vp, do, causal,
+                                              valid), want)
+        caught = [f'{g_name} {key}' for g_name, reading in control.items()
+                  for key, bound in ATTN_BWD_BOUNDS.items()
+                  if reading[key] > bound]
         del got, want, out, leaves
         first = ta.fused_attention_backward_cuda(q, kp, vp, do, causal, valid)
         again = ta.fused_attention_backward_cuda(q, kp, vp, do, causal, valid)
@@ -1813,19 +1905,183 @@ def attention_backward_cases(torch):
             lib_out, (qt, kt, vt), dot, retain_graph=True))
         bound, bound_by = attention_backward_bound_ms(b, lq, valid, h, d,
                                                       causal)
+        tflops = attention_flops(b, lq, valid, h, d, causal,
+                                 products=5) / ms / 1e9
         case = {'case': name, 'batch': b, 'lq': lq, 'lk': kp.shape[1],
                 'kv_valid': valid, 'heads': h, 'head_width': d,
                 'causal': causal, **readings, 'bit_identical': identical,
                 'max_abs_err': max(r['max_abs_err']
                                    for r in readings.values()),
+                'delta_control': control,
+                'delta_control_caught_by': caught,
                 'ms': ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-                'bound_ms': bound, 'bound_by': bound_by}
+                'bound_ms': bound, 'bound_by': bound_by, 'tflops': tflops}
         print(json.dumps(case), flush=True)
+        print(f'{name}: {ms:.4f} ms, {tflops:.1f} TFLOP/s of the '
+              f'function (bound {bound:.4f} ms by {bound_by}); the '
+              f'rowsum(dO * O) delta control caught by '
+              f'{caught or "nothing"}', flush=True)
         results.append(case)
         del q, k, v, do, kp, vp, qt, kt, vt, lib_out, dot
         torch.cuda.empty_cache()
     if bad:
         fail('fused_attention_bwd vs plain version: ' + '; '.join(bad))
+    return results
+
+
+def attention_versus(torch, old_dir):
+    """The attention kernels against the design they replace, on one card
+    in one call. old_dir holds that design's fused_attention_fwd.cu and
+    fused_attention_bwd.cu (a git-ignored copy, e.g. from `git show
+    <commit>:mr_mt3_tpu_torch/csrc/<name>.cu`; the two take the same C
+    launch arguments as these). Builds them with cuda_build's flags, times
+    each of ATTN_CASES and ATTN_BWD_CASES in turns (old, new, new, old)
+    with time_ms through the same C launch, then TRAIN_TIMED_STEPS train
+    steps at B 12 (the kernel route, as training_parity times it) with a
+    profile of one step, on each design in the same turns. A case the old
+    design refuses (Lk past its shared memory) records the error. Writes
+    attention_versus.json under OUT_DIR. Alone:
+
+        python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
+        chip_smoke.attention_versus(torch, '.archive/parent_csrc')"
+    """
+    phase('attention kernels against the design they replace')
+    import contextlib
+    import ctypes
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch.ops import cuda_build
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.train import optim
+    from mr_mt3_tpu_torch.train.trainer import (create_train_state,
+                                                make_train_step)
+    out_dir = os.path.join(old_dir, '_build')
+    os.makedirs(out_dir, exist_ok=True)
+    old = {}
+    for name in (ta.KERNEL, ta.KERNEL_BWD):
+        lib = os.path.join(out_dir, f'lib{name}.so')
+        proc = subprocess.run(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, '-o', lib,
+             os.path.join(old_dir, f'{name}.cu')],
+            capture_output=True, text=True)
+        if proc.returncode:
+            fail(f'the old {name}.cu does not build:\n{proc.stderr}')
+        old[name] = ctypes.CDLL(lib)
+    old_f, old_b = old[ta.KERNEL], old[ta.KERNEL_BWD]
+    old_f.faf_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    old_b.fab_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    for lib, fn in ((old_f, 'faf_error_string'),
+                    (old_b, 'fab_error_string')):
+        getattr(lib, fn).argtypes = [ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_char_p
+    new_f, new_b = ta._library(), ta._library_bwd()
+
+    def forward(lib, q, k, v, causal, valid):
+        b, lq, h, d = q.shape
+        out = torch.empty_like(q)
+        rc = lib.faf_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b, lq, k.shape[1], h, d, valid,
+                            int(causal),
+                            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(lib.faf_error_string(rc).decode())
+        return out
+
+    def backward(lib, q, k, v, do, causal, valid):
+        b, lq, h, d = q.shape
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        stats = torch.empty((3, b, h, lq), dtype=torch.float32,
+                            device=q.device)
+        rc = lib.fab_launch(*(t.data_ptr() for t in (q, k, v, do, *grads)),
+                            stats.data_ptr(), b, lq, k.shape[1], h, d,
+                            valid, int(causal),
+                            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(lib.fab_error_string(rc).decode())
+        return tuple(grads)
+
+    def turns(run_old, run_new):
+        """old, new, new, old; the old times None where it cannot run."""
+        times = {'old_ms': [], 'new_ms': []}
+        try:
+            run_old()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            times['old_error'] = str(e)
+        for which in ('old', 'new', 'new', 'old'):
+            if which == 'old' and 'old_error' in times:
+                continue
+            times[f'{which}_ms'].append(time_ms(
+                torch, run_old if which == 'old' else run_new))
+        return times
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(3)
+    results = {'card': card_line(), 'forward': [], 'backward': []}
+    for kind, cases in (('forward', ATTN_CASES),
+                        ('backward', ATTN_BWD_CASES)):
+        for name, b, lq, lk, h, d, causal in cases:
+            q, k, v, do = [torch.randn((b, n, h, d), generator=gen).to(
+                dev, torch.bfloat16) for n in (lq, lk, lk, lq)]
+            kp, vp, valid = ta._pad_kv(k, v)
+            if kind == 'forward':
+                times = turns(
+                    lambda: forward(old_f, q, kp, vp, causal, valid),
+                    lambda: forward(new_f, q, kp, vp, causal, valid))
+                flops = attention_flops(b, lq, valid, h, d, causal)
+            else:
+                times = turns(
+                    lambda: backward(old_b, q, kp, vp, do, causal, valid),
+                    lambda: backward(new_b, q, kp, vp, do, causal, valid))
+                flops = attention_flops(b, lq, valid, h, d, causal,
+                                        products=5)
+            case = {'case': name, **times, 'new_tflops': flops / min(
+                times['new_ms']) / 1e9}
+            print(json.dumps({kind: case}), flush=True)
+            results[kind].append(case)
+            del q, k, v, do, kp, vp
+            torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def design(lib_f, lib_b):
+        real = ta.fused_attention_cuda, ta.fused_attention_backward_cuda
+        ta.fused_attention_cuda = lambda *a: forward(lib_f, *a)
+        ta.fused_attention_backward_cuda = lambda *a: backward(lib_b, *a)
+        try:
+            yield
+        finally:
+            ta.fused_attention_cuda, ta.fused_attention_backward_cuda = real
+
+    cfg, _ = training_configs()
+    model = training_model(torch, cfg, 'fused', TRAIN_PARITY_SEEDS[0])
+    state = create_train_state(model, optim.make_optimizer(
+        2e-4, use_schedule=False))
+    step = make_train_step()
+    big = training_batch(np.random.default_rng(6),
+                         int(cfg.num_rows_per_batch), 1024, 900)
+    results['train_step'] = {'old': [], 'new': []}
+    for which in ('old', 'new', 'new', 'old'):
+        libs = (old_f, old_b) if which == 'old' else (new_f, new_b)
+        with design(*libs):
+            step(state, big, None)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(TRAIN_TIMED_STEPS):
+                step(state, big, None)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) / TRAIN_TIMED_STEPS * 1e3
+            prof = train_step_profile(torch, lambda: step(state, big, None),
+                                      ms)
+        print(f'train step, {which} design: {ms:.2f} ms/step', flush=True)
+        print_step_profile(f'{which} design', prof)
+        results['train_step'][which].append({'ms_per_step': ms, **prof})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'attention_versus.json'), 'w') as f:
+        json.dump(results, f, indent=1)
+    phase(None)
     return results
 
 
@@ -3146,6 +3402,76 @@ def step_breakdown(torch, state, batch):
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
+def training_configs():
+    """The training phases' configurations: TRAIN_ARGS (bf16, the kernel
+    route where attention_kernel allows it) and its fp32 twin, dropout
+    off."""
+    from mr_mt3_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
+                      TRAIN_ARGS[1:] + ['model.config.dropout_rate=0.0'])
+    f32 = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
+                      TRAIN_ARGS[1:4] + ['model.config.dropout_rate=0.0'])
+    return cfg, f32
+
+
+def training_batch(rng, rows, length, real):
+    """A seeded train batch: rows of 256-frame audio, `real` target tokens
+    and an EOS padded to `length`, the previous segment's targets."""
+    import numpy as np
+    targets = np.concatenate([
+        rng.integers(3, 1391, (rows, real)), np.ones((rows, 1), np.int64),
+        np.full((rows, length - real - 1), -100, np.int64)], axis=1)
+    return {'audio': (rng.normal(size=(rows, 256 * 128)) * 0.1
+                      ).astype(np.float32),
+            'valid_frames': np.full((rows,), 256, np.int32),
+            'targets': targets,
+            'targets_prev': np.roll(targets, 1, axis=0)}
+
+
+def training_model(torch, config, kernel, seed):
+    """The configuration's model on the card with attention_kernel=kernel,
+    seeded weights."""
+    from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.utils import builders
+    model = MT3(builders.build_model(config).cfg.replace(
+        attention_kernel=kernel))
+    return builders.init_params(model, seed=seed).to(torch.device('cuda'))
+
+
+# the attention kernels by the symbols in a trace (both designs' names)
+ATTN_KERNEL_SYMBOLS = {'fused_attention_fwd': ('faf_kernel',),
+                       'fused_attention_bwd': ('fab_dq_kernel',
+                                               'fab_dkdv_kernel')}
+# kernels by name kept in a train step's profile
+TRAIN_PROFILE_TOP = 12
+
+
+def train_step_profile(torch, run_step, wall_ms):
+    """One train step (run_step()) under torch.profiler (device_time by
+    name): device busy ms, the idle share of wall_ms (the timed loop's ms
+    per step), the attention kernels' ms and their share of the device
+    time, and the TRAIN_PROFILE_TOP largest device events by name."""
+    total, _, names = device_time(torch, run_step, by_name=True)
+    attention = {kernel: sum(ms for name, ms in names.items()
+                             if any(sym in name for sym in symbols))
+                 for kernel, symbols in ATTN_KERNEL_SYMBOLS.items()}
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:TRAIN_PROFILE_TOP]
+    return {'device_ms': total, 'wall_ms': wall_ms,
+            'idle_share': 1 - total / wall_ms,
+            'attention_ms': attention,
+            'attention_share': sum(attention.values()) / total,
+            'top_ms': dict(top)}
+
+
+def print_step_profile(label, prof):
+    print(f'train step profile, {label}: device {prof["device_ms"]:.2f} ms '
+          f'of {prof["wall_ms"]:.2f} (idle {prof["idle_share"]:.1%}); '
+          f'attention kernels ' + json.dumps(
+              {k: round(v, 3) for k, v in prof['attention_ms'].items()})
+          + f' ({prof["attention_share"]:.1%} of the device time)',
+          flush=True)
+
+
 def training_parity(torch):
     """The full-width segment-memory model at bf16 (dropout off, B 12, a
     bucketed target length of 1024), for each of TRAIN_PARITY_SEEDS (the
@@ -3156,14 +3482,15 @@ def training_parity(torch):
     sum order; on the first seed a control, the kernels with the backward's
     dk scaled by TRAIN_PARITY_CONTROL_DK, which TRAIN_PARITY_BOUNDS must
     catch. Then TRAIN_TIMED_STEPS train steps on each of the kernel and
-    einsum routes (ms/step, the yardstick); then an fp32 step (B 2, einsum)
-    on the card against the same step on the CPU."""
+    einsum routes twice, in turns (ms/step, the yardstick), and one step
+    of each under torch.profiler (train_step_profile: device ms, idle
+    share, the attention kernels' ms); then an fp32 step (B 2, einsum) on
+    the card against the same step on the CPU."""
     phase('training parity on the card (full-width segmem model)')
     import contextlib
 
     import numpy as np
 
-    from mr_mt3_tpu_torch.models import MT3
     from mr_mt3_tpu_torch.ops import train_attention as ta
     from mr_mt3_tpu_torch.train import losses, optim
     from mr_mt3_tpu_torch.train.trainer import (
@@ -3174,24 +3501,11 @@ def training_parity(torch):
     )
     from mr_mt3_tpu_torch.audio import SpectrogramConfig
     from mr_mt3_tpu_torch.utils import builders
-    from mr_mt3_tpu_torch.utils.config import load_config
 
-    cfg = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
-                      TRAIN_ARGS[1:] + ['model.config.dropout_rate=0.0'])
-    f32 = load_config(os.path.join(REPO, 'configs'), 'config_slakh_segmem',
-                      TRAIN_ARGS[1:4] + ['model.config.dropout_rate=0.0'])
+    cfg, f32 = training_configs()
     dev = torch.device('cuda')
     rows = int(cfg.num_rows_per_batch)
-
-    def batch(rng, rows, length, real):
-        targets = np.concatenate([
-            rng.integers(3, 1391, (rows, real)), np.ones((rows, 1), np.int64),
-            np.full((rows, length - real - 1), -100, np.int64)], axis=1)
-        return {'audio': (rng.normal(size=(rows, 256 * 128)) * 0.1
-                          ).astype(np.float32),
-                'valid_frames': np.full((rows,), 256, np.int32),
-                'targets': targets,
-                'targets_prev': np.roll(targets, 1, axis=0)}
+    batch = training_batch
 
     def loss_and_grads(model, b):
         t = batch_to_device(b, model.proj.weight.device)
@@ -3225,9 +3539,7 @@ def training_parity(torch):
         return kernels_replaced(ta.fused_attention_cuda, backward)
 
     def model_of(config, kernel, seed):
-        model = MT3(builders.build_model(config).cfg.replace(
-            attention_kernel=kernel))
-        return builders.init_params(model, seed=seed).to(dev)
+        return training_model(torch, config, kernel, seed)
 
     def compare(got, want):
         """loss relative; per parameter, the largest |difference| over the
@@ -3306,34 +3618,47 @@ def training_parity(torch):
     big = batch(np.random.default_rng(6 + TRAIN_PARITY_SEEDS[0]), rows, 1024,
                 900)
 
-    # ms per train step on each route (the same batch, dropout off)
-    timing = {}
+    # ms per train step on each route (the same batch, dropout off), the
+    # routes timed in turns (fused, einsum, einsum, fused): the step is
+    # host-bound, and the host's speed drifts within a run
+    runs = {}
     for kernel in ('fused', 'einsum'):
-        model = models[kernel]
-        state = create_train_state(model, optim.make_optimizer(
+        state = create_train_state(models[kernel], optim.make_optimizer(
             2e-4, use_schedule=False))
         step = make_train_step()
         step(state, big, None)
+        runs[kernel] = {'state': state, 'step': step, 'turns_ms': []}
+    for kernel in ('fused', 'einsum', 'einsum', 'fused'):
+        run = runs[kernel]
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(TRAIN_TIMED_STEPS):
-            metrics = step(state, big, None)
+            run['metrics'] = run['step'](run['state'], big, None)
         torch.cuda.synchronize()
-        ms = (time.monotonic() - t0) / TRAIN_TIMED_STEPS * 1e3
-        tokens = int((big['targets'] != -100).sum())
-        timing[kernel] = {'ms_per_step': ms,
+        run['turns_ms'].append(
+            (time.monotonic() - t0) / TRAIN_TIMED_STEPS * 1e3)
+    timing = {}
+    tokens = int((big['targets'] != -100).sum())
+    for kernel, run in runs.items():
+        ms = statistics.mean(run['turns_ms'])
+        timing[kernel] = {'ms_per_step': ms, 'turns_ms': run['turns_ms'],
                           'target_tokens_per_s': tokens / ms * 1e3,
-                          'loss': float(metrics['loss']),
-                          **step_breakdown(torch, state, big)}
-        print(f'train step, attention_kernel={kernel!r}: {ms:.2f} ms/step, '
+                          'loss': float(run['metrics']['loss']),
+                          **step_breakdown(torch, run['state'], big)}
+        print(f'train step, attention_kernel={kernel!r}: {ms:.2f} ms/step '
+              f'(turns {", ".join(f"{t:.2f}" for t in run["turns_ms"])}), '
               f'{tokens / ms * 1e3:.0f} target tokens/s (B {rows}, target '
               f'length 1024, memory 1024); synchronized parts (ms): '
               + json.dumps({k: round(v, 2) for k, v in timing[kernel].items()
-                            if k.endswith('_ms')}), flush=True)
+                            if k.endswith('_ms') and k != 'turns_ms'}),
+              flush=True)
+        timing[kernel]['profile'] = train_step_profile(
+            torch, lambda: run['step'](run['state'], big, None), ms)
+        print_step_profile(kernel, timing[kernel]['profile'])
         if not np.isfinite(timing[kernel]['loss']):
             fail(f'{kernel}: the loss after {TRAIN_TIMED_STEPS} steps is '
                  f'not finite')
-    del models, state, step
+    del models, runs, state, step
     torch.cuda.empty_cache()
 
     # fp32: the card (TF32 off) against the CPU on one small step
@@ -3594,12 +3919,13 @@ def main():
     kernels.append({
         'name': 'fused_attention_fwd', 'route': 'cuda',
         'source': 'mr_mt3_tpu_torch/csrc/fused_attention_fwd.cu',
+        'header': 'mr_mt3_tpu_torch/csrc/fused_attention.cuh',
         'replaces': 'mr_mt3_tpu/ops/train_attention.py:185',
         'launches': segmem['launches']['fused_attention_fwd'],
         'max_abs_err': max(c['max_abs_err'] for c in attn_cases),
         'ms': enc['ms'], 'plain_ms': enc['plain_ms'],
         'bound_ms': enc['bound_ms'], 'bound_by': enc['bound_by'],
-        'library_ms': enc['library_ms'],
+        'tflops': enc['tflops'], 'library_ms': enc['library_ms'],
         'library_note': 'torch.nn.functional.scaled_dot_product_attention, '
                         'scale 1.0, timed only',
         'training_path_launches': train_launches['fused_attention_fwd'],
@@ -3608,12 +3934,13 @@ def main():
     kernels.append({
         'name': 'fused_attention_bwd', 'route': 'cuda',
         'source': 'mr_mt3_tpu_torch/csrc/fused_attention_bwd.cu',
+        'header': 'mr_mt3_tpu_torch/csrc/fused_attention.cuh',
         'replaces': 'mr_mt3_tpu/ops/train_attention.py:204',
         'launches': train_launches['fused_attention_bwd'],
         'max_abs_err': max(c['max_abs_err'] for c in bwd_cases),
         'ms': enc['ms'], 'plain_ms': enc['plain_ms'],
         'bound_ms': enc['bound_ms'], 'bound_by': enc['bound_by'],
-        'library_ms': enc['library_ms'],
+        'tflops': enc['tflops'], 'library_ms': enc['library_ms'],
         'library_note': 'torch.autograd.grad through torch.nn.functional.'
                         'scaled_dot_product_attention, scale 1.0, timed only',
         'cases': bwd_cases})

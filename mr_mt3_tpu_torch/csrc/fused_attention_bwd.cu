@@ -12,10 +12,12 @@
 //        NOT FlashAttention-2's rowsum(dO * O): O was computed from the
 //        bf16-rounded p, so the two differ);
 //   dq = bf16(ds) . k,  dk = bf16(ds)^T . q  (f32 sums);
-// dq, dk and dv rounded to bf16. Built without --use_fast_math: expf and the
-// divisions are the IEEE ones. A masked column has p = 0 and so ds = 0
-// exactly; K rows past kv_valid get exact-zero dk and dv (the wrapper's
-// autograd trims them with the padding).
+// dq, dk and dv rounded to bf16. Built without --use_fast_math; exp(s - m)
+// as exp2((s - m) log2(e)) and p = e / l as e times 1 / l, as in the
+// forward (fused_attention.cuh): ATTN_BWD_BOUNDS hold unchanged. A masked
+// column has p = 0 and so ds = 0 exactly; K rows past kv_valid get
+// exact-zero dk and dv (the wrapper's autograd trims them with the
+// padding).
 //
 // Layout: q, dO, dq (B, Lq, H, D); k, v, dk, dv (B, Lk, H, D), contiguous,
 // bf16, the model's layout. Lk is the padded length (a multiple of 128,
@@ -26,50 +28,51 @@
 // products (q k^T, dO v^T, pb^T dO, ds k, ds^T q) are 5 x 2 B H L^2 D = 48
 // GFLOP, about 49 us on the tensor cores, while its seven tensors of 9.4 MB
 // move in about 20 us: it is bound by operations. chip_smoke.py computes the
-// bound of each case from the columns each row sees.
+// bound of each case from the columns each row sees. This design does nine
+// products where the function needs five (below), so it can reach at best
+// 5/9 of that bound, and mma.sync only a part of the tensor cores' rate.
 //
-// Design (right, deterministic and simple first): two kernels, no atomics.
-//  (a) fab_dq_kernel, one block of 256 threads per (16 query rows, head,
-//      batch row), as the forward: the block keeps its rows' f32 score rows
-//      AND f32 dp rows in shared memory (2 x 16 x Lk floats: 128 KB at Lk
-//      1024), takes the softmax (max, sum, p) and delta per row, writes the
-//      row max, row sum and delta to a (3, B, H, Lq) f32 scratch, rounds ds
-//      to bf16 over the first half of its own dp row, and sums dq = ds k
-//      over K tiles of 128 keys.
-//  (b) fab_dkdv_kernel, one block per (64 keys, head, batch row), keeps its
-//      K and V rows in shared memory and walks the 16-row query tiles that
-//      can see them (with `causal`, from the tile of its first key on). For
-//      each it recomputes the score and dp blocks with the same WMMA calls
-//      in the same order as (a), so p = exp(s - max) / sum and ds come out
-//      bit-identical to (a)'s from the stored statistics, and adds
-//      pb^T dO and ds^T q into register accumulators (each warp owns a
-//      fixed set of 16 x 16 output tiles). The sum over query rows thus
-//      runs in one fixed order: the same inputs give the same bits.
-// The products run on the tensor cores (WMMA 16x16x16, bf16 in, f32 sums);
-// the head width is zero-padded to a multiple of 16 in shared memory, which
-// adds exact zeros. Not done yet: reuse of K/V across (a)'s query tiles,
-// copies overlapped with the products, wgmma.
+// Design: two kernels, deterministic, no atomics; the tile loads, the
+// products (mma.sync m16n8k16 from ldmatrix on conflict-free padded rows)
+// and the row statistics are fused_attention.cuh's, as in the forward.
+//  (a) fab_dq_kernel, one block of 4 warps per (64 query rows, head, batch
+//      row), each warp 16 rows. K and V tiles of 64 keys stream through a
+//      two-stage cp.async ring.
+//      Sweep AB: s = q k^T and dp = dO v^T per tile; the online row max m,
+//        sum l = sum exp(s - m) and u = sum exp(s - m) dp (both rescaled
+//        when m grows), so delta = u / l = sum p dp after the last tile:
+//        the forward's sweep 1 and the delta sweep merged into one, which
+//        saves a product a tile (ATTN_BWD_BOUNDS hold unchanged on it).
+//        m, 1 / l and delta go to the (3, B, H, Lq) f32 scratch.
+//      Sweep C: s and dp again (the same bits); p = exp(s - m) / l; ds =
+//        p (dp - delta) in f32, rounded to bf16 in registers; dq += ds k
+//        (k read transposed by ldmatrix), in f32 registers.
+//      5 products per tile.
+//  (b) fab_dkdv_kernel, one block of 4 warps per (64 keys, head, batch
+//      row), each warp 16 keys; K and V stay in shared memory, Q and dO
+//      tiles of 64 rows (and the rows' m, l, delta) stream through the
+//      ring; with `causal` only the tiles from the block's first key on.
+//      Each tile: s^T = k q^T; p^T from the stored statistics; dv += bf16
+//      (p)^T dO; dp^T = v dO^T; ds^T = p^T (dp^T - delta); dk += bf16
+//      (ds)^T q; all in registers, the query tiles summed in one fixed
+//      order. 4 products per tile.
+// (a) and (b) recompute p with the products in other roles (q k^T against
+// k q^T), so their p may differ in the last bit of f32; the bounds hold.
+// No score rows sit in shared memory, so shared memory does not grow with
+// Lk: 54 and 55.5 KB at D 64. The head width pads to a multiple of 16 with
+// zeros (D 24: 32, never read from the next head); rows past Lq are zero
+// and masked.
+// Not done yet: wgmma with TMA and a producer warp, 128-row blocks, and a
+// persistent grid.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "fused_attention.cuh"
 
-namespace wmma = nvcuda::wmma;
+using namespace fa;
 
-#define NTHREADS 256
-#define NWARPS (NTHREADS / 32)
-#define ROWS 16        // query rows per tile (one WMMA row block)
-#define KT 128         // (a): keys per K / V tile (16 keys per warp)
-#define KB 64          // (b): keys per block
-#define MAX_D 128      // head width limit (the wrapper checks it)
-#define PART_FLOATS (ROWS * 128)  // (a): the dq shares, splits x 16 x Dp
-
-static_assert(KT == 16 * NWARPS, "one 16-key block per warp in (a)");
-static_assert(2 * (KB / 16) == NWARPS, "one score or dp block per warp in (b)");
-
-typedef __nv_bfloat16 bf16;
+#define NWARPS 4
+#define NTHREADS (32 * NWARPS)
+#define ROWS (WARP_ROWS * NWARPS)   // (a): query rows per block
+#define KB (WARP_ROWS * NWARPS)     // (b): keys per block
 
 struct Args {
   const void* q;
@@ -79,319 +82,281 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  float* stats;   // (3, B, H, Lq): row max, row sum, delta
+  float* stats;   // (3, B, H, Lq): row max, 1 / row sum, delta
   int B, Lq, Lk, H, D, kv_valid, causal;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+template <int Dp>
+__host__ __device__ constexpr size_t smem_dq_dp() {
+  return 2 * tile_bytes(ROWS, Dp) + 4 * tile_bytes(TILE, Dp);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+template <int Dp>
+__host__ __device__ constexpr size_t smem_dkdv_dp() {
+  return 2 * tile_bytes(KB, Dp) + 4 * tile_bytes(TILE, Dp) +
+         2 * 3 * TILE * sizeof(float);
 }
 
-// Whether column c is masked for query row `row` (absolute).
-__device__ __forceinline__ bool masked(const Args& a, int row, int c) {
-  return c >= a.kv_valid || (a.causal && c > row);
-}
+// ---- (a): statistics, delta and dq per 64-row query tile -----------------
 
-// rows [0, n) of a (rows, D) slice with row stride `stride` (elements) into
-// dst[j * Dp + d] as bf16, zero past n and past D; 8 values per load.
-__device__ void load_rows_bf16(const bf16* src, size_t stride, int n,
-                               int rows, int D, int Dp, bf16* dst) {
-  const int per_row = Dp / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += NTHREADS) {
-    const int j = i / per_row, d = (i - j * per_row) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (j < n && d < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)j * stride + d);
-    *reinterpret_cast<uint4*>(dst + (size_t)j * Dp + d) = v;
-  }
-}
-
-// One 16 x 16 block of a . b^T: a 16 rows x Dp (row-major, ld Dp), b 16 rows
-// x Dp (ld Dp); f32 sums over the head width in 16-wide steps, stored to out
-// (ld ldo). (a) and (b) both call this, so their blocks are equal bit for
-// bit.
-__device__ __forceinline__ void nt_block(const bf16* a, const bf16* b, int Dp,
-                                         float* out, int ldo) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int d0 = 0; d0 < Dp; d0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-    wmma::load_matrix_sync(fa, a + d0, Dp);
-    wmma::load_matrix_sync(fb, b + d0, Dp);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(out, acc, ldo, wmma::mem_row_major);
-}
-
-// ---- (a): statistics, delta and dq per 16-row query tile -----------------
-
-__global__ void __launch_bounds__(NTHREADS)
-    fab_dq_kernel(Args a, int Dp) {
+template <int Dp>
+__global__ void __launch_bounds__(NTHREADS) fab_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int Lk = a.Lk, D = a.D;
-  float* s = reinterpret_cast<float*>(smem_raw);   // ROWS x Lk: s, then p
-  float* dp = s + (size_t)ROWS * Lk;               // ROWS x Lk: dp
-  bf16* ds = reinterpret_cast<bf16*>(dp);          // bf16 ds, row stride 2 Lk
-  bf16* qs = reinterpret_cast<bf16*>(dp + (size_t)ROWS * Lk);
-  bf16* dos = qs + ROWS * Dp;                      // ROWS x Dp
-  bf16* kv = dos + ROWS * Dp;                      // KT x Dp
-  float* part = reinterpret_cast<float*>(kv + KT * Dp);  // PART_FLOATS
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // ROWS rows
+  bf16* dos = qs + ROWS * lds(Dp);                // ROWS rows
+  bf16* ks = dos + ROWS * lds(Dp);                // 2 stages x TILE rows
+  bf16* vs = ks + 2 * TILE * lds(Dp);             // 2 stages x TILE rows
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tile = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int row0 = tile * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int nrows = min(ROWS, a.Lq - row0);
-  const size_t hd = (size_t)a.H * D;
-  const size_t qoff = ((size_t)b * a.Lq + row0) * hd + (size_t)h * D;
-  const size_t kvoff = (size_t)b * Lk * hd + (size_t)h * D;
+  const size_t hd = (size_t)a.H * a.D;
+  const size_t qoff = ((size_t)b * a.Lq + row0) * hd + (size_t)h * a.D;
+  const size_t kvoff = (size_t)b * a.Lk * hd + (size_t)h * a.D;
   const bf16* K = static_cast<const bf16*>(a.k) + kvoff;
   const bf16* V = static_cast<const bf16*>(a.v) + kvoff;
-  int ncols = a.kv_valid;
-  if (a.causal) ncols = min(ncols, row0 + nrows);
-  const int ncols16 = (ncols + 15) & ~15;   // the 16-key blocks read
+  int nkeys = a.kv_valid;   // the keys any row of the block can see
+  if (a.causal) nkeys = min(nkeys, row0 + nrows);
+  const int ntiles = (nkeys + TILE - 1) / TILE;
+  const int steps = 2 * ntiles;   // sweep AB, then sweep C
 
-  load_rows_bf16(static_cast<const bf16*>(a.q) + qoff, hd, nrows, ROWS, D,
-                 Dp, qs);
-  load_rows_bf16(static_cast<const bf16*>(a.dout) + qoff, hd, nrows, ROWS,
-                 D, Dp, dos);
-  // s = q k^T, then dp = dO v^T, tile by tile
-  for (int k0 = 0; k0 < ncols; k0 += KT) {
-    for (int pass = 0; pass < 2; ++pass) {
-      __syncthreads();
-      load_rows_bf16((pass ? V : K) + (size_t)k0 * hd, hd,
-                     min(KT, ncols - k0), KT, D, Dp, kv);
-      __syncthreads();
-      const int j0 = k0 + 16 * warp;
-      if (j0 < ncols)
-        nt_block(pass ? dos : qs, kv + 16 * warp * Dp, Dp,
-                 (pass ? dp : s) + j0, Lk);
-    }
-  }
-  __syncthreads();
+  auto load_step = [&](int i) {
+    const int k0 = (i % ntiles) * TILE, st = i & 1;
+    load_tile<TILE, Dp, NTHREADS>(ks + st * TILE * lds(Dp),
+                                  K + (size_t)k0 * hd, hd, nkeys - k0, a.D);
+    load_tile<TILE, Dp, NTHREADS>(vs + st * TILE * lds(Dp),
+                                  V + (size_t)k0 * hd, hd, nkeys - k0, a.D);
+  };
+  load_tile<ROWS, Dp, NTHREADS>(qs, static_cast<const bf16*>(a.q) + qoff, hd,
+                                nrows, a.D);
+  load_tile<ROWS, Dp, NTHREADS>(dos, static_cast<const bf16*>(a.dout) + qoff,
+                                hd, nrows, a.D);
+  load_step(0);
+  cp_async_commit();
 
-  const size_t bhl = (size_t)a.B * a.H * a.Lq;
-  const size_t srow = ((size_t)b * a.H + h) * a.Lq + row0;
-  for (int r = warp; r < ROWS; r += NWARPS) {
-    float* sr = s + (size_t)r * Lk;
-    float* dpr = dp + (size_t)r * Lk;
-    bf16* dsr = ds + (size_t)r * 2 * Lk;
-    const int row = row0 + r;
-    float delta = 0.f;
-    if (r < nrows) {
-      float m = -INFINITY;
-      for (int c = lane; c < ncols; c += 32)
-        if (!masked(a, row, c)) m = fmaxf(m, sr[c]);
-      m = warp_max(m);
-      float l = 0.f;
-      for (int c = lane; c < ncols; c += 32) {
-        const float e = masked(a, row, c) ? 0.f : expf(sr[c] - m);
-        sr[c] = e;
-        l += e;
-      }
-      l = warp_sum(l);
-      for (int c = lane; c < ncols; c += 32) {
-        const float p = sr[c] / l;
-        sr[c] = p;
-        delta += dpr[c] * p;
-      }
-      delta = warp_sum(delta);
-      if (lane == 0) {
-        a.stats[srow + r] = m;
-        a.stats[bhl + srow + r] = l;
-        a.stats[2 * bhl + srow + r] = delta;
-      }
-    }
-    // bf16 ds over the first half of the dp row's own bytes: element c
-    // lands in float c / 2, which this warp has read already (in this or
-    // an earlier step: for c >= 32 it is below 32 * step)
-    for (int c0 = 0; c0 < ncols16; c0 += 32) {
-      const int c = c0 + lane;
-      float v = 0.f;
-      if (r < nrows && c < ncols && !masked(a, row, c))
-        v = sr[c] * (dpr[c] - delta);
-      __syncwarp();
-      if (c < ncols16) dsr[c] = __float2bfloat16_rn(v);
-      __syncwarp();
-    }
-  }
-
-  // dq = ds k: warp -> (output column tile t, key-block share sp)
-  const int ntiles = Dp / 16, nsplit = NWARPS / ntiles;
-  const int t = warp % ntiles, sp = warp / ntiles;
-  const bool busy = sp < nsplit;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.f);
-  for (int k0 = 0; k0 < ncols16; k0 += KT) {
+  const int wrow0 = row0 + warp * WARP_ROWS, t = lane & 3;
+  const int row[2] = {wrow0 + (lane >> 2), wrow0 + (lane >> 2) + 8};
+  const bf16* qw = qs + warp * WARP_ROWS * lds(Dp);
+  const bf16* dow = dos + warp * WARP_ROWS * lds(Dp);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  // 1 / l and delta, once sweep AB is done
+  float rl[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float dq[Dp / 8][4] = {};
+  float s[NB][4], dp[NB][4];
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // step i's tiles have landed
     __syncthreads();
-    load_rows_bf16(K + (size_t)k0 * hd, hd, min(KT, ncols - k0), KT, D, Dp,
-                   kv);
-    __syncthreads();
-    if (!busy) continue;
-    for (int kb = sp; kb < KT / 16 && k0 + 16 * kb < ncols16; kb += nsplit) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, ds + k0 + 16 * kb, 2 * Lk);
-      wmma::load_matrix_sync(fb, kv + 16 * kb * Dp + 16 * t, Dp);
-      wmma::mma_sync(acc, fa, fb, acc);
+    const int k0 = (i % ntiles) * TILE, st = i & 1;
+    const bf16* kt = ks + st * TILE * lds(Dp);
+    const bool full = tile_visible(wrow0, k0, a.kv_valid, a.causal);
+    // with `causal`, a tile past this warp's last row is all masked
+    if (!(a.causal && k0 > wrow0 + WARP_ROWS - 1)) {
+      nt_product<Dp>(s, qw, kt, lane);
+      nt_product<Dp>(dp, dow, vs + st * TILE * lds(Dp), lane);
+      if (i < ntiles) {
+        if (full)
+          online_stats<true, false>(s, dp, row, k0, a.kv_valid, a.causal, m,
+                                    l, u);
+        else
+          online_stats<true, true>(s, dp, row, k0, a.kv_valid, a.causal, m,
+                                   l, u);
+      } else {
+        if (full)
+          probabilities<false>(s, m, rl, row, k0, a.kv_valid, a.causal);
+        else
+          probabilities<true>(s, m, rl, row, k0, a.kv_valid, a.causal);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] *= dp[n][e] - delta[e >> 1];   // ds = p (dp - delta)
+        uint32_t df[NB / 2][4];
+        to_fragments(df, s);
+        nn_product<Dp>(dq, df, kt, lane);
+      }
     }
+    if (i == ntiles - 1) {   // the row statistics are complete
+      const size_t bhl = (size_t)a.B * a.H * a.Lq;
+      const size_t sbase = ((size_t)b * a.H + h) * a.Lq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rl[r] = 1.f / l[r];
+        delta[r] = u[r] / l[r];
+        if (t == 0 && row[r] < a.Lq) {
+          a.stats[sbase + row[r]] = m[r];
+          a.stats[bhl + sbase + row[r]] = rl[r];
+          a.stats[2 * bhl + sbase + row[r]] = delta[r];
+        }
+      }
+    }
+    __syncthreads();   // the stage is free for step i + 2's copy
   }
-  if (busy)
-    wmma::store_matrix_sync(part + (size_t)sp * ROWS * Dp + 16 * t, acc, Dp,
-                            wmma::mem_row_major);
-  __syncthreads();
-  bf16* DQ = static_cast<bf16*>(a.dq) + qoff;
-  for (int i = threadIdx.x; i < nrows * D; i += NTHREADS) {
-    const int r = i / D, d = i - r * D;
-    float v = 0.f;
-    for (int j = 0; j < nsplit; ++j)
-      v += part[((size_t)j * ROWS + r) * Dp + d];
-    DQ[(size_t)r * hd + d] = __float2bfloat16_rn(v);
-  }
+  store_rows<Dp>(static_cast<bf16*>(a.dq) + qoff, hd, dq, warp * WARP_ROWS,
+                 nrows, a.D, lane);
 }
 
 // ---- (b): dk and dv per 64-key block --------------------------------------
-//
-// NF = Dp / 16 output tiles of dv and NF of dk per warp: the 2 x (KB / 16) x
-// (Dp / 16) tiles of the block's dv and dk, split evenly over the 8 warps.
 
-template <int NF>
-__global__ void __launch_bounds__(NTHREADS, 2)
-    fab_dkdv_kernel(Args a) {
-  constexpr int Dp = 16 * NF;
-  constexpr int NTILE = 2 * (KB / 16) * NF;   // dv tiles, then dk tiles
+// p^T = exp(s - m) / l over a transposed score tile in place (this lane's
+// keys key[0], key[1]; query rows r0 + 8 n + 2 t + (e & 1)), from the
+// tile's stored m and 1 / l (sm[r], sm[TILE + r]); 0 where masked
+// or past Lq (MASK false when every row of the tile sees every key).
+template <bool MASK>
+__device__ __forceinline__ void probabilities_t(float (&s)[NB][4],
+                                                const float* sm,
+                                                const int (&key)[2], int r0,
+                                                int Lq, int kv_valid,
+                                                bool causal) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int r = 8 * n + 2 * t;
+    const float2 mr = *reinterpret_cast<const float2*>(sm + r);
+    const float2 rl = *reinterpret_cast<const float2*>(sm + TILE + r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + r + (e & 1);
+      const float p =
+          exp_shifted(s[n][e], (e & 1) ? mr.y : mr.x) * ((e & 1) ? rl.y : rl.x);
+      s[n][e] = !MASK || (row < Lq &&
+                          visible(row, key[e >> 1], kv_valid, causal))
+                    ? p
+                    : 0.f;
+    }
+  }
+}
+
+template <int Dp>
+__global__ void __launch_bounds__(NTHREADS) fab_dkdv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // KB x Dp
-  bf16* vs = ks + KB * Dp;                        // KB x Dp
-  bf16* qs = vs + KB * Dp;                        // ROWS x Dp
-  bf16* dos = qs + ROWS * Dp;                     // ROWS x Dp
-  float* s = reinterpret_cast<float*>(dos + ROWS * Dp);  // ROWS x KB
-  float* dp = s + ROWS * KB;                      // ROWS x KB
-  bf16* pb = reinterpret_cast<bf16*>(dp + ROWS * KB);    // ROWS x KB
-  bf16* dsb = pb + ROWS * KB;                     // ROWS x KB
-  float* st = reinterpret_cast<float*>(dsb + ROWS * KB); // 3 x ROWS
-  float* outs = reinterpret_cast<float*>(smem_raw);  // KB x Dp, over ks/vs
-  const int D = a.D, warp = threadIdx.x >> 5;
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // KB rows
+  bf16* vs = ks + KB * lds(Dp);                   // KB rows
+  bf16* qs = vs + KB * lds(Dp);                   // 2 stages x TILE rows
+  bf16* dos = qs + 2 * TILE * lds(Dp);            // 2 stages x TILE rows
+  // 2 stages x (m, 1 / l, delta) x TILE rows
+  float* sts = reinterpret_cast<float*>(dos + 2 * TILE * lds(Dp));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j0 = blockIdx.x * KB, h = blockIdx.y, b = blockIdx.z;
-  const size_t hd = (size_t)a.H * D;
-  const size_t kvoff = ((size_t)b * a.Lk + j0) * hd + (size_t)h * D;
-  const size_t qbase = (size_t)b * a.Lq * hd + (size_t)h * D;
+  const size_t hd = (size_t)a.H * a.D;
+  const size_t kvoff = ((size_t)b * a.Lk + j0) * hd + (size_t)h * a.D;
+  const size_t qbase = (size_t)b * a.Lq * hd + (size_t)h * a.D;
   const size_t bhl = (size_t)a.B * a.H * a.Lq;
   const size_t sbase = ((size_t)b * a.H + h) * a.Lq;
   const int nk = min(KB, a.kv_valid - j0);   // keys this block can see
+  // with `causal`, rows before j0 see none of these keys
+  const int rtile0 = a.causal ? j0 / TILE : 0;
+  const int steps = nk > 0 ? max(0, (a.Lq + TILE - 1) / TILE - rtile0) : 0;
+  float dk[Dp / 8][4] = {}, dv[Dp / 8][4] = {};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  if (steps > 0) {
+    auto load_step = [&](int i) {
+      const int r0 = (rtile0 + i) * TILE, st = i & 1;
+      const int nr = a.Lq - r0;
+      load_tile<TILE, Dp, NTHREADS>(qs + st * TILE * lds(Dp),
+                                    static_cast<const bf16*>(a.q) + qbase +
+                                        (size_t)r0 * hd,
+                                    hd, nr, a.D);
+      load_tile<TILE, Dp, NTHREADS>(dos + st * TILE * lds(Dp),
+                                    static_cast<const bf16*>(a.dout) + qbase +
+                                        (size_t)r0 * hd,
+                                    hd, nr, a.D);
+      for (int x = threadIdx.x; x < 3 * TILE; x += NTHREADS) {
+        const int which = x / TILE, r = x - which * TILE;
+        const float* src = a.stats + which * bhl + sbase + r0 + r;
+        cp_async4(sts + st * 3 * TILE + x, r < nr ? src : a.stats, r < nr);
+      }
+    };
+    load_tile<KB, Dp, NTHREADS>(ks, static_cast<const bf16*>(a.k) + kvoff, hd,
+                                nk, a.D);
+    load_tile<KB, Dp, NTHREADS>(vs, static_cast<const bf16*>(a.v) + kvoff, hd,
+                                nk, a.D);
+    load_step(0);
+    cp_async_commit();
+
+    const int kw0 = j0 + warp * WARP_ROWS, t = lane & 3;
+    const int key[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
+    const bf16* kw = ks + warp * WARP_ROWS * lds(Dp);
+    const bf16* vw = vs + warp * WARP_ROWS * lds(Dp);
+    float s[NB][4], dp[NB][4];
+    uint32_t f[NB / 2][4];
+    for (int i = 0; i < steps; ++i) {
+      if (i + 1 < steps) load_step(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();   // step i's tiles have landed
+      __syncthreads();
+      const int r0 = (rtile0 + i) * TILE, st = i & 1;
+      const bf16* qt = qs + st * TILE * lds(Dp);
+      const bf16* dot = dos + st * TILE * lds(Dp);
+      const float* sm = sts + st * 3 * TILE;   // m, 1 / l, delta
+      // skip when every key of this warp is masked for every row here
+      if (kw0 < a.kv_valid && !(a.causal && r0 + TILE - 1 < kw0)) {
+        // every row of the tile sees every key of the warp: no mask tests
+        const bool full = r0 + TILE <= a.Lq &&
+                          kw0 + WARP_ROWS <= a.kv_valid &&
+                          !(a.causal && kw0 + WARP_ROWS - 1 > r0);
+        nt_product<Dp>(s, kw, qt, lane);   // s^T: (key, row)
+        if (full)
+          probabilities_t<false>(s, sm, key, r0, a.Lq, a.kv_valid, a.causal);
+        else
+          probabilities_t<true>(s, sm, key, r0, a.Lq, a.kv_valid, a.causal);
+        to_fragments(f, s);
+        nn_product<Dp>(dv, f, dot, lane);
+        nt_product<Dp>(dp, vw, dot, lane);   // dp^T: (key, row)
 #pragma unroll
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  if (nk > 0) {
-    load_rows_bf16(static_cast<const bf16*>(a.k) + kvoff, hd, nk, KB, D, Dp,
-                   ks);
-    load_rows_bf16(static_cast<const bf16*>(a.v) + kvoff, hd, nk, KB, D, Dp,
-                   vs);
-    // with `causal`, rows before j0 see none of these keys
-    const int rstart = a.causal ? (j0 / ROWS) * ROWS : 0;
-    for (int r0 = rstart; r0 < a.Lq; r0 += ROWS) {
-      const int nrows = min(ROWS, a.Lq - r0);
-      __syncthreads();   // the last tile's reads are done
-      load_rows_bf16(static_cast<const bf16*>(a.q) + qbase + (size_t)r0 * hd,
-                     hd, nrows, ROWS, D, Dp, qs);
-      load_rows_bf16(static_cast<const bf16*>(a.dout) + qbase +
-                         (size_t)r0 * hd,
-                     hd, nrows, ROWS, D, Dp, dos);
-      if (threadIdx.x < 3 * ROWS) {
-        const int which = threadIdx.x / ROWS, r = threadIdx.x % ROWS;
-        st[threadIdx.x] =
-            r < nrows ? a.stats[which * bhl + sbase + r0 + r] : 1.f;
-      }
-      __syncthreads();
-      // warps 0-3: the score blocks q k^T; warps 4-7: the dp blocks dO v^T
-      {
-        const int jb = warp % (KB / 16);
-        const bool isdp = warp >= KB / 16;
-        nt_block(isdp ? dos : qs, (isdp ? vs : ks) + 16 * jb * Dp, Dp,
-                 (isdp ? dp : s) + 16 * jb, KB);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < ROWS * KB; i += NTHREADS) {
-        const int r = i / KB, c = j0 + (i - r * KB);
-        float p = 0.f, d = 0.f;
-        if (r < nrows && !masked(a, r0 + r, c)) {
-          p = expf(s[i] - st[r]) / st[ROWS + r];
-          d = p * (dp[i] - st[2 * ROWS + r]);
+        for (int n = 0; n < NB; ++n) {
+          const float2 dr =
+              *reinterpret_cast<const float2*>(sm + 2 * TILE + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] *= dp[n][e] - ((e & 1) ? dr.y : dr.x);
         }
-        pb[i] = __float2bfloat16_rn(p);
-        dsb[i] = __float2bfloat16_rn(d);
+        to_fragments(f, s);
+        nn_product<Dp>(dk, f, qt, lane);
       }
-      __syncthreads();
-      // dv += pb^T dO, dk += ds^T q over this tile's 16 rows
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const int tile = warp + f * NWARPS;
-        const bool isdk = tile >= NTILE / 2;
-        const int tt = isdk ? tile - NTILE / 2 : tile;
-        const int kt = tt / NF, dt = tt % NF;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, (isdk ? dsb : pb) + 16 * kt, KB);
-        wmma::load_matrix_sync(fb, (isdk ? qs : dos) + 16 * dt, Dp);
-        wmma::mma_sync(acc[f], fa, fb, acc[f]);
-      }
+      __syncthreads();   // the stage is free for step i + 2's copy
     }
   }
-
-  // dv, then dk, through shared memory (over ks/vs) to bf16 rows
-  for (int which = 0; which < 2; ++which) {
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const int tile = warp + f * NWARPS;
-      if ((tile >= NTILE / 2) == (which == 1)) {
-        const int tt = which ? tile - NTILE / 2 : tile;
-        const int kt = tt / NF, dt = tt % NF;
-        wmma::store_matrix_sync(outs + 16 * kt * Dp + 16 * dt, acc[f], Dp,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    bf16* O = static_cast<bf16*>(which ? a.dk : a.dv) + kvoff;
-    for (int i = threadIdx.x; i < KB * D; i += NTHREADS) {
-      const int j = i / D, d = i - j * D;
-      O[(size_t)j * hd + d] = __float2bfloat16_rn(outs[j * Dp + d]);
-    }
-  }
+  const size_t koff = ((size_t)b * a.Lk + j0) * hd + (size_t)h * a.D;
+  store_rows<Dp>(static_cast<bf16*>(a.dv) + koff, hd, dv, warp * WARP_ROWS,
+                 KB, a.D, lane);
+  store_rows<Dp>(static_cast<bf16*>(a.dk) + koff, hd, dk, warp * WARP_ROWS,
+                 KB, a.D, lane);
 }
 
 // ---- launch -------------------------------------------------------------
 
-static size_t smem_dq(int Lk, int D) {
-  const size_t Dp = (D + 15) & ~15;
-  return 2 * 4 * (size_t)ROWS * Lk + 2 * 2 * (size_t)ROWS * Dp +
-         2 * (size_t)KT * Dp + 4 * (size_t)PART_FLOATS;
-}
-
-static size_t smem_dkdv(int D) {
-  const size_t Dp = (D + 15) & ~15;
-  return 2 * 2 * (size_t)KB * Dp + 2 * 2 * (size_t)ROWS * Dp +
-         2 * 4 * (size_t)ROWS * KB + 2 * 2 * (size_t)ROWS * KB +
-         4 * 3 * (size_t)ROWS;
-}
-
-template <int NF>
-static cudaError_t launch_dkdv(const Args& a, size_t smem,
-                               cudaStream_t stream) {
+template <int Dp>
+static cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t sa = smem_dq_dp<Dp>(), sb = smem_dkdv_dp<Dp>();
   cudaError_t err = cudaFuncSetAttribute(
-      fab_dkdv_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fab_dq_kernel<Dp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sa);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.Lk / KB, a.H, a.B), block(NTHREADS);
-  fab_dkdv_kernel<NF><<<grid, block, smem, stream>>>(a);
+  err = cudaFuncSetAttribute(fab_dkdv_kernel<Dp>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sb);
+  if (err != cudaSuccess) return err;
+  const dim3 block(NTHREADS);
+  fab_dq_kernel<Dp><<<dim3((a.Lq + ROWS - 1) / ROWS, a.H, a.B), block, sa,
+                      stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fab_dkdv_kernel<Dp><<<dim3(a.Lk / KB, a.H, a.B), block, sb, stream>>>(a);
   return cudaGetLastError();
+}
+
+// (dq kernel, dk/dv kernel) shared bytes of head width D; 0 past MAX_D
+static void smem_bytes(int D, size_t* sa, size_t* sb) {
+  *sa = *sb = 0;
+  switch (padded_d(D)) {
+#define CASE(DP) \
+  case DP: *sa = smem_dq_dp<DP>(); *sb = smem_dkdv_dp<DP>(); break;
+    CASE(16) CASE(32) CASE(48) CASE(64) CASE(80) CASE(96) CASE(112) CASE(128)
+#undef CASE
+    default: break;
+  }
 }
 
 extern "C" {
@@ -399,10 +364,19 @@ extern "C" {
 // The kernels' constants and shared-memory sizes, so the wrapper sizes and
 // checks alike.
 int fab_rows() { return ROWS; }
+int fab_tile() { return TILE; }
 int fab_key_block() { return KB; }
 int fab_max_d() { return MAX_D; }
-long long fab_smem_dq(int Lk, int D) { return (long long)smem_dq(Lk, D); }
-long long fab_smem_dkdv(int D) { return (long long)smem_dkdv(D); }
+long long fab_smem_dq(int D) {
+  size_t sa, sb;
+  smem_bytes(D, &sa, &sb);
+  return (long long)sa;
+}
+long long fab_smem_dkdv(int D) {
+  size_t sa, sb;
+  smem_bytes(D, &sa, &sb);
+  return (long long)sb;
+}
 
 // Launch (a) then (b) on `stream`. Returns cudaGetLastError() after the
 // launches (0 when both were accepted), or cudaErrorInvalidValue for
@@ -421,34 +395,16 @@ int fab_launch(const void* q, const void* k, const void* v, const void* dout,
   a.dq = dq; a.dk = dk; a.dv = dv; a.stats = stats;
   a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H; a.D = D;
   a.kv_valid = kv_valid; a.causal = causal ? 1 : 0;
-  const size_t sa = smem_dq(Lk, D), sb = smem_dkdv(D);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (sa > (size_t)optin || sb > (size_t)optin)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  err = cudaFuncSetAttribute(fab_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sa);
-  if (err != cudaSuccess) return (int)err;
-  const int Dp = (D + 15) & ~15;
-  fab_dq_kernel<<<dim3((Lq + ROWS - 1) / ROWS, H, B), dim3(NTHREADS), sa,
-                  st>>>(a, Dp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  switch (Dp / 16) {
-    case 1: return (int)launch_dkdv<1>(a, sb, st);
-    case 2: return (int)launch_dkdv<2>(a, sb, st);
-    case 3: return (int)launch_dkdv<3>(a, sb, st);
-    case 4: return (int)launch_dkdv<4>(a, sb, st);
-    case 5: return (int)launch_dkdv<5>(a, sb, st);
-    case 6: return (int)launch_dkdv<6>(a, sb, st);
-    case 7: return (int)launch_dkdv<7>(a, sb, st);
-    case 8: return (int)launch_dkdv<8>(a, sb, st);
+  switch (padded_d(D)) {
+    case 16: return (int)launch<16>(a, st);
+    case 32: return (int)launch<32>(a, st);
+    case 48: return (int)launch<48>(a, st);
+    case 64: return (int)launch<64>(a, st);
+    case 80: return (int)launch<80>(a, st);
+    case 96: return (int)launch<96>(a, st);
+    case 112: return (int)launch<112>(a, st);
+    case 128: return (int)launch<128>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

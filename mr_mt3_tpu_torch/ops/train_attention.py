@@ -33,12 +33,11 @@ from typing import Optional, Tuple
 import torch
 
 _LANE = 128       # K/V rows are padded to a multiple of this (TPU lane)
-_ROWS = 16        # query rows per block (csrc: ROWS)
-_KT = 128         # keys per K/V tile (csrc: KT)
+_ROWS = 64        # query rows per block, forward and dq (csrc: ROWS)
+_KT = 64          # rows per streamed K/V (or Q/dO) tile (csrc: TILE)
 _KB = 64          # keys per block of the dk/dv kernel (csrc bwd: KB)
 _MAX_D = 128      # head width limit (csrc: MAX_D)
-# the H100's shared memory a block can opt into (227 KB)
-_MAX_SMEM = 232448
+_PAD = 8          # bf16 of padding per shared row (csrc: PAD)
 _DTYPES = (torch.bfloat16, torch.float32)   # the plain version's
 
 KERNEL = 'fused_attention_fwd'
@@ -48,23 +47,26 @@ KERNEL_BWD = 'fused_attention_bwd'
 LAUNCHES = {KERNEL: 0, KERNEL_BWD: 0}
 
 
-def smem_bytes(lk: int, d: int) -> int:
-    """Shared memory of one forward block (csrc: smem_bytes): ROWS f32
-    score rows of lk columns, the ROWS query rows and one K/V tile with the
-    head width padded to a multiple of 16, and the value shares."""
-    dp = -(-d // 16) * 16
-    return 4 * _ROWS * lk + 2 * _ROWS * dp + 2 * _KT * dp + 4 * _ROWS * 128
+def _row_bytes(d: int) -> int:
+    """Bytes of one shared row: the head width padded to a multiple of 16
+    (the product's depth) and 8 more bf16 (the conflict-free stride)."""
+    return 2 * (-(-d // 16) * 16 + _PAD)
 
 
-def smem_bytes_bwd(lk: int, d: int) -> Tuple[int, int]:
+def smem_bytes(d: int) -> int:
+    """Shared memory of one forward block (csrc: smem_bytes): its ROWS
+    query rows and two stages of a K and a V tile. No score rows: it does
+    not depend on Lk."""
+    return _row_bytes(d) * (_ROWS + 4 * _KT)
+
+
+def smem_bytes_bwd(d: int) -> Tuple[int, int]:
     """Shared memory of one block of each backward kernel (csrc bwd:
-    smem_dq, smem_dkdv): the dq kernel's ROWS f32 score rows and ROWS f32
-    dp rows of lk columns, its query and dO rows, one K/V tile and the dq
-    shares; the dk/dv kernel's KB K and V rows, query and dO rows, its f32
-    score and dp blocks, their bf16 p and ds, and the row statistics."""
-    dp = -(-d // 16) * 16
-    dq = 8 * _ROWS * lk + 4 * _ROWS * dp + 2 * _KT * dp + 4 * _ROWS * 128
-    dkdv = 4 * _KB * dp + 4 * _ROWS * dp + 12 * _ROWS * _KB + 12 * _ROWS
+    smem_dq, smem_dkdv): the dq kernel's ROWS query and dO rows and two
+    stages of a K and a V tile; the dk/dv kernel's KB K and V rows, two
+    stages of a Q and a dO tile and of those rows' f32 (m, 1 / l, delta)."""
+    dq = _row_bytes(d) * (2 * _ROWS + 4 * _KT)
+    dkdv = _row_bytes(d) * (2 * _KB + 4 * _KT) + 4 * 3 * 2 * _KT
     return dq, dkdv
 
 
@@ -157,13 +159,14 @@ def _library():
         lib.faf_launch.restype = ctypes.c_int
         lib.faf_error_string.argtypes = [ctypes.c_int]
         lib.faf_error_string.restype = ctypes.c_char_p
-        for name in ('faf_rows', 'faf_max_d'):
+        for name in ('faf_rows', 'faf_tile', 'faf_max_d'):
             getattr(lib, name).restype = ctypes.c_int
-        lib.faf_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.faf_smem_bytes.argtypes = [ctypes.c_int]
         lib.faf_smem_bytes.restype = ctypes.c_longlong
-        if (lib.faf_rows(), lib.faf_max_d()) != (_ROWS, _MAX_D) or any(
-                lib.faf_smem_bytes(lk, d) != smem_bytes(lk, d)
-                for lk, d in ((128, 24), (1024, 64), (384, 128))):
+        if (lib.faf_rows(), lib.faf_tile(), lib.faf_max_d()) != (
+                _ROWS, _KT, _MAX_D) or any(
+                lib.faf_smem_bytes(d) != smem_bytes(d)
+                for d in (24, 64, 128)):
             raise RuntimeError('fused_attention: the wrapper and the CUDA '
                                'source disagree on the tile constants')
     return lib
@@ -185,11 +188,6 @@ def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f'{name} must be 16-byte aligned')
     if not 1 <= kv_valid <= lk:
         raise ValueError(f'kv_valid {kv_valid} outside 1..{lk}')
-    need = smem_bytes(lk, d)
-    if need > _MAX_SMEM:
-        raise ValueError(f'Lk {lk} x {_ROWS} f32 score rows need {need} '
-                         f'bytes of shared memory, more than the '
-                         f'{_MAX_SMEM} a block can use')
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -213,17 +211,15 @@ def _library_bwd():
         lib.fab_launch.restype = ctypes.c_int
         lib.fab_error_string.argtypes = [ctypes.c_int]
         lib.fab_error_string.restype = ctypes.c_char_p
-        for name in ('fab_rows', 'fab_key_block', 'fab_max_d'):
+        for name in ('fab_rows', 'fab_tile', 'fab_key_block', 'fab_max_d'):
             getattr(lib, name).restype = ctypes.c_int
-        lib.fab_smem_dq.argtypes = [ctypes.c_int] * 2
-        lib.fab_smem_dq.restype = ctypes.c_longlong
-        lib.fab_smem_dkdv.argtypes = [ctypes.c_int]
-        lib.fab_smem_dkdv.restype = ctypes.c_longlong
-        if (lib.fab_rows(), lib.fab_key_block(), lib.fab_max_d()) != (
-                _ROWS, _KB, _MAX_D) or any(
-                (lib.fab_smem_dq(lk, d), lib.fab_smem_dkdv(d))
-                != smem_bytes_bwd(lk, d)
-                for lk, d in ((128, 24), (1024, 64), (384, 128))):
+        for name in ('fab_smem_dq', 'fab_smem_dkdv'):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
+        if (lib.fab_rows(), lib.fab_tile(), lib.fab_key_block(),
+                lib.fab_max_d()) != (_ROWS, _KT, _KB, _MAX_D) or any(
+                (lib.fab_smem_dq(d), lib.fab_smem_dkdv(d))
+                != smem_bytes_bwd(d) for d in (24, 64, 128)):
             raise RuntimeError('fused_attention backward: the wrapper and '
                                'the CUDA source disagree on the tile '
                                'constants')
@@ -257,11 +253,6 @@ def fused_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f'Lk {lk} is not padded to a multiple of {_KB}')
     if not 1 <= kv_valid <= lk:
         raise ValueError(f'kv_valid {kv_valid} outside 1..{lk}')
-    need = max(smem_bytes_bwd(lk, d))
-    if need > _MAX_SMEM:
-        raise ValueError(f'Lk {lk}: {_ROWS} f32 score rows and {_ROWS} f32 '
-                         f'dp rows need {need} bytes of shared memory, more '
-                         f'than the {_MAX_SMEM} a block can use')
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stats = torch.empty((3, b, h, lq), dtype=torch.float32, device=q.device)
     lib = _library_bwd()

@@ -6,6 +6,8 @@ inputs: the forward, and the backward (autograd through the port's
 Function against jax.vjp); the wrapper's argument checks; and the model's
 routing of full-sequence attention (models/mt3.py) to the kernels."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -127,16 +129,21 @@ class TestWrapperChecks:
             ta.fused_attention(q[0], k, v)
 
     def test_shared_memory_limit(self):
-        """The kernel keeps 16 f32 score rows of Lk columns per block: an
-        Lk past the 227 KB a block can use raises before any launch; the
-        head width pads to a multiple of 16."""
-        assert ta.smem_bytes(1024, 64) == \
-            4 * 16 * 1024 + 2 * 16 * 64 + 2 * 128 * 64 + 4 * 16 * 128
-        assert ta.smem_bytes(1024, 24) == \
-            4 * 16 * 1024 + 2 * 16 * 32 + 2 * 128 * 32 + 4 * 16 * 128
-        q, k, v = self._qkv(lk=4096, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match='shared memory'):
-            ta.fused_attention_cuda(q, k, v, False, 4096)
+        """The kernels keep no score rows: a block's shared memory is its
+        64 query (and dO) rows or 64 keys and two stages of 64-row tiles,
+        rows of the head width padded to a multiple of 16 plus 8 bf16 (D 24
+        pads to 32); it does not take Lk, and every head width fits the
+        227 KB a block can use (the old Lk refusal is gone)."""
+        assert (ta._ROWS, ta._KT, ta._KB) == (64, 64, 64)
+        assert ta.smem_bytes(64) == 2 * 72 * (64 + 4 * 64) == 46080
+        assert ta.smem_bytes_bwd(64) == (2 * 72 * (2 * 64 + 4 * 64),
+                                         2 * 72 * (2 * 64 + 4 * 64)
+                                         + 4 * 3 * 2 * 64)
+        assert ta.smem_bytes(24) == ta.smem_bytes(32) == 2 * 40 * 320
+        assert ta.smem_bytes_bwd(24) == ta.smem_bytes_bwd(32)
+        for fn in (ta.smem_bytes, ta.smem_bytes_bwd):
+            assert list(inspect.signature(fn).parameters) == ['d']
+        assert max(ta.smem_bytes(128), *ta.smem_bytes_bwd(128)) <= 232448
 
     def test_kernel_takes_bf16_only(self):
         """float32 runs the plain version on the CPU; the kernel launch
