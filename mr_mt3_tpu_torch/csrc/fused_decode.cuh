@@ -69,21 +69,56 @@
 // version bit for bit whatever the order. Built without --use_fast_math:
 // expf and the divisions that make the scales are the IEEE ones.
 //
-// Design (right and simple first): one cooperative persistent launch, one
-// block of 256 threads per SM, grid-wide barriers between phases (8 per
-// layer plus lm_head, and in a window the argmax). A matrix-vector phase
-// splits its output into 32-column x 8-row tiles over the blocks; each warp
-// reads 8 contiguous weights of a row with one load (16 bytes in bf16, 8 in
-// int8, 4 in int4), widens them to f32 in registers and sums in f32, and
-// the block reduces its warps in shared memory in a fixed order (the sums
-// are deterministic). Attention phases give one (row, head) pair to a
-// block: scores and probabilities in shared memory, one thread per cache
-// row for the score dot, one warp per value component, and warp 0 runs the
-// window's online softmax. In the int modes the same block first quantizes
-// its pair's k and v rows of the step. Buffers written inside the launch
-// are read with ld.global.cg so no stale L1 line survives a barrier. The
-// design does not approach the bound: each phase is a few dependent L2
-// round trips plus a grid barrier, so a step is latency-bound (PERF.md).
+// Design of fd_kernel (the step, the grouped window, and the bf16 and int8
+// windows above 8 rows): one cooperative persistent launch, one block of 256 threads per
+// SM, cg::grid.sync() between phases (8 per layer plus lm_head). A
+// matrix-vector phase splits its output into 32-column x 8-row tiles over
+// the blocks and streams each tile's weights from L2/HBM after the barrier;
+// attention phases give one (row, head) pair to a block, one thread per
+// cache row for the score dot through scalar code loads, one warp per value
+// component. Each phase is a few dependent L2 round trips plus a barrier.
+//
+// Design of the window (KIND_WINDOW, fw_kernel), the same function
+// laid out for the H100's 132 SMs and their shared memory:
+//   * one block of 256 threads per SM, in clusters of two, a cooperative
+//     launch; the grid barrier is a counter with release / acquire at gpu
+//     scope (cutlass/barrier.h's pattern), ~1 us a phase on the H100;
+//   * every projection's output columns are cut into 4-column units dealt
+//     round robin over all blocks (wi_0 and wi_1 in pairs, so the gated
+//     product is formed where both sums are): N = 384-2048 spread over
+//     96-132 blocks. Each block keeps its slice of every layer's int4
+//     weights in shared memory for the launch (~95 KB, loaded once); bf16
+//     and int8 stream their slices through two shared buffers with
+//     cp.async, the next projection's copy issued before the current one
+//     runs (int8 resident would take ~190 KB, too much beside the rest);
+//   * every RMS norm's weights sit in shared memory (read by every block in
+//     every RMS phase, from the same L2 lines); the rows' bf16 inputs are
+//     staged once per phase as (k, row); at B <= 8 a lane owns one row, at
+//     B > 8 a lane decodes 4 weights and multiplies them by 8 rows read with
+//     one 16-byte load; codes become f32 through the 2^23 mantissa trick,
+//     not I2F (a quarter-rate instruction);
+//   * attention reads K/V rows with 16-byte vector loads, VB of them in
+//     flight a thread: scores as per-position partial sums in registers
+//     (32 int4 / 16 int8 / 8 bf16 positions a load), value sums with
+//     __dp4a on int8 probability codes in the int modes. While every (row,
+//     head) pair can have a cluster (2 H B <= 132), its cache rows are
+//     split between the two blocks, which agree on the chunk's score max
+//     and max |p vs| through distributed shared memory before p is rounded
+//     or requantized, so the one-chunk function is kept; past that the
+//     blocks loop over whole pairs. Cross-attention takes one block a pair;
+//   * sums run in a fixed order (shuffle trees, warp order, split order):
+//     no float atomics, so a window is bit-identical run to run.
+//   * at B > 8 the two blocks of a cluster stage half the rows' inputs each
+//     and copy the other half through distributed shared memory.
+// What it leaves: ~66 phases a step, each a few dependent L2 round trips
+// (the activations after a barrier, the residual read-modify-write); no
+// tensor cores; the bf16 and int8 weights come from L2 every step. At B >
+// 8 every block stages all the rows' inputs (64 at B = 64, where
+// fd_kernel's tiles take 8), which costs bf16 and int8 more than their
+// streamed weights save: there fdw_launch takes fd_kernel's phases, measured
+// faster at B = 64; int4 takes fw_kernel at every B (PERF.md).
+// Buffers written inside a launch are read with ld.global.cg or cp.async.cg
+// (L2), so no stale L1 line survives a barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -156,6 +191,10 @@ struct Args {
   int* fin;                  // (B)
   float* kvf;                // (B, 2I) f32 k | v of the step (int modes and
                              //   the step)
+  // the window kind's own: its grid barrier's counter (zeroed by the
+  // wrapper) and the shared memory of its weight slices
+  unsigned* sync;
+  int wbytes;
 };
 
 // The row of batch row b, head h, layer l in the cache, cross K/V and
@@ -738,10 +777,20 @@ __device__ void argmax_phase(const Args& a, float* smem, int t) {
     float best = -INFINITY;
     int bi = a.V;
     bool has_nan = false;
-    for (int v = threadIdx.x; v < a.V; v += NTHREADS) {
-      const float x = ldf(a.logits + (size_t)b * a.V + v);
-      has_nan |= x != x;
-      if (x > best || (x == best && v < bi)) { best = x; bi = v; }
+    for (int v0 = threadIdx.x; v0 < a.V; v0 += 8 * NTHREADS) {
+      float xs[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)          // every load before any use
+        xs[u] = ldf(a.logits + (size_t)b * a.V + min(v0 + u * NTHREADS,
+                                                      a.V - 1));
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int v = v0 + u * NTHREADS;
+        if (v >= a.V) break;
+        const float x = xs[u];
+        has_nan |= x != x;
+        if (x > best || (x == best && v < bi)) { best = x; bi = v; }
+      }
     }
     for (int o = 16; o > 0; o >>= 1) {
       const float ov = __shfl_xor_sync(0xffffffffu, best, o);
@@ -856,6 +905,1238 @@ static int launch(Args a, size_t smem, cudaStream_t stream) {
   return (int)(err != cudaSuccess ? err : last);
 }
 
+// ===========================================================================
+// The window kernel (KIND_WINDOW): fw_kernel<MODE>, its phases and launcher.
+// ===========================================================================
+
+#define UNIT 4          // output columns of a projection's unit
+#define MAX_SUB 4       // 4-column sub-units a block holds per projection
+
+// bytes of one k-row of a 4-column sub-unit's weights
+template <int MODE>
+__host__ __device__ constexpr int unit_row_bytes() {
+  return MODE == MODE_BF16 ? 8 : MODE == MODE_INT8 ? 4 : 2;
+}
+
+// positions of a K/V row in one 16-byte load
+template <int MODE>
+__host__ __device__ constexpr int vec_positions() {
+  return MODE == MODE_BF16 ? 8 : MODE == MODE_INT8 ? 16 : 32;
+}
+
+// the projections of a layer, then lm_head
+enum Proj { PR_QKV, PR_WO, PR_WQC, PR_WOC, PR_FFIN, PR_FFOUT, PR_LM };
+
+struct ProjShape {
+  int K, N, units;   // rows, columns, 4-column units (pairs for FFIN)
+  bool paired;       // FFIN: unit u is columns 4u.. of wi_0 and of wi_1
+};
+
+__host__ __device__ inline ProjShape proj_shape(const Args& a, int m) {
+  switch (m) {
+    case PR_QKV: return {a.D, 3 * a.I, 3 * a.I / UNIT, false};
+    case PR_WO: return {a.I, a.D, a.D / UNIT, false};
+    case PR_WQC: return {a.D, a.I, a.I / UNIT, false};
+    case PR_WOC: return {a.I, a.D, a.D / UNIT, false};
+    case PR_FFIN: return {a.D, 2 * a.F, a.F / UNIT, true};
+    case PR_FFOUT: return {a.F, a.D, a.D / UNIT, false};
+    default: return {a.D, a.V, a.V / UNIT, false};
+  }
+}
+
+// sub-units of projection s that block blk of G holds: units blk, blk + G, ...
+__host__ __device__ inline int proj_subunits(const ProjShape& s, int blk,
+                                             int G) {
+  const int units = blk < s.units ? (s.units - blk + G - 1) / G : 0;
+  return s.paired ? 2 * units : units;
+}
+
+// first output column of the block's sub-unit i
+__device__ __forceinline__ int sub_col0(const ProjShape& s, int blk, int G,
+                                        int i, int F) {
+  return s.paired ? UNIT * (blk + (i / 2) * G) + (i % 2) * F
+                  : UNIT * (blk + i * G);
+}
+
+template <int MODE>
+__host__ __device__ inline size_t slice_bytes(const ProjShape& s, int nsub) {
+  return ((size_t)nsub * s.K * unit_row_bytes<MODE>() + 15) / 16 * 16;
+}
+
+// the bytes of element e of a bf16, int8 or packed int4 array
+template <int MODE>
+__device__ __forceinline__ const uint8_t* elem_ptr(const void* base,
+                                                   size_t e) {
+  return static_cast<const uint8_t*>(base) +
+         (MODE == MODE_BF16 ? 2 * e : MODE == MODE_INT8 ? e : e / 2);
+}
+
+__device__ __forceinline__ const void* proj_weights(const Args& a, int m) {
+  switch (m) {
+    case PR_QKV: return a.wqkv;
+    case PR_WO: return a.wo;
+    case PR_WQC: return a.wqc;
+    case PR_WOC: return a.woc;
+    case PR_FFIN: return a.wff_in;
+    case PR_FFOUT: return a.wff_out;
+    default: return a.lm;
+  }
+}
+
+__device__ __forceinline__ const float* proj_scales(const Args& a, int m) {
+  switch (m) {
+    case PR_QKV: return a.sqkv;
+    case PR_WO: return a.so;
+    case PR_WQC: return a.sqc;
+    case PR_WOC: return a.soc;
+    case PR_FFIN: return a.sff_in;
+    case PR_FFOUT: return a.sff_out;
+    default: return a.lm_s;
+  }
+}
+
+// Byte offset of projection m of layer l among a block's resident slices
+// (int4): layer after layer, then lm_head.
+template <int MODE>
+__host__ __device__ inline size_t resident_offset(const Args& a, int m, int l,
+                                                  int blk, int G) {
+  size_t off = 0, per_layer = 0;
+  for (int j = PR_QKV; j < PR_LM; ++j) {
+    const ProjShape s = proj_shape(a, j);
+    const size_t sz = slice_bytes<MODE>(s, proj_subunits(s, blk, G));
+    if (j < m) off += sz;
+    per_layer += sz;
+  }
+  return m == PR_LM ? (size_t)a.L * per_layer : (size_t)l * per_layer + off;
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy the block's slice of projection m, layer l, into dst as [sub-unit][k]
+// rows of unit_row_bytes: with cp.async (bf16 8 bytes, int8 4 bytes a row;
+// the caller commits) or with plain loads (int4's 2 bytes, once a launch).
+template <int MODE, bool ASYNC>
+__device__ void copy_slice(const Args& a, int m, int l, uint8_t* dst) {
+  const ProjShape s = proj_shape(a, m);
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int nsub = proj_subunits(s, blk, G);
+  const size_t first = m == PR_LM ? 0 : (size_t)l * s.K * s.N;
+  const void* W = proj_weights(a, m);
+  constexpr int RB = unit_row_bytes<MODE>();
+  for (int i = threadIdx.x; i < nsub * s.K; i += NTHREADS) {
+    const int sub = i / s.K, k = i % s.K;
+    const uint8_t* src = elem_ptr<MODE>(
+        W, first + (size_t)k * s.N + sub_col0(s, blk, G, sub, a.F));
+    uint8_t* d = dst + (size_t)i * RB;
+    if (ASYNC) {
+      const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
+      if (RB == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa),
+                     "l"(src));
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+                     "l"(src));
+    } else {
+      *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(src);
+    }
+  }
+}
+
+#define MAX_D 512       // d_model limit of the RMS rows held in registers
+#define HCAP 36864      // bf16 activations a projection stages at a time
+
+// the f32 value of a two's-complement int4 nibble n (0..15) and of an int8
+// byte b (0..255): exact, through the 2^23 mantissa trick (integer ops and
+// one FADD, all at full rate, where I2F runs at a quarter)
+__device__ __forceinline__ float nibble_f(uint32_t n) {
+  return __int_as_float(0x4b000000 | ((n & 0xfu) ^ 0x8u)) - 8388616.f;
+}
+__device__ __forceinline__ float byte_f(uint32_t b) {
+  return __int_as_float(0x4b000000 | ((b & 0xffu) ^ 0x80u)) - 8388736.f;
+}
+
+// the 4 weights of one k-row of a sub-unit, as f32
+template <int MODE>
+__device__ __forceinline__ void load_w4(const uint8_t* p, float w[UNIT]) {
+  if (MODE == MODE_BF16) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = __uint_as_float(v.x << 16);
+    w[1] = __uint_as_float(v.x & 0xffff0000u);
+    w[2] = __uint_as_float(v.y << 16);
+    w[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else if (MODE == MODE_INT8) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int c = 0; c < UNIT; ++c) w[c] = byte_f(v >> (8 * c));
+  } else {
+    const uint32_t v = *reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int c = 0; c < UNIT; ++c) w[c] = nibble_f(v >> (4 * c));
+  }
+}
+
+// rs[row] = 1 / sqrt(mean(x^2) + eps) of the batch rows lo..hi-1: a warp a
+// row, four rows of a warp at a time with all their loads in flight (the
+// sum in load_inputs' order)
+__device__ void row_rms(const Args& a, float* rs, int lo, int hi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r0 = lo + warp; r0 < hi; r0 += 4 * NWARPS) {
+    float v[4][MAX_D / 32];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {          // every load before any use
+      const int row = min(r0 + j * NWARPS, hi - 1);
+      const float* xr = a.x + (size_t)row * a.D;
+#pragma unroll
+      for (int i = 0; i < MAX_D / 32; ++i)
+        v[j][i] = ldf(xr + min(lane + 32 * i, a.D - 1));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_D / 32; ++i)
+        if (lane + 32 * i < a.D) ss = fmaf(v[j][i], v[j][i], ss);
+      ss = warp_sum(ss);
+      const int row = r0 + j * NWARPS;
+      if (lane == 0 && row < hi) rs[row] = rsqrtf(ss / (float)a.D + a.eps);
+    }
+  }
+}
+
+// h (kc, bpad) bf16 <- the bf16-rounded inputs of batch rows lo..hi-1,
+// input columns k0..k0+kc (a multiple of 8): the RMS-normalized residual
+// (norm, in shared memory, given; rs from row_rms) or a bf16 row of in16 (K
+// wide). 16-byte loads, AB items of a thread in flight before their
+// stores, rows fastest so that the transposed stores do not collide. Rows
+// past B are left as they are: their outputs are never stored.
+#define AB 4
+__device__ void load_acts(const Args& a, uint16_t* h, int bpad, int K, int k0,
+                          int kc, const float* norm, const float* rs,
+                          const uint16_t* in16, int lo, int hi) {
+  const int nr = hi - lo, total = nr * (kc / 8);
+  for (int i0 = threadIdx.x; i0 < total; i0 += AB * NTHREADS) {
+    uint4 raw[AB][2];
+#pragma unroll
+    for (int u = 0; u < AB; ++u) {          // every load before any use
+      const int i = min(i0 + u * NTHREADS, total - 1);
+      const int row = lo + i % nr, k = k0 + 8 * (i / nr);
+      if (norm != nullptr) {
+        const uint4* xr =
+            reinterpret_cast<const uint4*>(a.x + (size_t)row * a.D + k);
+        raw[u][0] = __ldcg(xr);
+        raw[u][1] = __ldcg(xr + 1);
+      } else {
+        raw[u][0] = __ldcg(
+            reinterpret_cast<const uint4*>(in16 + (size_t)row * K + k));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AB; ++u) {
+      const int i = i0 + u * NTHREADS;
+      if (i >= total) continue;
+      const int row = lo + i % nr, kv = i / nr, k = k0 + 8 * kv;
+      uint16_t v[8];
+      if (norm != nullptr) {
+        const uint32_t xw[8] = {raw[u][0].x, raw[u][0].y, raw[u][0].z,
+                                raw[u][0].w, raw[u][1].x, raw[u][1].y,
+                                raw[u][1].z, raw[u][1].w};
+        const float r = rs[row];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = f2bf(norm[k + e] * (__uint_as_float(xw[e]) * r));
+      } else {
+        const uint32_t w[4] = {raw[u][0].x, raw[u][0].y, raw[u][0].z,
+                               raw[u][0].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[2 * e] = (uint16_t)(w[e] & 0xffffu);
+          v[2 * e + 1] = (uint16_t)(w[e] >> 16);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) h[(8 * kv + e) * bpad + row] = v[e];
+    }
+  }
+}
+
+// B <= 8: the RMS rows in one pass, a warp a row, the row held in registers
+// between its sum and its scaling (the same arithmetic as row_rms).
+__device__ void load_rms_rows(const Args& a, uint16_t* h, int bpad,
+                              const float* norm) {
+  const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (row >= a.B) return;
+  const float* xr = a.x + (size_t)row * a.D;
+  float v[MAX_D / 32];
+#pragma unroll
+  for (int i = 0; i < MAX_D / 32; ++i)     // every load before any use
+    v[i] = ldf(xr + min(lane + 32 * i, a.D - 1));
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAX_D / 32; ++i)
+    if (lane + 32 * i < a.D) ss = fmaf(v[i], v[i], ss);
+  ss = warp_sum(ss);
+  const float rs = rsqrtf(ss / (float)a.D + a.eps);
+#pragma unroll
+  for (int i = 0; i < MAX_D / 32; ++i) {
+    const int k = lane + 32 * i;
+    if (k < a.D) h[k * bpad + row] = f2bf(norm[k] * (v[i] * rs));
+  }
+}
+
+// the padded row stride of h: 16-byte rows of 8 batch rows an odd number
+// of 16-byte units apart, so that 8 lanes at 8 consecutive k read 8
+// distinct bank quads
+__host__ __device__ inline int h_stride(int bp) {
+  return (bp / 8) % 2 ? bp : bp + 8;
+}
+
+// One projection over the block's sub-units (weights wsl, norms normsm in
+// shared memory) for all batch rows at once. The rows' bf16 inputs are
+// staged as (k, row) in shared memory, in chunks of k when they exceed
+// HCAP. The 8 warps are split between the row groups of 8 and parts of k.
+// B <= 8: lane (slot, row) of a warp sums every kstep-th k of its
+// sub-unit's 4 columns for its row. B > 8: lane (slot, kk) decodes the 4
+// weights of its sub-unit at k = kk, kk + 8, ... of its slice and
+// multiplies them by the 8 rows of its group, read with one 16-byte load.
+// The lanes of a sub-unit are summed by a fixed shuffle tree, the k-parts
+// of a row group in warp order by one thread an output, which scales,
+// routes and stores it.
+template <int MODE>
+__device__ void fw_project(const Args& a, int m, int l, int t,
+                           const uint8_t* wsl, const float* normsm,
+                           float* un, int hcap) {
+  const ProjShape s = proj_shape(a, m);
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int nsub = proj_subunits(s, blk, G);
+  const bool one_row = a.B <= ROWS;            // a lane a row (kk = row)
+  // B > 8: the two blocks of a cluster stage half the rows each and copy
+  // the other half from each other's shared memory (half the L2 reads)
+  if (nsub == 0 && (one_row || proj_subunits(s, blk ^ 1, G) == 0)) return;
+  constexpr int RB = unit_row_bytes<MODE>();
+  uint16_t* h = reinterpret_cast<uint16_t*>(un);        // [kc][bpad]
+  float* red = un + hcap / 2;                           // [NWARPS][4][32]
+  float* rs = red + NWARPS * 4 * ROWS * UNIT;           // [B]
+  const float* norm = nullptr;
+  const uint16_t* in16 = nullptr;
+  switch (m) {
+    case PR_QKV: norm = normsm + (size_t)l * 3 * a.D; break;
+    case PR_WQC: norm = normsm + (size_t)l * 3 * a.D + a.D; break;
+    case PR_FFIN: norm = normsm + (size_t)l * 3 * a.D + 2 * a.D; break;
+    case PR_LM: norm = normsm + (size_t)a.L * 3 * a.D; break;
+    case PR_FFOUT: in16 = reinterpret_cast<const uint16_t*>(a.g); break;
+    default: in16 = a.attn; break;
+  }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ng = (a.B + ROWS - 1) / ROWS, bpad = h_stride(ng * ROWS);
+  const int gp2 = ng <= 1 ? 1 : ng <= 2 ? 2 : ng <= 4 ? 4 : 8;
+  const int wpg = NWARPS / gp2, g = warp / wpg, kp = warp % wpg;
+  const int slot = lane >> 3, kk = lane & 7;
+  const int np2 = nsub <= 1 ? 1 : nsub <= 2 ? 2 : 4;
+  const int nks = 4 / np2, sub = slot / nks, ks = slot % nks;
+  const int k_first = one_row ? kp * nks + ks : (kp * nks + ks) * 8 + kk;
+  const int kstep = one_row ? wpg * nks : wpg * nks * 8;
+  const bool live = sub < nsub && g < ng;
+  const uint8_t* wsub = wsl + (size_t)sub * s.K * RB;
+  const int KC = (hcap / bpad) / 8 * 8;
+  const int rank = blk & 1, half = (a.B + 15) / 16 * 8;
+  const int lo = one_row ? 0 : min(a.B, rank * half);
+  const int hi = one_row ? a.B : min(a.B, lo + half);
+  const int plo = min(a.B, (rank ^ 1) * half), phi = min(a.B, plo + half);
+  cg::cluster_group cl = cg::this_cluster();
+  if (norm != nullptr && !one_row) {
+    row_rms(a, rs, lo, hi);
+    cl.sync();
+    const float* prs = cl.map_shared_rank(rs, rank ^ 1);
+    for (int r = plo + tid; r < phi; r += NTHREADS) rs[r] = prs[r];
+    __syncthreads();
+  }
+  float acc[ROWS][UNIT];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < UNIT; ++c) acc[r][c] = 0.f;
+  for (int k0 = 0; k0 < s.K; k0 += KC) {
+    const int kc = min(KC, s.K - k0);
+    if (one_row) {
+      __syncthreads();                                  // h is free
+      if (norm != nullptr)
+        load_rms_rows(a, h, bpad, norm);
+      else
+        load_acts(a, h, bpad, s.K, k0, kc, norm, rs, in16, 0, a.B);
+    } else {
+      if (k0 > 0) cl.sync();          // the other block copied our half
+      else __syncthreads();
+      load_acts(a, h, bpad, s.K, k0, kc, norm, rs, in16, lo, hi);
+      cl.sync();                      // both halves staged
+      const uint16_t* ph = cl.map_shared_rank(h, rank ^ 1);
+      const int pn = phi - plo;
+      if (nsub > 0 && pn > 0) {
+        if (pn % 8 == 0) {            // plo is a multiple of 8: 16 bytes
+          const int nv = pn / 8, total = kc * nv;
+          for (int i0 = tid; i0 < total; i0 += 8 * NTHREADS) {
+            uint4 w[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {  // every load before any use
+              const int i = min(i0 + u * NTHREADS, total - 1);
+              w[u] = *reinterpret_cast<const uint4*>(
+                  ph + (i / nv) * bpad + plo + 8 * (i % nv));
+            }
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+              const int i = i0 + u * NTHREADS;
+              if (i < total)
+                *reinterpret_cast<uint4*>(h + (i / nv) * bpad + plo +
+                                          8 * (i % nv)) = w[u];
+            }
+          }
+        } else {
+          for (int i = tid; i < kc * pn; i += NTHREADS) {
+            const int k = i / pn, r = plo + i % pn;
+            h[k * bpad + r] = ph[k * bpad + r];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (nsub == 0) continue;
+    if (live && one_row) {
+#pragma unroll 4
+      for (int k = k_first; k < kc; k += kstep) {
+        const float hv = bf2f(h[k * bpad + kk]);
+        float w[UNIT];
+        load_w4<MODE>(wsub + (size_t)(k0 + k) * RB, w);
+#pragma unroll
+        for (int c = 0; c < UNIT; ++c) acc[0][c] = fmaf(hv, w[c], acc[0][c]);
+      }
+    } else if (live) {
+#pragma unroll 2
+      for (int k = k_first; k < kc; k += kstep) {
+        const uint4 hv = *reinterpret_cast<const uint4*>(h + k * bpad +
+                                                         ROWS * g);
+        const uint32_t hw[4] = {hv.x, hv.y, hv.z, hv.w};
+        float w[UNIT];
+        load_w4<MODE>(wsub + (size_t)(k0 + k) * RB, w);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float h0 = __uint_as_float(hw[q] << 16);
+          const float h1 = __uint_as_float(hw[q] & 0xffff0000u);
+#pragma unroll
+          for (int c = 0; c < UNIT; ++c) {
+            acc[2 * q][c] = fmaf(h0, w[c], acc[2 * q][c]);
+            acc[2 * q + 1][c] = fmaf(h1, w[c], acc[2 * q + 1][c]);
+          }
+        }
+      }
+    }
+  }
+  if (nsub == 0) return;
+  if (one_row) {
+    // the k-slots of a sub-unit: lanes 8 and 16 apart, in a fixed order
+#pragma unroll
+    for (int c = 0; c < UNIT; ++c) {
+      if (nks >= 2) acc[0][c] += __shfl_xor_sync(0xffffffffu, acc[0][c], 8);
+      if (nks >= 4) acc[0][c] += __shfl_xor_sync(0xffffffffu, acc[0][c], 16);
+    }
+    if (ks == 0) {
+#pragma unroll
+      for (int c = 0; c < UNIT; ++c)
+        red[((warp * 4 + slot) * ROWS + kk) * UNIT + c] = acc[0][c];
+    }
+  } else {
+    // the 8 kk lanes, then the k-slots of a sub-unit: a fixed shuffle tree
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < UNIT; ++c) {
+        float v = acc[r][c];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        if (nks >= 2) v += __shfl_xor_sync(0xffffffffu, v, 8);
+        if (nks >= 4) v += __shfl_xor_sync(0xffffffffu, v, 16);
+        acc[r][c] = v;
+      }
+    if (kk == 0 && ks == 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int c = 0; c < UNIT; ++c)
+          red[((warp * 4 + slot) * ROWS + r) * UNIT + c] = acc[r][c];
+    }
+  }
+  __syncthreads();
+  const int nout = s.paired ? nsub / 2 : nsub;
+  const float* scale = proj_scales(a, m) + (m == PR_LM ? 0 : (size_t)l * s.N);
+  for (int o = tid; o < a.B * nout * UNIT; o += NTHREADS) {
+    const int c = o % UNIT, i = (o / UNIT) % nout, gb = o / (UNIT * nout);
+    const int og = gb / ROWS, ob = gb % ROWS;
+    auto total = [&](int si) {
+      float v = 0.f;
+      for (int k2 = 0; k2 < wpg; ++k2)
+        v += red[(((og * wpg + k2) * 4 + si * nks) * ROWS + ob) * UNIT + c];
+      return v;
+    };
+    if (s.paired) {                             // FFIN: the gated product
+      const int n = sub_col0(s, blk, G, 2 * i, a.F) + c;
+      float g0 = total(2 * i), g1 = total(2 * i + 1);
+      if (MODE != MODE_BF16) {
+        g0 *= __ldg(scale + n);
+        g1 *= __ldg(scale + a.F + n);
+      }
+      reinterpret_cast<uint16_t*>(a.g)[(size_t)gb * a.F + n] =
+          f2bf(gelu_new(g0) * g1);
+      continue;
+    }
+    const int n = sub_col0(s, blk, G, i, a.F) + c;
+    float v = total(i);
+    if (MODE != MODE_BF16) v *= __ldg(scale + n);
+    if (m == PR_QKV) {
+      if (n < a.I) {
+        __stcg(a.q + (size_t)gb * a.I + n, v);
+      } else {
+        const int nn = (n - a.I) % a.I;
+        uint16_t* dst = (n < 2 * a.I) ? a.kw : a.vw;
+        const int hb = (nn / a.dk) * a.B + gb;
+        dst[(((size_t)t * a.L + l) * a.H * a.B + hb) * a.dk + nn % a.dk] =
+            f2bf(v);
+        if (MODE != MODE_BF16)
+          __stcg(a.kvf + (size_t)gb * 2 * a.I + (n - a.I), v);
+      }
+    } else if (m == PR_WQC) {
+      __stcg(a.q + (size_t)gb * a.I + n, v);
+    } else if (m == PR_LM) {
+      __stcg(a.logits + (size_t)gb * a.V + n, v);
+    } else {                                    // WO, WOC, FFOUT: residual
+      float* px = a.x + (size_t)gb * a.D + n;
+      __stcg(px, ldf(px) + v);
+    }
+  }
+}
+
+// 16 bytes of a K/V row from element e: one vector load when aligned and
+// holding `valid` >= its positions, else byte loads of the valid bytes
+// (the rest zero).
+template <int MODE>
+__device__ __forceinline__ uint4 load_vec(const void* base, size_t e,
+                                          int valid) {
+  constexpr int EP = vec_positions<MODE>();
+  const uint8_t* p = elem_ptr<MODE>(base, e);
+  if (valid >= EP && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+    return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  const int nbytes = MODE == MODE_BF16 ? 2 * valid
+                     : MODE == MODE_INT8 ? valid : (valid + 1) / 2;
+  for (int i = 0; i < nbytes; ++i)
+    w[i >> 2] |= (uint32_t)p[i] << (8 * (i & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// padded index of position p in the score array (no bank conflicts when
+// consecutive threads take consecutive 16-byte vectors)
+__device__ __forceinline__ int sci(int p) { return p + (p >> 5); }
+
+// Scores of n positions of a (row, head)'s K rows (row d at element base +
+// d * stride): each item is one 16-byte vector (EP positions) of the rows
+// d = dg, dg + DG, ...; its EP partial sums stay in registers and go to
+// part[e][dg][c], which is summed over dg in a fixed order into
+// sc[sci(p)]: bf16 the f32 dot with the rounded q qf, int the int32 dot
+// with qi times qscale times ksc[p] (staged in shared memory by the
+// caller). An item's vectors are loaded VB at a time before they are used,
+// so that VB loads are in flight a thread. Returns this thread's max.
+#define VB 8
+template <int MODE>
+__device__ __forceinline__ void score_vec(const uint4 v, float qf, int qi,
+                                          float* accf, int* acci) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (MODE == MODE_BF16) {
+      accf[2 * j] = fmaf(qf, __uint_as_float(u[j] << 16), accf[2 * j]);
+      accf[2 * j + 1] =
+          fmaf(qf, __uint_as_float(u[j] & 0xffff0000u), accf[2 * j + 1]);
+    } else if (MODE == MODE_INT8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acci[4 * j + i] += qi * (int)(int8_t)(u[j] >> (8 * i));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acci[8 * j + i] += qi * ((int)(u[j] << (28 - 4 * i)) >> 28);
+    }
+  }
+}
+
+// whether every row's 16-byte vectors are 16-byte aligned: the rows start
+// at element base + d * stride
+template <int MODE>
+__device__ __forceinline__ bool rows_aligned(const void* X, size_t base,
+                                             int stride) {
+  const uintptr_t b0 = reinterpret_cast<uintptr_t>(elem_ptr<MODE>(X, base));
+  const uintptr_t b1 =
+      reinterpret_cast<uintptr_t>(elem_ptr<MODE>(X, base + stride));
+  return ((b0 | b1) & 15) == 0;
+}
+
+template <int MODE>
+__device__ float fw_scores(const Args& a, const void* K, size_t base,
+                           int stride, int n, const float* qf, const int* qi,
+                           float qscale, const float* ksc, float* part,
+                           float* sc) {
+  constexpr int EP = vec_positions<MODE>();
+  constexpr int AE = MODE == MODE_BF16 ? EP : 1;   // f32 accumulators
+  constexpr int AI = MODE == MODE_BF16 ? 1 : EP;   // int32 accumulators
+  const int dk = a.dk, C = (n + EP - 1) / EP;
+  const int DG = max(1, min(dk, NTHREADS / max(C, 1)));
+  const int cols = DG * C;                      // part's row length
+  const bool aligned = rows_aligned<MODE>(K, base, stride);
+  int* ipart = reinterpret_cast<int*>(part);
+  for (int item = threadIdx.x; item < cols; item += NTHREADS) {
+    const int c = item % C, dg = item / C;
+    const int valid = min(EP, n - c * EP);
+    float accf[AE];
+    int acci[AI];
+#pragma unroll
+    for (int e = 0; e < AE; ++e) accf[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < AI; ++e) acci[e] = 0;
+    const size_t off = base + (size_t)c * EP;
+    int d = dg;
+    if (aligned && valid == EP) {
+      for (; d < dk; d += VB * DG) {
+        uint4 v[VB];
+#pragma unroll
+        for (int u = 0; u < VB; ++u)       // every load before any use
+          v[u] = *reinterpret_cast<const uint4*>(elem_ptr<MODE>(
+              K, off + (size_t)min(d + u * DG, dk - 1) * stride));
+#pragma unroll
+        for (int u = 0; u < VB; ++u)
+          if (d + u * DG < dk)
+            score_vec<MODE>(v[u], MODE == MODE_BF16 ? qf[d + u * DG] : 0.f,
+                            MODE == MODE_BF16 ? 0 : qi[d + u * DG], accf,
+                            acci);
+      }
+    }
+    for (; d < dk; d += DG)
+      score_vec<MODE>(load_vec<MODE>(K, off + (size_t)d * stride, valid),
+                      MODE == MODE_BF16 ? qf[d] : 0.f,
+                      MODE == MODE_BF16 ? 0 : qi[d], accf, acci);
+    if (MODE == MODE_BF16) {
+#pragma unroll
+      for (int e = 0; e < EP; ++e) part[e * cols + item] = accf[e % AE];
+    } else {
+#pragma unroll
+      for (int e = 0; e < EP; ++e) ipart[e * cols + item] = acci[e % AI];
+    }
+  }
+  if (MODE != MODE_BF16) cp_async_wait_all();   // ksc staged by the caller
+  __syncthreads();
+  float lmax = -INFINITY;
+  for (int i = threadIdx.x; i < C * EP; i += NTHREADS) {
+    const int c = i % C, e = i / C, p = c * EP + e;
+    if (p >= n) continue;
+    float sf;
+    if (MODE == MODE_BF16) {
+      sf = 0.f;
+      for (int dg = 0; dg < DG; ++dg) sf += part[e * cols + dg * C + c];
+    } else {
+      int si = 0;
+      for (int dg = 0; dg < DG; ++dg) si += ipart[e * cols + dg * C + c];
+      sf = ((float)si * qscale) * ksc[p];
+    }
+    sc[sci(p)] = sf;
+    lmax = fmaxf(lmax, sf);
+  }
+  return lmax;
+}
+
+// index of position p among int8 probability codes laid out for int4 value
+// rows: in each 8 positions the even ones, then the odd ones
+template <int MODE>
+__device__ __forceinline__ int code_slot(int p) {
+  return MODE == MODE_INT4 ? (p & ~7) | ((p & 1) << 2) | ((p & 7) >> 1) : p;
+}
+
+template <int MODE>
+__device__ __forceinline__ void value_vec(const uint4 v, int c,
+                                          const float* pf, const int8_t* pc,
+                                          float& accf, int& acci) {
+  constexpr int EP = vec_positions<MODE>();
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  if (MODE == MODE_BF16) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      accf = fmaf(pf[sci(c * EP + 2 * q)], __uint_as_float(u[q] << 16), accf);
+      accf = fmaf(pf[sci(c * EP + 2 * q + 1)],
+                  __uint_as_float(u[q] & 0xffff0000u), accf);
+    }
+  } else {
+    const int* pw = reinterpret_cast<const int*>(pc + c * EP);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (MODE == MODE_INT8) {
+        acci = __dp4a((int)u[q], pw[q], acci);
+      } else {
+        const unsigned lo =
+            __vsub4((u[q] & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
+        const unsigned hi =
+            __vsub4(((u[q] >> 4) & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
+        acci = __dp4a((int)lo, pw[2 * q], acci);
+        acci = __dp4a((int)hi, pw[2 * q + 1], acci);
+      }
+    }
+  }
+}
+
+// Value sums of n positions of a (row, head)'s V rows against the
+// probabilities: bf16 f32 products with pf[sci(p)] (zero past n), int
+// __dp4a over the int8 codes pc (code_slot order, zero past n). TPD
+// threads a component take every TPD-th 16-byte vector, VB loads in flight,
+// then sum over a fixed shuffle tree. Component d's sum goes to outf[d] or
+// outi[d].
+template <int MODE>
+__device__ void fw_values(const Args& a, const void* V, size_t base,
+                          int stride, int n, const float* pf,
+                          const int8_t* pc, float* outf, int* outi) {
+  constexpr int EP = vec_positions<MODE>();
+  const int dk = a.dk, C = (n + EP - 1) / EP;
+  int dkp = 8;
+  while (dkp < dk) dkp <<= 1;
+  const int TPD = NTHREADS / dkp;               // a power of two <= 32
+  const int d = threadIdx.x / TPD, j = threadIdx.x % TPD;
+  float accf = 0.f;
+  int acci = 0;
+  if (d < dk) {
+    const size_t row = base + (size_t)d * stride;
+    const bool aligned = rows_aligned<MODE>(V, base, stride);
+    const int full = n / EP;                    // whole vectors
+    int c = j;
+    if (aligned && full > 0) {
+      for (; c < full; c += VB * TPD) {
+        uint4 v[VB];
+#pragma unroll
+        for (int u = 0; u < VB; ++u)       // every load before any use
+          v[u] = *reinterpret_cast<const uint4*>(elem_ptr<MODE>(
+              V, row + (size_t)min(c + u * TPD, full - 1) * EP));
+#pragma unroll
+        for (int u = 0; u < VB; ++u)
+          if (c + u * TPD < full)
+            value_vec<MODE>(v[u], c + u * TPD, pf, pc, accf, acci);
+      }
+      // the batches overshoot: step back to the first vector not taken
+      c = full + ((j - full) % TPD + TPD) % TPD;
+    }
+    for (; c < C; c += TPD)
+      value_vec<MODE>(load_vec<MODE>(V, row + (size_t)c * EP,
+                                     min(EP, n - c * EP)),
+                      c, pf, pc, accf, acci);
+  }
+  for (int o = TPD / 2; o > 0; o >>= 1) {
+    accf += __shfl_xor_sync(0xffffffffu, accf, o);
+    acci += __shfl_xor_sync(0xffffffffu, acci, o);
+  }
+  if (j == 0 && d < dk) {
+    if (MODE == MODE_BF16) outf[d] = accf;
+    else outi[d] = acci;
+  }
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid barrier: after __syncthreads, thread 0 adds its block's arrival
+// to sync[0] with release semantics at gpu scope and spins with acquire
+// loads until every block of this epoch arrived; __syncthreads then passes
+// the ordering to the block's other threads (cutlass/barrier.h's pattern).
+// A wait that outlasts SPIN_LIMIT_NS traps, so that a barrier some block
+// never reaches ends the launch with an error instead of hanging the card.
+#define SPIN_LIMIT_NS 4000000000ull
+__device__ __forceinline__ void grid_barrier(const Args& a, unsigned& epoch) {
+  ++epoch;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    red_release_add(a.sync, 1u);
+    const unsigned target = epoch * gridDim.x;
+    const unsigned long long t0 = global_ns();
+    while (ld_acquire(a.sync) < target) {
+      if (global_ns() - t0 > SPIN_LIMIT_NS) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// attention scratch in the union region
+struct AttnSmem {
+  float* qs;     // MAX_DK f32 q
+  float* qf;     // MAX_DK bf16-rounded q (int modes: int8 q as int)
+  float* accs;   // MAX_DK f32 value sums
+  int* acci;     // MAX_DK int32 value sums
+  float* xch;    // 4 + MAX_DK: what the other block of the cluster reads
+  float* red;    // 32
+  float* ksm;    // the split's K scales (int modes), nmax + 64
+  float* vsm;    // its V scales
+  float* sc;     // scores, then probabilities (sci layout)
+  int8_t* pc;    // probability codes
+  float* part;   // score partials; then the window rows
+};
+
+__device__ __forceinline__ AttnSmem attn_smem(float* un, int nmax) {
+  AttnSmem m;
+  m.qs = un;
+  m.qf = m.qs + MAX_DK;
+  m.accs = m.qf + MAX_DK;
+  m.acci = reinterpret_cast<int*>(m.accs + MAX_DK);
+  m.xch = m.accs + 2 * MAX_DK;
+  m.red = m.xch + 4 + MAX_DK;
+  m.ksm = m.red + 32;
+  m.vsm = m.ksm + nmax + 64;
+  m.sc = m.vsm + nmax + 64;
+  const int scn = (nmax + 64) / 32 * 33;
+  m.pc = reinterpret_cast<int8_t*>(m.sc + scn);
+  m.part = m.sc + scn + (nmax + 64) / 4;
+  return m;
+}
+
+// floats of AttnSmem for nmax positions a split and part_floats partials
+__host__ __device__ inline int attn_floats(int nmax, int part_floats) {
+  return 5 * MAX_DK + 4 + 32 + 2 * (nmax + 64) + (nmax + 64) / 32 * 33 +
+         (nmax + 64) / 4 + part_floats;
+}
+
+// v of this block and of the other block of its cluster, exchanged through
+// field f of xch: both get op(v of split 0, v of split 1)
+__device__ __forceinline__ float cluster_max(cg::cluster_group& cl,
+                                             float* xch, int f, float v) {
+  if (threadIdx.x == 0) xch[f] = v;
+  cl.sync();
+  const float w = *cl.map_shared_rank(xch + f, cl.block_rank() ^ 1);
+  return cl.block_rank() == 0 ? fmaxf(v, w) : fmaxf(w, v);
+}
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cl,
+                                             float* xch, int f, float v) {
+  if (threadIdx.x == 0) xch[f] = v;
+  cl.sync();
+  const float w = *cl.map_shared_rank(xch + f, cl.block_rank() ^ 1);
+  return cl.block_rank() == 0 ? v + w : w + v;
+}
+
+// q of (row b, head h) into qs; bf16: qf its bf16 rounding; int: qf the
+// int8 codes (as int), returns their scale. Every thread gets the scale.
+template <int MODE>
+__device__ float load_q(const Args& a, const AttnSmem& m, int b, int h) {
+  for (int d = threadIdx.x; d < a.dk; d += NTHREADS) {
+    const float v = ldf(a.q + (size_t)b * a.I + h * a.dk + d);
+    m.qs[d] = v;
+    if (MODE == MODE_BF16) m.qf[d] = bfr(v);
+  }
+  __syncthreads();
+  if (MODE == MODE_BF16) return 0.f;
+  return quantize_q(m.qs, reinterpret_cast<int*>(m.qf), a.dk, m.red);
+}
+
+// One (row, head) pair's attention over `total` positions of its K/V rows
+// (row d at element base + d * stride), on one block (nsplit 1) or spread
+// over the two blocks of a cluster (nsplit 2): split s takes positions
+// [s R, s R + R), R = total / 2 rounded up to whole 16-byte vectors. The
+// splits agree through distributed shared memory on the score max m, with
+// normalize (cross-attention) on the sum of exp(s - m) before p = e / sum,
+// and in the int modes on max |p vs|, before p is rounded to bf16 or p vs
+// requantized, so the probabilities are the one-chunk function's. Split 0
+// then adds split 1's value sums (int32, exact; or f32) and lsum in split
+// order: accs holds the f32 value sums (int: times the probabilities'
+// scale) and m / lsum the flash state.
+template <int MODE>
+__device__ void attend_split(const Args& a, const AttnSmem& sm, int s,
+                             int nsplit, const void* K, const void* V,
+                             size_t base, int stride, int total,
+                             const float* ksc, const float* vsc, float qscale,
+                             bool normalize, float& m_out, float& lsum_out) {
+  constexpr int EP = vec_positions<MODE>();
+  cg::cluster_group cl = cg::this_cluster();
+  const bool two = nsplit == 2;
+  const int R = ((total + nsplit - 1) / nsplit + EP - 1) / EP * EP;
+  const int p_lo = min(total, s * R), n = min(total, p_lo + R) - p_lo;
+  const int C = (n + EP - 1) / EP;
+  if (MODE != MODE_BF16) {      // the split's scales, while the scores load
+    for (int p = threadIdx.x; p < n; p += NTHREADS) {
+      const unsigned dk_ = (unsigned)__cvta_generic_to_shared(sm.ksm + p);
+      const unsigned dv_ = (unsigned)__cvta_generic_to_shared(sm.vsm + p);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dk_),
+                   "l"(ksc + p_lo + p));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dv_),
+                   "l"(vsc + p_lo + p));
+    }
+    cp_async_commit();
+  }
+  const float lmax = fw_scores<MODE>(a, K, base + p_lo, stride, n, sm.qf,
+                                     reinterpret_cast<const int*>(sm.qf),
+                                     qscale, sm.ksm, sm.part, sm.sc);
+  float m = block_max(lmax, sm.red);
+  if (two) m = cluster_max(cl, sm.xch, 0, m);
+  float ls = 0.f;
+  for (int p = threadIdx.x; p < n; p += NTHREADS) {
+    const float e = expf(sm.sc[sci(p)] - m);
+    ls += e;
+    sm.sc[sci(p)] = e;
+  }
+  const float lpart = block_sum(ls, sm.red);
+  const float lsum = normalize && two ? cluster_sum(cl, sm.xch, 1, lpart)
+                                     : lpart;
+  float pm = 0.f;
+  for (int p = threadIdx.x; p < C * EP; p += NTHREADS) {
+    if (p >= n) {
+      sm.sc[sci(p)] = 0.f;
+      continue;
+    }
+    const float e = normalize ? sm.sc[sci(p)] / lsum : sm.sc[sci(p)];
+    if (MODE == MODE_BF16) {
+      sm.sc[sci(p)] = bfr(e);
+    } else {
+      const float pv = e * sm.vsm[p];
+      sm.sc[sci(p)] = pv;
+      pm = fmaxf(pm, fabsf(pv));
+    }
+  }
+  float pscale = 0.f;
+  if (MODE != MODE_BF16) {
+    float pmax = block_max(pm, sm.red);
+    if (two) pmax = cluster_max(cl, sm.xch, 2, pmax);
+    pscale = fmaxf(pmax, 1e-20f) / 127.f;
+    for (int p = threadIdx.x; p < C * EP; p += NTHREADS)
+      sm.pc[code_slot<MODE>(p)] =
+          p < n ? (int8_t)quant(sm.sc[sci(p)], pscale, 127.f) : 0;
+  }
+  __syncthreads();
+  fw_values<MODE>(a, V, base + p_lo, stride, n, sm.sc, sm.pc, sm.accs,
+                  sm.acci);
+  __syncthreads();
+  if (!two) {
+    if (MODE != MODE_BF16)
+      for (int d = threadIdx.x; d < a.dk; d += NTHREADS)
+        sm.accs[d] = (float)sm.acci[d] * pscale;
+    lsum_out = lsum;
+    m_out = m;
+    __syncthreads();
+    return;
+  }
+  if (s == 1) {
+    for (int d = threadIdx.x; d < a.dk; d += NTHREADS)
+      sm.xch[4 + d] = MODE == MODE_BF16 ? sm.accs[d]
+                                        : __int_as_float(sm.acci[d]);
+    if (threadIdx.x == 0) sm.xch[3] = lpart;
+  }
+  cl.sync();
+  if (s == 0) {
+    const float* peer = cl.map_shared_rank(sm.xch, 1);
+    for (int d = threadIdx.x; d < a.dk; d += NTHREADS)
+      sm.accs[d] = MODE == MODE_BF16
+                       ? sm.accs[d] + peer[4 + d]
+                       : (float)(sm.acci[d] + __float_as_int(peer[4 + d])) *
+                             pscale;
+    lsum_out = normalize ? lsum : lpart + peer[3];
+    m_out = m;
+  }
+  __syncthreads();
+}
+
+// Self-attention of layer l, step t: while every (row, head) pair can have
+// a cluster of two blocks (2 H B <= the grid), each pair's cache rows < pos0
+// are one flash chunk split between the two (attend_split); past that
+// (B > 11 at 6 heads) the blocks loop over whole pairs, which already fill
+// the card. Then split 0 attends the window's rows 0..t in window order,
+// an online softmax in f32.
+template <int MODE>
+__device__ void fw_self_attn(const Args& a, float* un, int nmax, int t,
+                             int l) {
+  const AttnSmem sm = attn_smem(un, nmax);
+  const int HB = a.H * a.B, dk = a.dk, P0 = a.pos0;
+  const int nsplit = 2 * HB <= (int)gridDim.x ? 2 : 1;
+  const int s = blockIdx.x % nsplit, stride = gridDim.x / nsplit;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int pair = blockIdx.x / nsplit; pair < HB; pair += stride) {
+    const int h = pair / a.B, b = pair % a.B;   // pair == h * B + b
+    __syncthreads();
+    const float qscale = load_q<MODE>(a, sm, b, h);
+    if (MODE != MODE_BF16 && s == nsplit - 1)
+      emit_rows<KIND_WINDOW>(a, sm.red, t, l, h, b);
+    float m = -1e30f, lsum = 0.f;
+    if (P0 > 0) {
+      const size_t pr = pair_index<KIND_WINDOW>(a, l, h, b);
+      attend_split<MODE>(a, sm, s, nsplit, a.kc, a.vc, pr * dk * a.P, a.P,
+                         P0, a.ks + pr * a.P, a.vs + pr * a.P, qscale, false,
+                         m, lsum);
+    }
+    if (s != 0) continue;
+    // split 0: the window's rows 0..t, an online softmax in window order
+    float* kwin = sm.part;                      // [t + 1][dk] f32
+    float* vwin = kwin + (t + 1) * dk;
+    float* sj = vwin + (t + 1) * dk;            // [t + 1] scores
+    const size_t jstride = (size_t)a.L * HB * dk;
+    const size_t row = ((size_t)l * HB + pair) * dk;
+    for (int i0 = threadIdx.x; i0 < (t + 1) * dk; i0 += 4 * NTHREADS) {
+      float kv[4], vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {        // every load before any use
+        const int i = min(i0 + u * NTHREADS, (t + 1) * dk - 1);
+        const size_t off = (i / dk) * jstride + row + i % dk;
+        kv[u] = ldb(a.kw + off);
+        vv[u] = ldb(a.vw + off);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NTHREADS;
+        if (i < (t + 1) * dk) {
+          kwin[i] = kv[u];
+          vwin[i] = vv[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int j = warp; j <= t; j += NWARPS) {
+      float sv = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_DK / 32; ++i) {
+        const int d = lane + 32 * i;
+        sv = fmaf(d < dk ? sm.qs[d] : 0.f, d < dk ? kwin[j * dk + d] : 0.f,
+                  sv);
+      }
+      sv = warp_sum(sv);
+      if (lane == 0) sj[j] = sv;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float acc[MAX_DK / 32];
+#pragma unroll
+      for (int i = 0; i < MAX_DK / 32; ++i) {
+        const int d = lane + 32 * i;
+        acc[i] = (P0 > 0 && d < dk) ? sm.accs[d] : 0.f;
+      }
+      for (int j = 0; j <= t; ++j) {
+        const float sv = sj[j];
+        const float m_new = fmaxf(m, sv);
+        const float alpha = expf(m - m_new);
+        const float p = expf(sv - m_new);
+        lsum = lsum * alpha + p;
+#pragma unroll
+        for (int i = 0; i < MAX_DK / 32; ++i) {
+          const int d = lane + 32 * i;
+          acc[i] = acc[i] * alpha + p * (d < dk ? vwin[j * dk + d] : 0.f);
+        }
+        m = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < MAX_DK / 32; ++i) {
+        const int d = lane + 32 * i;
+        if (d < dk) a.attn[(size_t)b * a.I + h * dk + d] = f2bf(acc[i] / lsum);
+      }
+    }
+  }
+}
+
+// Cross-attention of layer l over the encoder K/V: a full f32 softmax, one
+// block a pair (attend_split, normalized). Its 256-320 rows are too few to
+// pay for a split's exchanges.
+template <int MODE>
+__device__ void fw_cross_attn(const Args& a, float* un, int nmax, int l) {
+  const AttnSmem sm = attn_smem(un, nmax);
+  const int HB = a.H * a.B, dk = a.dk, S = a.Lenc;
+  for (int pair = blockIdx.x; pair < HB; pair += gridDim.x) {
+    const int h = pair / a.B, b = pair % a.B;
+    __syncthreads();
+    const float qscale = load_q<MODE>(a, sm, b, h);
+    const size_t pr = pair_index<KIND_WINDOW>(a, l, h, b);
+    float m = 0.f, lsum = 0.f;
+    attend_split<MODE>(a, sm, 0, 1, a.ck, a.cv, pr * dk * S, S, S,
+                       a.cks + pr * S, a.cvs + pr * S, qscale, true, m, lsum);
+    for (int d = threadIdx.x; d < dk; d += NTHREADS)
+      a.attn[(size_t)b * a.I + h * dk + d] = f2bf(sm.accs[d]);
+  }
+}
+
+// the projection after m of layer l (step t): (m', l', t'), false past the
+// window's last lm_head
+__device__ __forceinline__ bool next_projection(const Args& a, int& m, int& l,
+                                                int& t) {
+  if (m == PR_LM) {
+    m = PR_QKV;
+    l = 0;
+    return ++t < a.T;
+  }
+  if (m == PR_FFOUT) {
+    if (++l == a.L) {
+      m = PR_LM;
+      l = 0;
+    } else {
+      m = PR_QKV;
+    }
+    return true;
+  }
+  ++m;
+  return true;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    fw_kernel(Args a, int nmax, int hcap) {
+  extern __shared__ float4 smem4[];
+  uint8_t* wreg = reinterpret_cast<uint8_t*>(smem4);
+  float* normsm = reinterpret_cast<float*>(wreg + a.wbytes);
+  const int nnorm = (3 * a.L + 1) * a.D;
+  float* un = normsm + (nnorm + 3) / 4 * 4;
+  constexpr bool RESIDENT = MODE == MODE_INT4;
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int half = a.wbytes / 2;
+  unsigned epoch = 0;
+  int ord = 0;                                  // streamed projections
+  if (RESIDENT) {
+    for (int l = 0; l < a.L; ++l)
+      for (int m = PR_QKV; m < PR_LM; ++m)
+        copy_slice<MODE, false>(a, m, l,
+                                wreg + resident_offset<MODE>(a, m, l, blk, G));
+    copy_slice<MODE, false>(a, PR_LM, 0,
+                            wreg + resident_offset<MODE>(a, PR_LM, 0, blk, G));
+  } else {
+    copy_slice<MODE, true>(a, PR_QKV, 0, wreg);
+    cp_async_commit();
+  }
+  // every RMS norm's weights, read by every block in every RMS phase
+  for (int i = threadIdx.x; i < nnorm; i += NTHREADS)
+    normsm[i] = i < 3 * a.L * a.D ? a.norms[i] : a.final_norm[i - 3 * a.L * a.D];
+  init_phase(a);
+  grid_barrier(a, epoch);
+  // the weights of projection m, layer l; streamed: wait for its copy and
+  // start the next projection's into the other buffer
+  auto project = [&](int m, int l, int t) {
+    const uint8_t* w;
+    if (RESIDENT) {
+      w = wreg + resident_offset<MODE>(a, m, l, blk, G);
+    } else {
+      cp_async_wait_all();
+      __syncthreads();
+      w = wreg + (ord & 1) * half;
+      int m2 = m, l2 = l, t2 = t;
+      if (next_projection(a, m2, l2, t2))
+        copy_slice<MODE, true>(a, m2, l2, wreg + ((ord + 1) & 1) * half);
+      cp_async_commit();
+      ++ord;
+    }
+    fw_project<MODE>(a, m, l, t, w, normsm, un, hcap);
+  };
+  for (int t = 0; t < a.T; ++t) {
+    for (int l = 0; l < a.L; ++l) {
+      project(PR_QKV, l, t);
+      grid_barrier(a, epoch);
+      fw_self_attn<MODE>(a, un, nmax, t, l);
+      grid_barrier(a, epoch);
+      project(PR_WO, l, t);
+      grid_barrier(a, epoch);
+      project(PR_WQC, l, t);
+      grid_barrier(a, epoch);
+      fw_cross_attn<MODE>(a, un, nmax, l);
+      grid_barrier(a, epoch);
+      project(PR_WOC, l, t);
+      grid_barrier(a, epoch);
+      project(PR_FFIN, l, t);
+      grid_barrier(a, epoch);
+      project(PR_FFOUT, l, t);
+      grid_barrier(a, epoch);
+    }
+    project(PR_LM, 0, t);
+    grid_barrier(a, epoch);
+    argmax_phase(a, un, t);
+    if (t + 1 < a.T) grid_barrier(a, epoch);
+  }
+}
+
+// Launch one window: one block of NTHREADS per SM in clusters of two (a
+// cooperative launch, so all are resident for the spin barrier), weights
+// resident (int4) or two streamed slices (bf16, int8). Returns a CUDA error
+// code; invalid value for a projection with more than MAX_SUB sub-units a
+// block, d_kv above MAX_DK, widths not multiples of 8, or no sync buffer.
+template <int MODE>
+static int launch_window(Args a, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int G = sms / 2 * 2;                    // whole clusters of two
+  if (G < 2 || a.dk > MAX_DK || a.D > MAX_D || a.sync == nullptr ||
+      a.D % 8 || a.I % 8 || a.F % 8 || a.V % 8)
+    return (int)cudaErrorInvalidValue;
+  size_t resident = 0, stream_slice = 0;
+  int kmax = 0;
+  for (int m = PR_QKV; m <= PR_LM; ++m) {
+    const ProjShape s = proj_shape(a, m);
+    const int nsub = proj_subunits(s, 0, G);
+    if (nsub > MAX_SUB) return (int)cudaErrorInvalidValue;
+    const size_t sz = slice_bytes<MODE>(s, nsub);
+    resident += m == PR_LM ? sz : (size_t)a.L * sz;
+    if (sz > stream_slice) stream_slice = sz;
+    if (s.K > kmax) kmax = s.K;
+  }
+  a.wbytes = (int)(MODE == MODE_INT4 ? resident : 2 * stream_slice);
+  const int bpad = h_stride((a.B + ROWS - 1) / ROWS * ROWS);
+  int hcap = bpad * kmax;
+  if (hcap > HCAP) hcap = HCAP / bpad / 8 * 8 * bpad;
+  constexpr int EP = vec_positions<MODE>();
+  const int nsplit = 2 * a.H * a.B <= G ? 2 : 1;
+  const int r_self = ((a.pos0 + nsplit - 1) / nsplit + EP - 1) / EP * EP;
+  const int r_cross = (a.Lenc + EP - 1) / EP * EP;
+  int nmax = r_self > r_cross ? r_self : r_cross;
+  int part_floats = NTHREADS * EP;
+  if (nmax + EP > part_floats) part_floats = nmax + EP;
+  if (2 * a.T * a.dk + a.T > part_floats) part_floats = 2 * a.T * a.dk + a.T;
+  const int mv_floats = hcap / 2 + NWARPS * 4 * ROWS * UNIT + bpad;
+  int un = attn_floats(nmax, part_floats);
+  if (mv_floats > un) un = mv_floats;
+  if (3 * NWARPS + 1 > un) un = 3 * NWARPS + 1;
+  const int norm_floats = ((3 * a.L + 1) * a.D + 3) / 4 * 4;
+  const size_t smem =
+      (size_t)a.wbytes + (size_t)(norm_floats + un) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fw_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fw_kernel<MODE>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < G / 2) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchKernelEx(&cfg, fw_kernel<MODE>, a, nmax, hcap);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
 // The order of the launchers' pointer and dimension arrays (the Python
 // wrappers build them in the same order; a pointer a kind does not read is
 // null).
@@ -865,7 +2146,7 @@ enum Ptr {
   P_LM, P_LM_S, P_CK, P_CV, P_CKS, P_CVS, P_KC, P_VC, P_KS, P_VS,
   P_TOKENS_IN, P_FINISHED_IN, P_TOKENS_OUT, P_FINISHED_OUT, P_KW, P_VW,
   P_KQ_OUT, P_VQ_OUT, P_KS_OUT, P_VS_OUT, P_X, P_Q, P_ATTN, P_G, P_LOGITS,
-  P_TOK, P_FIN, P_KVF, P_COUNT
+  P_TOK, P_FIN, P_KVF, P_SYNC, P_COUNT
 };
 enum Dim {
   D_B, D_L, D_H, D_DK, D_D, D_F, D_V, D_LENC, D_P, D_T, D_POS0, D_PAD,
@@ -911,6 +2192,8 @@ static Args make_args(void* const* p, const int* dim, float eps,
   a.logits = (float*)p[P_LOGITS];
   a.tok = (int*)p[P_TOK]; a.fin = (int*)p[P_FIN];
   a.kvf = (float*)p[P_KVF];
+  a.sync = (unsigned*)p[P_SYNC];
+  a.wbytes = 0;
 
   int kmax = a.D > a.I ? a.D : a.I;
   if (a.F > kmax) kmax = a.F;

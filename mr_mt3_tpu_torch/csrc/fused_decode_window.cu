@@ -4,9 +4,10 @@
 // Replaces the TPU kernels
 //   * mr_mt3_tpu/ops/fused_decode.py::fused_decode_window (pallas_call at
 //     :969, body _make_window_kernel :726): fdw_launch, one instantiation
-//     per mode (fd_kernel<MODE, KIND_WINDOW>). The cache rows < pos0 are one
-//     flash chunk: the port's window takes the softmax over all of them at
-//     once (the TPU kernel's 256-position chunks were a VMEM tile);
+//     per mode (fw_kernel<MODE>; fd_kernel<MODE, KIND_WINDOW> for bf16 and
+//     int8 above 8 rows). The cache rows < pos0 are one flash chunk: the
+//     port's window takes the softmax over all of them at once (the TPU
+//     kernel's 256-position chunks were a VMEM tile);
 //   * benchmarks/group_axis_kernel.py::fused_decode_window_grouped
 //     (pallas_call at :385, body _make_grouped_kernel :78): fdw_grouped_launch,
 //     int8 only (fd_kernel<MODE_INT8, KIND_GROUPED>). It reads the group-major
@@ -28,11 +29,10 @@
 // L2-bandwidth term after the first step, and the least time for the
 // window as a function (each input read once from HBM) is far lower:
 // chip_smoke.py computes that bound, per mode, from each run's shapes.
-// The kernel does not approach it: each of the 66 phases of a step is a few
-// dependent L2 round trips plus a grid barrier, so the step is
-// latency-bound (PERF.md, H100 port section). Fewer phases, more blocks per
-// phase, tensor-core products and dp4a over a position-major cache are the
-// next steps.
+// The kernel does not approach it: a step is still 66 phases between grid
+// barriers, each a few dependent L2 round trips (~6.7 us a phase at B = 8
+// on the H100), so the step is latency-bound (PERF.md). fused_decode.cuh
+// says what fw_kernel does about it and what it leaves.
 
 #include "fused_decode.cuh"
 
@@ -49,10 +49,18 @@ int fdw_launch(void* const* p, const int* dim, float eps, void* stream) {
   const Args a = make_args(p, dim, eps, &smem);
   if (a.chunk < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  // bf16 and int8 above 8 rows: fd_kernel's phases, which measured faster
+  // there than fw_kernel (PERF.md: every block of fw_kernel stages all the
+  // rows' inputs, 64 at B = 64, where fd_kernel's tiles take 8)
+  const bool pr7 = a.B > ROWS && dim[D_MODE] != MODE_INT4;
   switch (dim[D_MODE]) {
-    case MODE_BF16: return launch<MODE_BF16, KIND_WINDOW>(a, smem, s);
-    case MODE_INT8: return launch<MODE_INT8, KIND_WINDOW>(a, smem, s);
-    case MODE_INT4: return launch<MODE_INT4, KIND_WINDOW>(a, smem, s);
+    case MODE_BF16:
+      return pr7 ? launch<MODE_BF16, KIND_WINDOW>(a, smem, s)
+                 : launch_window<MODE_BF16>(a, s);
+    case MODE_INT8:
+      return pr7 ? launch<MODE_INT8, KIND_WINDOW>(a, smem, s)
+                 : launch_window<MODE_INT8>(a, s);
+    case MODE_INT4: return launch_window<MODE_INT4>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

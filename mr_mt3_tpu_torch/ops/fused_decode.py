@@ -58,10 +58,10 @@ from mr_mt3_tpu_torch.ops.int8_matmul import (
 # and which the window's own bf16 rows)
 FUSED_WINDOW = 32
 
-# rows per launch. The kernel tiles the batch in groups of 8 and its
-# shared memory does not grow with the batch, so the cap is not a memory
-# limit of the card: it is the largest batch measured on the H100 and the
-# handler's device-call size (PERF.md).
+# rows per launch. The kernels tile the batch in groups of 8 and stage at
+# most a fixed number of input rows in shared memory, so the cap is not a
+# memory limit of the card: it is the largest batch measured on the H100
+# and the handler's device-call size (PERF.md).
 FUSED_MAX_BATCH = 64
 
 _MAX_DK = 128  # the kernel's d_kv limit (csrc: MAX_DK)
@@ -678,7 +678,7 @@ def _pointers(fp: FusedParams, cross, cache, **named):
              'kq', 'vq', 'ks', 'vs', 'tokens_in', 'finished_in',
              'tokens_out', 'finished_out', 'kw', 'vw', 'kq_out', 'vq_out',
              'ks_out', 'vs_out', 'x', 'q', 'attn', 'g', 'logits', 'tok',
-             'fin', 'kvf')
+             'fin', 'kvf', 'sync')
     known = {**fp._asdict(), 'embed': None, **cross, **cache, **named}
     return [known.get(n) for n in names]
 
@@ -747,7 +747,9 @@ def window_launch(cfg: MT3Config, fp: FusedParams, pos_rows: torch.Tensor,
         g=torch.empty((B, 2 * F), dtype=f32, **z), logits=logits_out,
         tok=torch.empty((B,), dtype=i32, **z),
         fin=torch.empty((B,), dtype=i32, **z),
-        kvf=None if exact else torch.empty((B, 2 * inner), dtype=f32, **z))
+        kvf=None if exact else torch.empty((B, 2 * inner), dtype=f32, **z),
+        # the window kernel's grid barrier counts up from 0
+        sync=torch.zeros((1,), dtype=i32, **z))
     dims = [B, L, H, dk, D, F, V, S, P, T, int(position), cfg.pad_token_id,
             cfg.eos_token_id, _MODE_ID[tier], chunk or P]
     if groups is None:

@@ -3,14 +3,17 @@ mr_mt3_tpu/ops/mel_pallas.py).
 
 logmel launches the hand-written CUDA kernel csrc/logmel.cu, which
 replaces the TPU kernel mel_pallas.py::logmel_pallas: framing (hop 128
-inside the 2048 window, pad_end), the Hann window folded into cos / -sin
-constants, the DFT as products in f32, the magnitude, the mel projection
-and safe_log (eps 1e-5), in one launch, the (frames, 1025) spectrum never
-written to device memory. It takes CUDA tensors only and raises for any
-other: its plain version is audio/frontend.py::compute_logmel (torch FFT),
-which infer/handler.py::_compute_mel runs on the CPU. The two differ by
-FFT against DFT rounding: ~1e-3 in log space where the log-mel is above
--4, more in the noise-floor bins.
+inside the 2048 window, pad_end), the Hann window, a real FFT of each
+frame in shared memory in f32, the magnitude, the mel projection over each
+filter's nonzero bins and safe_log (eps 1e-5), in one launch, the (frames,
+1025) spectrum never written to device memory. Its tables
+(_fft_constants: twiddles and window computed in float64 and stored as
+f32, the filterbank's nonzero ranges) are uploaded once per device. It
+takes CUDA tensors only and raises for any other: its plain version is
+audio/frontend.py::compute_logmel (torch FFT), which
+infer/handler.py::_compute_mel runs on the CPU. The two differ by the FFTs'
+rounding: ~1e-4 in log space where the log-mel is above -4, more in the
+noise-floor bins.
 """
 
 from __future__ import annotations
@@ -63,18 +66,48 @@ def _dft_constants(config: SpectrogramConfig):
     return cos_m, sin_m, fbank
 
 
+@functools.lru_cache(maxsize=4)
+def _fft_constants(config: SpectrogramConfig):
+    """The kernel's tables: twiddles (fft/2 + 1, 2) (cos, -sin)(2 pi k /
+    fft) and the periodic Hann window (fft,), computed in float64 and
+    stored as f32; and each mel filter's range of nonzero bins, from the
+    first to the last nonzero of its column of _dft_constants' filterbank:
+    (lo, len, offset) int32 (mel,) each, and the ranges' weights f32, one
+    filter after another."""
+    n = config.fft_size
+    k = np.arange(n // 2 + 1, dtype=np.float64)
+    angle = 2.0 * np.pi * k / n
+    twiddle = np.stack([np.cos(angle), -np.sin(angle)], -1).astype(
+        np.float32)
+    window = _hann_periodic(n)
+    fbank = _dft_constants(config)[2]
+    lo, length, weights = [], [], []
+    for col in fbank.T:
+        nz = np.flatnonzero(col)
+        first = int(nz[0]) if len(nz) else 0
+        count = int(nz[-1]) - first + 1 if len(nz) else 0
+        lo.append(first)
+        length.append(count)
+        weights.append(col[first:first + count])
+    offset = np.concatenate([[0], np.cumsum(length)[:-1]])
+    weights = np.concatenate(weights + [np.zeros(1, np.float32)])
+    return (twiddle, window, np.asarray(lo, np.int32),
+            np.asarray(length, np.int32), offset.astype(np.int32),
+            weights.astype(np.float32))
+
+
 @functools.lru_cache(maxsize=8)
 def _device_constants(config: SpectrogramConfig, device: torch.device):
-    return tuple(torch.from_numpy(c).to(device)
-                 for c in _dft_constants(config))
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(device)
+                 for c in _fft_constants(config))
 
 
 def _library():
     from mr_mt3_tpu_torch.ops import cuda_build
     lib = cuda_build.load(KERNEL)
     if lib.logmel_launch.argtypes is None:
-        lib.logmel_launch.argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        lib.logmel_launch.argtypes = [ctypes.c_void_p] * 8 \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         lib.logmel_launch.restype = ctypes.c_int
         lib.logmel_error_string.argtypes = [ctypes.c_int]
         lib.logmel_error_string.restype = ctypes.c_char_p
@@ -101,17 +134,16 @@ def logmel(samples: torch.Tensor,
     b, n = samples.shape
     check_operand('samples', samples, torch.float32, (b, n), dev)
     lib = _library()
-    cos_m, sin_m, fbank = _device_constants(config, dev)
+    tables = _device_constants(config, dev)
     hop, fft, mel = config.hop_width, config.fft_size, config.num_mel_bins
-    bins, ld = fft // 2 + 1, cos_m.shape[1]
     frames = -(-n // hop)
     out = torch.empty((b, frames, mel), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.logmel_launch(samples.data_ptr(), cos_m.data_ptr(),
-                               sin_m.data_ptr(), fbank.data_ptr(),
-                               out.data_ptr(), b, n, hop, fft, frames, bins,
-                               ld, mel, EPS, stream)
+        rc = lib.logmel_launch(samples.data_ptr(),
+                               *(t.data_ptr() for t in tables),
+                               out.data_ptr(), b, n, hop, fft, frames, mel,
+                               EPS, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed for hop {hop}, fft_size '
                            f'{fft}, {mel} mel bins: '

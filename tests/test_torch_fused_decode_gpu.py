@@ -773,3 +773,139 @@ def test_grouped_wrapper_checks_operands(cuda):
                                             finished, pos0, flat, cross, T,
                                             chunk)
     assert gk.LAUNCHES == before
+
+
+def _check_window(cfg, tier, batch, got, want):
+    """The kernel's window against the plain version's: tokens up to a
+    near-tie divergence; bf16 rows within KV_RTOL, or integer codes and
+    scales (CODE_SHARE, CODE_DIFF, SCALE_RTOL) up to each row's first
+    divergence; the finished flags where every token agrees."""
+    toks, fin, rows = got
+    w_toks, w_fin, w_rows, logits = want
+    agree = _agreeing_rows(cfg, toks, w_toks, logits)
+    H = cfg.num_heads
+    for b in range(batch):
+        diff = torch.nonzero(toks[:, b] != w_toks[:, b])
+        n = int(diff[0]) + 1 if len(diff) else toks.shape[0]
+
+        def row_b(t):          # (T, L, H*B, ...) -> steps < n of row b
+            return t[:n].reshape(n, -1, H, batch, *t.shape[3:])[:, :, :, b]
+        for key in ('kq', 'vq'):
+            a, r = row_b(rows[key]), row_b(w_rows[key])
+            if tier == 'fused_bf16':
+                a, r = a.float(), r.float()
+                assert float((a - r).abs().max()) <= \
+                    KV_RTOL * float(r.abs().max()), (key, b)
+            else:
+                a, r = a.int(), r.int()
+                assert float((a == r).float().mean()) >= CODE_SHARE, (key, b)
+                assert int((a - r).abs().max()) <= CODE_DIFF, (key, b)
+        for key in set(rows) & {'ks', 'vs'}:
+            a, r = row_b(rows[key]), row_b(w_rows[key])
+            assert float((a - r).abs().max()) <= \
+                SCALE_RTOL * float(r.abs().max()), (key, b)
+    if agree.all():
+        assert torch.equal(fin, w_fin)
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+@pytest.mark.parametrize('batch,pos0', [(1, 32), (24, 40), (3, 1)])
+def test_window_splits_and_ragged_batches(cuda, tier, batch, pos0):
+    """The window at B=1 (most clusters idle), B=24 (not a multiple of the
+    8-row groups; int4's 3 groups of warps, the two blocks of a cluster
+    staging 16 and 8 rows; bf16 and int8 take fd_kernel's phases above 8
+    rows)
+    and pos0 = 1 (a cache of one row: the second block of each pair's
+    cluster gets no position, and the split boundaries fall off the 16-byte
+    vectors) against its plain version. An int4 window starts at an even
+    position, so pos0 = 1 raises there and 2 runs in its place."""
+    if tier == 'fused_int4' and pos0 % 2:
+        _, args = _window_case(cuda, tier, batch, 2, 64)
+        bad = args[:5] + (1,) + args[6:]
+        with pytest.raises(ValueError, match='even position'):
+            fd.fused_decode_window_cuda(*bad)
+    else:
+        _, args = _window_case(cuda, tier, batch, pos0, 64)
+    cfg = args[0]
+    before = fd.LAUNCHES[tier]
+    got = fd.fused_decode_window_cuda(*args)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES[tier] == before + 1
+    assert (got[0][:, -1] == cfg.pad_token_id).all()
+    want = fd.fused_decode_window_reference(*args, return_logits=True)
+    _check_window(cfg, tier, batch, got, want)
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+@pytest.mark.parametrize('batch', [1, 8])
+def test_repeated_windows_are_bit_identical(cuda, tier, batch):
+    """Sums stay in a fixed order (no float atomics; a pair's two splits
+    combined in split order): the same window twice gives the same tokens,
+    rows and scales bit for bit."""
+    _, args = _window_case(cuda, tier, batch, 32, 64)
+    first = fd.fused_decode_window_cuda(*args)
+    second = fd.fused_decode_window_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    for key in first[2]:
+        assert torch.equal(first[2][key], second[2][key]), key
+
+
+def test_int4_window_scatter_keeps_the_neighbours(cuda):
+    """An int4 window at pos0 2 writes positions 2..9 of a cache of seeded
+    codes, whole bytes, and no other position moves; a step at odd
+    position 11 then writes the high nibble of byte 5 and keeps position
+    10, which the window wrote."""
+    from mr_mt3_tpu_torch.ops.int8_matmul import pack_int4, unpack_int4
+    cfg, T, batch = SMALL, 8, 3
+    dp, cross, cache, tokens = _setup(cfg, batch, 8, 32, cuda,
+                                      tier='fused_int4')
+    gen = torch.Generator().manual_seed(5)
+    for key in ('kq', 'vq'):
+        codes = torch.randint(-7, 8, unpack_int4(cache[key]).shape,
+                              generator=gen, dtype=torch.int8)
+        cache[key].copy_(pack_int4(codes).to(cuda))
+    for key in ('ks', 'vs'):
+        cache[key].copy_(torch.rand(cache[key].shape, generator=gen) + 0.1)
+    finished = torch.zeros(batch, dtype=torch.bool, device=cuda)
+    args = (cfg, dp.fused, fd.window_pos_rows(dp, 2, T), tokens, finished, 2,
+            cache, cross, T)
+    rows = fd.fused_decode_window_cuda(*args)[2]
+    before = {k: unpack_int4(cache[k]).clone() for k in ('kq', 'vq')}
+    fd.fused_decode_window(cfg, dp.fused, dp, tokens, finished, 2, cache,
+                           cross, T)
+    L, H = cfg.num_decoder_layers, cfg.num_heads
+    for key in ('kq', 'vq'):
+        after = unpack_int4(cache[key])
+        keep = [p for p in range(after.shape[-1]) if not 2 <= p < 2 + T]
+        assert torch.equal(after[..., keep], before[key][..., keep])
+        want = rows[key].reshape(T, L, H, batch, -1).permute(1, 2, 3, 4, 0)
+        assert torch.equal(after[..., 2:2 + T], want.to(after.dtype))
+    window = {k: unpack_int4(cache[k]).clone() for k in ('kq', 'vq')}
+    fd.fused_decode_step(cfg, dp.fused, dp, tokens, 11, cache, cross)
+    for key in ('kq', 'vq'):
+        after = unpack_int4(cache[key])
+        keep = [p for p in range(after.shape[-1]) if p != 11]
+        assert torch.equal(after[..., keep], window[key][..., keep])
+
+
+@pytest.mark.parametrize('batch', [1, 3])
+@pytest.mark.parametrize('style', ['torch', 'tf'])
+def test_logmel_fft_ragged_segments(cuda, style, batch):
+    """The FFT kernel at B 1 and 3 on 16000 samples (125 frames, the last
+    ones past the audio, and a last block of frames only partly filled):
+    within LOGMEL_BOUNDS of compute_logmel and of the float64 DFT."""
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig, compute_logmel
+    from mr_mt3_tpu_torch.ops import mel_kernel
+    cfg = SpectrogramConfig(filterbank_style=style)
+    x = torch.from_numpy(chip_smoke.logmel_inputs('tone', batch,
+                                                  16000)).to(cuda)
+    got = mel_kernel.logmel(x, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 125, 512)
+    for ref, want in (('vs_plain', compute_logmel(x, cfg)),
+                      ('vs_f64', chip_smoke.logmel_f64(torch, x, cfg))):
+        readings = chip_smoke.logmel_readings(torch, got, want)
+        assert chip_smoke.logmel_violations(chip_smoke.LOGMEL_BOUNDS[ref],
+                                            readings) == [], (ref, readings)
