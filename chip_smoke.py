@@ -24,15 +24,17 @@ Phases (any failure exits non-zero and prints no result line):
      modes the same bounds must also fail the kernel against a control,
      a plain version without the int8 requantization of q and the
      probabilities; CUDA-event timings (median) beside the
-     bytes/operations bound;
+     bytes/operations bound, the plain version's in WINDOW_MAIN_CASE only;
   3b. the int8 tiers' kernels against their plain versions at full width
      (int8_kernel_cases): int8_matmul at the lm_head (512 x 1536),
      int8_gated_ff at 512 / 1024, int8_decode_attention over a 1024 cache
      at positions 0, 31 and 1023 and across 256 and 320 encoder rows
      (head width 64, and 24), each at B 8 and 64 with f32 and bf16
      inputs, within INT8_BOUNDS, which must also catch a control (the
-     attention without the requantization of p); CUDA-event times beside
-     the bound, the plain version's and a library yardstick;
+     attention without the requantization of p); CUDA-event times of the
+     wrappers and each kernel's own time from a profiler trace
+     (trace_ms) beside the bound, the plain version's and a library
+     yardstick;
   3c. the log-mel kernel (logmel_cases) at the handler's shapes, B in
      {8, 64} segments of 32768 samples (and a ragged 16000), a tone, white
      noise and zeros, both filterbank styles: within LOGMEL_BOUNDS of its
@@ -83,18 +85,21 @@ Phases (any failure exits non-zero and prints no result line):
      on einsum;
   6. main path: the handler exactly as `python -m mr_mt3_tpu_torch.serve`
      builds and prepares it (configs/config.yaml, model=MT3Net, seed-0
-     random weights, default tier fused_int4, probe ladder and prewarm on),
-     serving WAV clips over HTTP from two concurrent clients; the ladder's
-     walk is printed, and no demotion may come from an exception;
+     random weights, default tier fused_int4, probe ladder and prewarm on)
+     at eval.max_length 512 (MAIN_PATH_MAX_LENGTH; users' default 1024,
+     cut for time), serving WAV clips over HTTP from two concurrent
+     clients; the ladder's walk is printed, and no demotion may come from
+     an exception;
   7. segment-memory main path: the same for `python -m
      mr_mt3_tpu_torch.serve model=MT3NetSegMemV2WithPrev
-     trainer.precision=bf16` (the paper's model, chained decode); the
+     trainer.precision=bf16` (the paper's model, chained decode), also at
+     eval.max_length 512; the
      fused_attention launches must equal the long attentions the model
      ran (memory-encoder calls and teacher-forced forwards at L >= 512);
      on both servers the log-mel launches equal the handler's
      _compute_mel calls (the probe's and the prewarm's counted);
-  7b. eval main path: `python -m mr_mt3_tpu_torch.eval model=MT3Net`
-     through eval.__main__.main(argv) on 4 fabricated Slakh-format songs
+  7b. eval main path: `python -m mr_mt3_tpu_torch.eval model=MT3Net
+     eval.max_length=512` through eval.__main__.main(argv) on 4 fabricated Slakh-format songs
      (4-10 s, tones and their notes as all_src_v2.mid), seed-0 random
      weights saved as a port checkpoint, at +eval.quantize=auto (the
      ladder from fused_int4) and at none: a MIDI per song,
@@ -108,19 +113,19 @@ Phases (any failure exits non-zero and prints no result line):
      prepare_handler(probe=False)): the same clips, every answer MIDI;
   8b. the int8 tiers as `serve +eval.quantize=int8|int8_kv` builds them:
      the ladder's walk from each (printed), a handler held at each
-     serving the clips, the int8 kernels' launches equal to the greedy
+     serving the clips at eval.max_length 256 (cut for time), the int8 kernels' launches equal to the greedy
      steps times num_decoder_layers + 1 (int8) or 2 x num_decoder_layers
      (int8_kv); and the segment-memory model at bf16 through each tier
-     held, one clip at eval.max_length 256 (cut from 1024 for time);
+     held, one clip at eval.max_length 128 (cut from 1024 for time);
   9. one worst-case decode (B=8, 1024 steps) on each window tier, each
      int8 tier and the exact path (fp32, TF32 off), and one chained
      segment-memory
      decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
   9b. the step path (step_path): 1024 greedy steps of B=8 segments through
      fused_decode_step in each mode, the argmax taken outside: launches
-     equal to the steps, ms per step and RTF, tokens against the same loop
-     on the plain version (a row may part only at a near-tie, BOUNDS'
-     max_gap_rel); on the parity model the step-driven tokens equal the
+     equal to the steps, ms per step and RTF, the first 256 steps' tokens
+     against the same loop on the plain version (a row may part only at a
+     near-tie, BOUNDS' max_gap_rel); on the parity model the step-driven tokens equal the
      window's in fused_bf16 and fused, up to each row's EOS;
   9c. the grouped path (grouped_path): benchmarks/dev_fused_group_axis.py's
      decode, 8 groups of 8 segments (B 64), 32-step windows, chunk 256,
@@ -247,6 +252,16 @@ TIMED_RUNS = 20
 PLAIN_TIMED_RUNS = 3
 PLAIN_WINDOW_TIMED_RUNS = 1
 TIERS = ('fused_bf16', 'fused', 'fused_int4')
+# the window case (batch, pos0, Lenc) whose numbers the kernel line reports
+WINDOW_MAIN_CASE = (8, 992, 256)
+# Depth cut for time (the whole script must finish well inside 1200 s,
+# about 600): the serving and eval main paths decode at
+# eval.max_length MAIN_PATH_MAX_LENGTH (users' default 1024; the probe's
+# full-length confirm still runs, at this length, above its 256-step
+# probes), the int8 tiers' held servers at INT8_SERVING_MAX_LENGTH, and
+# the step path holds its first STEP_PATH_PLAIN_STEPS steps against the
+# plain loop. The worst-case decodes keep 1024 steps.
+MAIN_PATH_MAX_LENGTH = 512
 
 
 def fail(msg):
@@ -542,9 +557,12 @@ def kernel_cases(torch):
                     bad.append(f'{name}: the bounds do not tell the '
                                f'kernel from the f32 attention control')
             ms = time_ms(torch, lambda: fd.fused_decode_window_cuda(*args))
+            # the plain window (~1 s a call) is timed only in the case the
+            # kernel line reports (WINDOW_MAIN_CASE), for the script's time
             plain_ms = time_ms(
                 torch, lambda: fd.fused_decode_window_reference(*args),
-                runs=PLAIN_WINDOW_TIMED_RUNS, warmup=0)
+                runs=PLAIN_WINDOW_TIMED_RUNS, warmup=0) \
+                if (batch, pos0, lenc) == WINDOW_MAIN_CASE else None
             bound, bound_by = window_bound_ms(cfg, batch, pos0, lenc, T,
                                               tier)
             case = {'tier': tier, 'batch': batch, 'pos0': pos0,
@@ -603,6 +621,8 @@ STEP_BOUNDS = {
 STEP_CASES = [(b, p, 256) for b in (8, 64) for p in (0, 255, 256, 700, 1023)] \
     + [(8, p, 320) for p in (511, 512, 1023)]
 STEP_PATH_STEPS = 1024
+# the step path's steps held against the plain loop (~20-30 ms a step)
+STEP_PATH_PLAIN_STEPS = 256
 # the grouped window's cases (groups, pos0) and its path's shape, after
 # benchmarks/dev_fused_group_axis.py: 8 groups (B 64), t_window 32, chunk 256
 GROUPED_CASES = [(g, p) for g in (2, 8) for p in (0, 224, 992)]
@@ -802,8 +822,9 @@ def step_loop(torch, fd, cfg, dp, cross, batch, steps, plain=False):
 
 def step_path(torch):
     """The slice's step path: 1024 greedy steps of B=8 segments through
-    fused_decode_step in each mode, the launches counted, tokens against
-    the same loop on the plain version (margin rule); the parity model's
+    fused_decode_step in each mode, the launches counted, the first
+    STEP_PATH_PLAIN_STEPS steps' tokens against the same loop on the plain
+    version (margin rule); the parity model's
     step-driven tokens against its window's."""
     phase(f'step path (fused_decode_step, B=8, {STEP_PATH_STEPS} steps)')
     from mr_mt3_tpu_torch.models import MT3, MT3Config
@@ -838,12 +859,12 @@ def step_path(torch):
                  f'steps')
         t0 = time.monotonic()
         plain, logits = step_loop(torch, fd, cfg, dp, cross, 8,
-                                  STEP_PATH_STEPS, plain=True)
+                                  STEP_PATH_PLAIN_STEPS, plain=True)
         torch.cuda.synchronize()
         plain_secs = time.monotonic() - t0
         gaps, agreeing = [], 0
         for b in range(8):
-            diff = (toks[b] != plain[b]).nonzero()
+            diff = (toks[b, :STEP_PATH_PLAIN_STEPS] != plain[b]).nonzero()
             if not len(diff):
                 agreeing += 1
                 continue
@@ -860,7 +881,9 @@ def step_path(torch):
                      'seconds': secs,
                      'ms_per_step': secs / STEP_PATH_STEPS * 1e3,
                      'rtf': 8 * SEGMENT_S / secs,
-                     'plain_ms_per_step': plain_secs / STEP_PATH_STEPS * 1e3,
+                     'plain_ms_per_step':
+                         plain_secs / STEP_PATH_PLAIN_STEPS * 1e3,
+                     'plain_steps': STEP_PATH_PLAIN_STEPS,
                      'rows_agreeing_with_plain': agreeing,
                      'max_gap_rel': max_gap}
         print(f'{tier}: {json.dumps(out[tier])}', flush=True)
@@ -1309,8 +1332,10 @@ def main_path(torch):
     walk = ProbeWalk()
     try:
         t0 = time.monotonic()
-        handler = serve.build_handler([])
-        if handler.quantize != 'fused_int4':
+        handler = serve.build_handler(
+            [f'eval.max_length={MAIN_PATH_MAX_LENGTH}'])
+        if handler.quantize != 'fused_int4' or \
+                handler.max_length != MAIN_PATH_MAX_LENGTH:
             fail(f'default tier is {handler.quantize!r}, expected '
                  f'fused_int4')
         info = serve.prepare_handler(handler)
@@ -1586,6 +1611,35 @@ def device_time(torch, fn, by_name=False):
     if total <= 0:
         fail('torch.profiler recorded no device time')
     return (total, kernels, names) if by_name else (total, kernels)
+
+
+# calls of a kernel in one trace_ms reading
+TRACE_RUNS = 20
+
+
+def kernel_trace_ms(torch, fn, symbol, runs=TRACE_RUNS, tries=3):
+    """The kernel's own time: the device duration (ms) of the events whose
+    name holds `symbol` over `runs` calls of fn, from one torch.profiler
+    trace. time_ms's intervals also hold the host's cost of
+    each call (the wrapper's checks, ctypes), which sets them once a kernel
+    takes a few microseconds. The profiler drops or cuts short an event
+    now and then: the reading is the median of the events the trace
+    holds, and a trace that holds fewer than half of them is taken again,
+    `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and symbol in e.name]
+        if 2 * len(ms) >= runs:
+            return statistics.median(ms)
+    fail(f'{tries} traces of {runs} calls hold {len(ms)} {symbol} kernels')
 
 
 def device_per_step(torch, decode, wall_ms_per_step):
@@ -1931,10 +1985,11 @@ def attention_backward_cases(torch):
 
 # the parts of versus(): each times this tree's kernels against another
 # design's sources of the same kernels
-VERSUS_PARTS = ('attention', 'logmel', 'decode')
+VERSUS_PARTS = ('attention', 'logmel', 'decode', 'int8')
 VERSUS_SOURCES = {'attention': ('fused_attention_fwd', 'fused_attention_bwd'),
                   'logmel': ('logmel',),
-                  'decode': ('fused_decode_window', 'fused_decode_step')}
+                  'decode': ('fused_decode_window', 'fused_decode_step'),
+                  'int8': ('int8_matmul', 'int8_decode_attention')}
 # (batch, pos0, Lenc) of the window cases timed against the old design
 VERSUS_WINDOW_CASES = [(b, p, 256) for b in (8, 64) for p in (0, 32, 992)] \
     + [(8, 992, 320), (64, 992, 320)]
@@ -1997,13 +2052,17 @@ def versus(torch, old_dir, parts=VERSUS_PARTS):
     profile of one step), 'logmel' (B 8 and 64 segments, with
     compute_logmel timed beside) and 'decode' (the window per mode at
     VERSUS_WINDOW_CASES on a seeded cache, the step at VERSUS_STEP_CASES,
-    the grouped int8 window at VERSUS_GROUPED_CASES). Each case is timed in
-    turns (old, new, new, old) through the same C launch; a case the old
-    design refuses records its error. Writes versus.json under OUT_DIR.
-    Alone:
+    the grouped int8 window at VERSUS_GROUPED_CASES) and 'int8' (every
+    int8_kernel_cases case of int8_matmul, int8_gated_ff and
+    int8_decode_attention, with each kernel's own time from a trace beside
+    the launch's). Each case is timed in turns (old, new, new, old) through
+    the same C launch; a case the old design refuses records its error.
+    Writes versus.json under OUT_DIR. Alone:
 
         python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
         chip_smoke.versus(torch, '.archive/parent_csrc')"
+
+    (one part: parts=('int8',)).
     """
     phase('kernels against the design they replace')
     names = [n for part in parts for n in VERSUS_SOURCES[part]]
@@ -2015,6 +2074,8 @@ def versus(torch, old_dir, parts=VERSUS_PARTS):
         results['logmel'] = logmel_versus(torch, old['logmel'])
     if 'decode' in parts:
         results.update(decode_versus(torch, old))
+    if 'int8' in parts:
+        results.update(int8_versus(torch, old))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'versus.json'), 'w') as f:
         json.dump(results, f, indent=1)
@@ -2295,6 +2356,78 @@ def decode_versus(torch, old):
     return out
 
 
+def int8_versus(torch, old):
+    """versus()'s int8 part: every int8_kernel_cases case (int8_case_inputs)
+    through each design's C launch, the old library called with the new
+    one's leading arguments (the feed-forward's scratch and barrier words
+    come last, and the old one has none), in turns: the launches' time_ms
+    and the kernel's own trace_ms, and the largest |difference| between the
+    two outputs."""
+    import ctypes
+
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    old_mm, old_att = old['int8_matmul'], old['int8_decode_attention']
+    old_mm.i8mm_launch.argtypes = [ptr] * 4 + [num] * 4 + [ptr]
+    old_mm.i8ff_launch.argtypes = [ptr] * 8 + [num] * 4 + [ptr]
+    old_att.i8att_launch.argtypes = [ptr] * 6 + [num] * 6 + [ptr]
+    libs = {'old': (old_mm, old_att), 'new': (i8m._library(), i8a._library())}
+    dev = torch.device('cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    dtype_id = i8m._DTYPE_ID
+    out = {k: [] for k in INT8_KERNEL_NAMES}
+    for kernel, case, args in int8_case_inputs(torch):
+        x = args[0]
+        b, dt = x.shape[0], dtype_id[x.dtype]
+        if kernel == 'int8_matmul':
+            _, w, s = args
+            shape = (b, w.shape[1])
+            ptrs = [t.data_ptr() for t in args]
+            dims = [b, *w.shape, dt]
+        elif kernel == 'int8_gated_ff':
+            h, w0, s0, w1, s1, wo, so = args
+            shape = h.shape
+            f = w0.shape[1]
+            ptrs = [t.data_ptr() for t in (h, w0, w1, wo, s0, s1, so)]
+            dims = [b, h.shape[1], f, dt]
+            g = torch.empty((b, -(-f // 8) * 8), dtype=torch.bfloat16,
+                            device=dev)
+            extra = [g.data_ptr(), i8m._barrier(dev, stream).data_ptr()]
+        else:
+            q, kq, ks, vq, vs, pos = args
+            shape = (b, q.shape[1] * q.shape[2])
+            ptrs = [t.data_ptr() for t in (q, kq, ks, vq, vs)]
+            dims = [*q.shape, kq.shape[-1], pos, dt]
+        outs = {k: torch.empty(shape, dtype=x.dtype, device=dev)
+                for k in ('old', 'new')}
+
+        def launch(which):
+            mm, att = libs[which]
+            o = outs[which].data_ptr()
+            if kernel == 'int8_matmul':
+                rc = mm.i8mm_launch(*ptrs, o, *dims, stream)
+            elif kernel == 'int8_gated_ff':
+                rc = mm.i8ff_launch(*ptrs, o, *dims, stream,
+                                    *(extra if which == 'new' else ()))
+            else:
+                rc = att.i8att_launch(*ptrs[:5], o, *dims, stream)
+            if rc:
+                raise RuntimeError(f'{which} {kernel} launch failed: {rc}')
+        run_old, run_new = (lambda: launch('old')), (lambda: launch('new'))
+        case.update(versus_turns(torch, run_old, run_new))
+        symbol = INT8_KERNEL_NAMES[kernel]
+        for which in ('old', 'new', 'new', 'old'):
+            case.setdefault(f'{which}_trace_ms', []).append(kernel_trace_ms(
+                torch, run_old if which == 'old' else run_new, symbol))
+        torch.cuda.synchronize()
+        case['old_vs_new_max_abs'] = float(
+            (outs['old'].float() - outs['new'].float()).abs().max())
+        print(json.dumps({kernel: case}), flush=True)
+        out[kernel].append(case)
+    return {'int8': out}
+
+
 # tests/parity_common.py:39-42: the segment-memory parity models
 WITHPREV_KW = dict(segmem_variant='encoder_append', segmem_length=16)
 V1_KW = dict(segmem_variant='decoder_prepend', segmem_length=16,
@@ -2469,9 +2602,11 @@ def segmem_main_path(torch):
     walk = ProbeWalk()
     try:
         t0 = time.monotonic()
-        handler = serve.build_handler(SEGMEM_ARGS)
+        handler = serve.build_handler(
+            SEGMEM_ARGS + [f'eval.max_length={MAIN_PATH_MAX_LENGTH}'])
         cfg = handler.cfg
         if handler.quantize != 'fused_int4' or \
+                handler.max_length != MAIN_PATH_MAX_LENGTH or \
                 cfg.segmem_variant != 'encoder_append' or \
                 cfg.dtype != 'bfloat16' or handler.contiguous_inference:
             fail(f'the segmem server is not the paper model at bf16, '
@@ -2682,26 +2817,16 @@ def _bound(nbytes, t_ops):
                                        else 'operations')
 
 
-def int8_kernel_cases(torch):
-    """int8_matmul (the lm_head, 512 x 1536), int8_gated_ff (512 / 1024)
-    and int8_decode_attention (INT8_ATTN_CASES) against their plain
-    versions at B 8 and 64, f32 and bf16 inputs; the attention also
-    against its control. Then each kernel's time (its wrapper, as the
-    decode calls it), the plain version's, the bound and a library
-    yardstick that is not the same function: torch.matmul on weights
-    dequantized once beforehand, and scaled_dot_product_attention (scale
-    1.0) over the dequantized positions <= position; none for the
-    feed-forward."""
-    phase('int8 kernels vs plain (full width)')
-    import torch.nn.functional as F
-
+def int8_case_inputs(torch):
+    """The inputs of int8_kernel_cases on the card, from one seed, in
+    order: yields (kernel, case, args) for int8_matmul (the lm_head, 512 x
+    1536), int8_gated_ff (512 / 1024) and int8_decode_attention
+    (INT8_ATTN_CASES) at INT8_BATCHES x INT8_DTYPES, args those of the
+    kernel's wrapper."""
     from mr_mt3_tpu_torch.ops import int8_attention as i8a
     from mr_mt3_tpu_torch.ops import int8_matmul as i8m
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(5)
-    results = {'int8_matmul': [], 'int8_gated_ff': [],
-               'int8_decode_attention': []}
-    bad = []
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -2709,6 +2834,49 @@ def int8_kernel_cases(torch):
     def quantized(k, n):
         codes, scale = i8m.quantize_columns(randn(k, n, scale=0.05))
         return codes.contiguous(), scale[None].contiguous()
+
+    d, vocab, ff = 512, 1536, 1024
+    w_lm, s_lm = quantized(d, vocab)
+    w0, s0 = quantized(d, ff)
+    w1, s1 = quantized(d, ff)
+    wo, so = quantized(ff, d)
+    for dtype in INT8_DTYPES:
+        tdt = getattr(torch, dtype)
+        for b in INT8_BATCHES:
+            yield ('int8_matmul',
+                   {'case': 'lm_head', 'batch': b, 'dtype': dtype},
+                   (randn(b, d).to(tdt), w_lm, s_lm))
+            yield ('int8_gated_ff',
+                   {'case': 'ff_512x1024', 'batch': b, 'dtype': dtype},
+                   (randn(b, d).to(tdt), w0, s0, w1, s1, wo, so))
+            for name, heads, dk, k_len, pos in INT8_ATTN_CASES:
+                q = randn(b, heads, dk).to(tdt)
+                (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+                    randn(b, heads, dk, k_len)) for _ in range(2))
+                yield ('int8_decode_attention',
+                       {'case': name, 'batch': b, 'dtype': dtype,
+                        'heads': heads, 'd_kv': dk, 'cache': k_len,
+                        'position': pos},
+                       (q, kq, ks, vq, vs, pos))
+
+
+def int8_kernel_cases(torch):
+    """int8_matmul, int8_gated_ff and int8_decode_attention against their
+    plain versions on int8_case_inputs; the attention also against its
+    control. Then each kernel's time: its wrapper's, as the decode calls it
+    (time_ms), and the kernel's own from a trace (trace_ms); the plain
+    version's, the bound and a library yardstick that is not the same
+    function: torch.matmul on weights dequantized once beforehand, and
+    scaled_dot_product_attention (scale 1.0) over the dequantized
+    positions <= position; none for the feed-forward."""
+    phase('int8 kernels vs plain (full width)')
+    import torch.nn.functional as F
+
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    results = {'int8_matmul': [], 'int8_gated_ff': [],
+               'int8_decode_attention': []}
+    bad = []
 
     def record(kernel, case, got, want, head_width=None, control=None):
         torch.cuda.synchronize()
@@ -2729,86 +2897,62 @@ def int8_kernel_cases(torch):
                            f'the control without the requantization of p')
         return case
 
-    d, vocab, ff = 512, 1536, 1024
-    w_lm, s_lm = quantized(d, vocab)
-    w0, s0 = quantized(d, ff)
-    w1, s1 = quantized(d, ff)
-    wo, so = quantized(ff, d)
-    for dtype in INT8_DTYPES:
+    kernels = {'int8_matmul': (i8m.int8_matmul_cuda,
+                               i8m.int8_matmul_reference),
+               'int8_gated_ff': (i8m.int8_gated_ff_cuda,
+                                 i8m.int8_gated_ff_reference),
+               'int8_decode_attention': (i8a.int8_decode_attention_cuda,
+                                         i8a.int8_decode_attention_reference)}
+    lm_deq = {}
+    for kernel, case, args in int8_case_inputs(torch):
+        cuda, plain = kernels[kernel]
+        dtype, b = case['dtype'], case['batch']
         tdt = getattr(torch, dtype)
         elt = 4 if dtype == 'float32' else 2
-        lm_deq = (w_lm.float() * s_lm).to(tdt)
-        for b in INT8_BATCHES:
-            x = randn(b, d).to(tdt)
-            case = {'case': 'lm_head', 'batch': b, 'dtype': dtype}
-            got = i8m.int8_matmul(x, w_lm, s_lm)
-            record('int8_matmul', case, got,
-                   i8m.int8_matmul_reference(x, w_lm, s_lm))
-            case['ms'] = time_ms(torch, lambda: i8m.int8_matmul_cuda(
-                x, w_lm, s_lm))
-            case['plain_ms'] = time_ms(
-                torch, lambda: i8m.int8_matmul_reference(x, w_lm, s_lm),
-                runs=PLAIN_TIMED_RUNS, warmup=0)
-            case['library_ms'] = time_ms(torch, lambda: torch.matmul(
-                x, lm_deq))
+        got = cuda(*args)
+        if kernel == 'int8_matmul':
+            x, w_lm, s_lm = args
+            record(kernel, case, got, plain(*args))
+            if dtype not in lm_deq:
+                lm_deq[dtype] = (w_lm.float() * s_lm).to(tdt)
+            case['library_ms'] = time_ms(
+                torch, lambda: torch.matmul(x, lm_deq[dtype]))
             case['bound_ms'], case['bound_by'] = int8_matmul_bound_ms(
-                b, d, vocab, elt)
-            print(json.dumps(case), flush=True)
-            results['int8_matmul'].append(case)
-
-            h = randn(b, d).to(tdt)
-            args = (h, w0, s0, w1, s1, wo, so)
-            case = {'case': 'ff_512x1024', 'batch': b, 'dtype': dtype}
-            got = i8m.int8_gated_ff(*args)
-            record('int8_gated_ff', case, got,
-                   i8m.int8_gated_ff_reference(*args))
-            case['ms'] = time_ms(torch, lambda: i8m.int8_gated_ff_cuda(
-                *args))
-            case['plain_ms'] = time_ms(
-                torch, lambda: i8m.int8_gated_ff_reference(*args),
-                runs=PLAIN_TIMED_RUNS, warmup=0)
+                b, *w_lm.shape, elt)
+        elif kernel == 'int8_gated_ff':
+            record(kernel, case, got, plain(*args))
             case['library_ms'] = None
             case['bound_ms'], case['bound_by'] = int8_gated_ff_bound_ms(
-                b, d, ff, elt)
-            print(json.dumps(case), flush=True)
-            results['int8_gated_ff'].append(case)
-
-            for name, heads, dk, k_len, pos in INT8_ATTN_CASES:
-                q = randn(b, heads, dk).to(tdt)
-                (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
-                    randn(b, heads, dk, k_len)) for _ in range(2))
-                args = (q, kq, ks, vq, vs, pos)
-                case = {'case': name, 'batch': b, 'dtype': dtype,
-                        'heads': heads, 'd_kv': dk, 'cache': k_len,
-                        'position': pos}
-                got = i8a.int8_decode_attention(*args)
-                # at position 0 p is 1 and requantizes exactly: the control
-                # is the same function there
-                record('int8_decode_attention', case, got,
-                       i8a.int8_decode_attention_reference(*args), dk,
-                       int8_attention_control(torch, *args) if pos else None)
-                n = pos + 1
-                qt = q[:, :, None, :]
-                # (B, H, n, dk) with dense strides (at n = 1 .contiguous()
-                # keeps the transposed strides, which SDPA refuses)
-                kt, vt = ((c[..., :n].float() * sc[..., :n]).to(tdt)
-                          .transpose(-1, -2)
-                          .clone(memory_format=torch.contiguous_format)
-                          for c, sc in ((kq, ks), (vq, vs)))
-                case['ms'] = time_ms(
-                    torch, lambda: i8a.int8_decode_attention_cuda(*args))
-                case['plain_ms'] = time_ms(
-                    torch,
-                    lambda: i8a.int8_decode_attention_reference(*args),
-                    runs=PLAIN_TIMED_RUNS, warmup=0)
-                case['library_ms'] = time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, scale=1.0))
-                case['bound_ms'], case['bound_by'] = \
-                    int8_attention_bound_ms(b, heads, dk, n, elt)
-                print(json.dumps(case), flush=True)
-                results['int8_decode_attention'].append(case)
-                del q, kq, ks, vq, vs, kt, vt, got
+                b, *args[1].shape, elt)
+        else:
+            q, kq, ks, vq, vs, pos = args
+            heads, dk = case['heads'], case['d_kv']
+            # at position 0 p is 1 and requantizes exactly: the control is
+            # the same function there
+            record(kernel, case, got, plain(*args), dk,
+                   int8_attention_control(torch, *args) if pos else None)
+            n = pos + 1
+            qt = q[:, :, None, :]
+            # (B, H, n, dk) with dense strides (at n = 1 .contiguous() keeps
+            # the transposed strides, which SDPA refuses)
+            kt, vt = ((c[..., :n].float() * sc[..., :n]).to(tdt)
+                      .transpose(-1, -2)
+                      .clone(memory_format=torch.contiguous_format)
+                      for c, sc in ((kq, ks), (vq, vs)))
+            case['library_ms'] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, scale=1.0))
+            case['bound_ms'], case['bound_by'] = int8_attention_bound_ms(
+                b, heads, dk, n, elt)
+            del kt, vt
+        case['ms'] = time_ms(torch, lambda: cuda(*args))
+        case['trace_ms'] = kernel_trace_ms(
+            torch, lambda: cuda(*args), INT8_KERNEL_NAMES[kernel])
+        case['plain_ms'] = time_ms(torch, lambda: plain(*args),
+                                   runs=PLAIN_TIMED_RUNS, warmup=0)
+        print(json.dumps(case), flush=True)
+        results[kernel].append(case)
+        del got, args
     if bad:
         fail('int8 kernels vs plain versions: ' + '; '.join(bad))
     return results
@@ -2886,12 +3030,17 @@ def check_int8_launches(tier, steps, layers):
     return got
 
 
+# the int8 tiers' held servers (their eager step loop is host-bound, ~7-11
+# ms a step at B 8): cut from 1024 for time
+INT8_SERVING_MAX_LENGTH = 256
+
+
 def int8_tier_serving(torch):
     """The int8 tiers as `python -m mr_mt3_tpu_torch.serve
     +eval.quantize=<tier>` builds them: first the probe ladder's walk from
     the tier (printed; random weights may demote it), then a handler held
     at the tier (prepare_handler(probe=False)) serving the 4 clips over
-    HTTP; the kernels' launches must equal the steps decoded times the
+    HTTP at eval.max_length INT8_SERVING_MAX_LENGTH; the kernels' launches must equal the steps decoded times the
     per-step count (num_decoder_layers + 1 for int8, 2 x
     num_decoder_layers for int8_kv)."""
     from mr_mt3_tpu_torch import serve
@@ -2911,7 +3060,9 @@ def int8_tier_serving(torch):
             fail(f'the ladder from {tier} raised: {walk}')
         del handler
         phase(f'serving held at {tier}')
-        handler = serve.build_handler([f'+eval.quantize={tier}'])
+        handler = serve.build_handler(
+            [f'+eval.quantize={tier}',
+             f'eval.max_length={INT8_SERVING_MAX_LENGTH}'])
         zero_launches()
         log, steps = DecodeLog(), StepLog()
         try:
@@ -2938,7 +3089,7 @@ def int8_tier_serving(torch):
     return out
 
 
-SEGMEM_INT8_MAX_LENGTH = 256
+SEGMEM_INT8_MAX_LENGTH = 128
 
 
 def segmem_int8_leg(torch):
@@ -3220,7 +3371,7 @@ EVAL_DIR = os.path.join(REPO, '.chip_smoke_eval')
 # full width (configs/config.yaml, seed-0 random weights saved as a port
 # checkpoint) over 4 fabricated Slakh-format songs (14 segments)
 EVAL_SONG_SECONDS = (4.0, 5.5, 7.0, 10.0)
-EVAL_ARGS = ['model=MT3Net']
+EVAL_ARGS = ['model=MT3Net', f'eval.max_length={MAIN_PATH_MAX_LENGTH}']
 # evaluate_main's keys
 SCORE_KEYS = {'Onset precision', 'Onset recall', 'Onset F1'} | {
     f'Onset + program {m} ({g})' for m in ('precision', 'recall', 'F1')
@@ -4080,8 +4231,8 @@ def main():
                              'window'}
     kernels = []
     for tier in TIERS:
-        main_case = next(c for c in cases[tier] if c['batch'] == 8
-                         and c['pos0'] == 992 and c['lenc'] == 256)
+        main_case = next(c for c in cases[tier] if (
+            c['batch'], c['pos0'], c['lenc']) == WINDOW_MAIN_CASE)
         kernels.append({
             'name': f'fused_decode_window[{tier}]', 'mode': tier,
             'route': 'cuda',

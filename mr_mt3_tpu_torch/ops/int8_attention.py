@@ -17,9 +17,10 @@ masked position contributes exact zeros, so both versions stop at
 `position`, and a cache of any length past it gives the same result.
 
 The layout is the JAX package's: q (B, H, dk); codes (B, H, dk, K), the
-positions last; scales (B, H, 1, K). The CUDA kernel reads 4 positions at
-a time, so K must be a multiple of POSITION_ALIGN there: the port's
-caches are allocated so (ops/fast_decode.py).
+positions last; scales (B, H, 1, K). The CUDA kernel copies 16 positions
+at a time where K and the pointers allow it, else 8 or 4, so K must be a
+multiple of POSITION_ALIGN there: the port's caches are allocated so
+(ops/fast_decode.py).
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import torch
 from mr_mt3_tpu_torch.ops.cuda_build import check_operand
 
 _MAX_DK = 128     # the kernel's head width limit (csrc: MAX_DK)
-# the kernel reads 4 positions at a time: cache lengths are multiples of
-# this (ops/fast_decode.py allocates and pads its caches so)
+# the kernel's narrowest copy is 4 positions: cache lengths are multiples
+# of this (ops/fast_decode.py allocates and pads its caches so)
 POSITION_ALIGN = 4
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}   # csrc: DType
 
@@ -114,7 +115,7 @@ def int8_decode_attention_cuda(q: torch.Tensor,
         raise ValueError(f'd_kv {dk} is above the kernel limit {_MAX_DK}')
     if k_len % POSITION_ALIGN:
         raise ValueError(f'cache length {k_len} is not a multiple of '
-                         f'{POSITION_ALIGN} (the kernel reads '
+                         f'{POSITION_ALIGN} (the kernel copies at least '
                          f'{POSITION_ALIGN} positions at a time)')
     position = int(position)
     if not 0 <= position < k_len:

@@ -6,7 +6,8 @@ and mr_mt3_tpu/ops/fused_decode.py::quantize_columns_int4).
   * int8_gated_ff  -- a decoder layer's gated-GELU feed-forward with int8
                       wi_0, wi_1 and wo in one launch; the intermediate is
                       rounded to bf16 whatever h's type, as the TPU kernel
-                      does, and never leaves the kernel.
+                      does, and handed between the launch's two phases
+                      through a scratch the wrapper allocates.
 For CUDA tensors each wrapper launches the hand-written kernel of
 csrc/int8_matmul.cu (it replaces the TPU kernels int8_matmul.py::
 int8_matmul and ::int8_gated_ff); for CPU tensors it runs the plain
@@ -36,6 +37,8 @@ _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}   # csrc: DType
 
 # launches of the CUDA kernels; only the kernel paths add to them
 LAUNCHES = {'int8_matmul': 0, 'int8_gated_ff': 0}
+# the feed-forward kernel's grid barrier words, by (device index, stream)
+_BARRIERS = {}
 
 
 def quantize_columns(w: torch.Tensor, qmax: int = 127
@@ -103,11 +106,20 @@ def _library():
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.i8mm_launch.restype = ctypes.c_int
         lib.i8ff_launch.argtypes = [ctypes.c_void_p] * 8 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         lib.i8ff_launch.restype = ctypes.c_int
         lib.i8mm_error_string.argtypes = [ctypes.c_int]
         lib.i8mm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _barrier(dev: torch.device, stream: int) -> torch.Tensor:
+    """The feed-forward kernel's grid barrier words for (device, stream):
+    zeroed once, left zero by every launch; two streams never share one."""
+    key = (dev.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return _BARRIERS[key]
 
 
 def _raise_on(lib, rc: int, kernel: str) -> None:
@@ -158,13 +170,16 @@ def int8_gated_ff_cuda(h: torch.Tensor,
         check_operand(name, t, torch.float32, (1, n), dev)
     _check_columns(d_model=d, d_ff=f)
     out = torch.empty((b, d), dtype=h.dtype, device=dev)
+    # the intermediate g, rows of f rounded up to 8 (16-byte rows)
+    g = torch.empty((b, -(-f // 8) * 8), dtype=torch.bfloat16, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.i8ff_launch(h.data_ptr(), w0_q.data_ptr(), w1_q.data_ptr(),
                              wo_q.data_ptr(), s0.data_ptr(), s1.data_ptr(),
                              so.data_ptr(), out.data_ptr(), b, d, f,
-                             _DTYPE_ID[h.dtype], stream)
+                             _DTYPE_ID[h.dtype], stream, g.data_ptr(),
+                             _barrier(dev, stream).data_ptr())
     _raise_on(lib, rc, 'int8_gated_ff')
     LAUNCHES['int8_gated_ff'] += 1
     return out

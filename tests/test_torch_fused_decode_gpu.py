@@ -522,6 +522,144 @@ def test_int8_wrappers_check_operands(cuda):
     assert {**i8m.LAUNCHES, **i8a.LAUNCHES} == before
 
 
+# bf16 at B >= 13 only: INT8_BOUNDS' share of unequal bf16 outputs (1e-3)
+# is set for thousands of outputs; one row has 512, and a single output
+# on a bf16 rounding tie (the kernel's f32 order against cuBLAS's one-row
+# product) is 0.2% of them
+@pytest.mark.parametrize('b,dtype', [(1, 'float32'), (13, 'float32'),
+                                     (64, 'float32'), (13, 'bfloat16'),
+                                     (64, 'bfloat16')])
+def test_int8_gated_ff_full_width_batches(cuda, b, dtype):
+    """The feed-forward at the decoder's 512 / 1024 at B 1, 13 (a ragged
+    second row tile) and 64 (8 tiles, several tasks a block), one launch
+    each, within INT8_BOUNDS; its grid barrier's words are zero again
+    after the launches, and another stream gets its own."""
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b)
+    h = _randn(gen, b, 512, device=cuda, dtype=tdt)
+    args = (h, *_quantized(gen, 512, 1024, cuda),
+            *_quantized(gen, 512, 1024, cuda),
+            *_quantized(gen, 1024, 512, cuda))
+    before = i8m.LAUNCHES['int8_gated_ff']
+    for _ in range(3):
+        got = i8m.int8_gated_ff(*args)
+    torch.cuda.synchronize()
+    assert i8m.LAUNCHES['int8_gated_ff'] == before + 3
+    readings = chip_smoke.output_readings(
+        torch, got, i8m.int8_gated_ff_reference(*args))
+    assert not chip_smoke.int8_violations('int8_gated_ff', dtype, readings)
+    stream = torch.cuda.current_stream().cuda_stream
+    bar = i8m._barrier(h.device, stream)
+    assert bar.tolist()[0] == 0       # the count; bar[1] is the generation
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        other = i8m.int8_gated_ff(*args)
+    torch.cuda.synchronize()
+    assert i8m._barrier(h.device, side.cuda_stream).data_ptr() \
+        != bar.data_ptr()
+    assert torch.equal(other, got)
+
+
+# (batch, heads, d_kv, cache, position): B 1, 13 and 64; positions 0 and
+# ragged ones; the layout's boundaries (1 / 2 position groups at 16 / 17
+# positions, 32 at 512, two passes past 1024); caches whose length is a
+# multiple of 4 or 8 but not 16 (8- and 4-byte loads); either side of the
+# design rule (stream_wins: B H >= #SMs and n (2 dk + 8) > 40 KB, at 132
+# pairs n 301 / 302)
+INT8_ATTN_EDGE_CASES = [
+    (1, 6, 64, 1024, 0), (1, 6, 64, 1024, 1023), (13, 6, 64, 1024, 700),
+    (13, 6, 64, 320, 319), (64, 6, 64, 1024, 0), (64, 6, 64, 1024, 517),
+    (64, 6, 64, 256, 255), (8, 6, 64, 1024, 15), (8, 6, 64, 1024, 16),
+    (8, 6, 64, 1024, 511), (8, 6, 64, 1024, 512), (2, 4, 64, 2048, 1500),
+    (3, 6, 64, 260, 259), (3, 6, 64, 264, 200), (2, 2, 128, 1024, 1023),
+    (22, 6, 64, 512, 300), (22, 6, 64, 512, 301)]
+
+
+@pytest.mark.parametrize('dtype', ['float32'])
+@pytest.mark.parametrize('b,h,dk,k_len,pos', INT8_ATTN_EDGE_CASES)
+def test_int8_attention_edges(cuda, b, h, dk, k_len, pos, dtype):
+    """The attention kernel at the edges of its layouts and of its design
+    rule, one launch each, within INT8_BOUNDS; the control caught wherever
+    a position past 0 takes part. f32 only: there the bounds ask every
+    head to agree (the codes are the plain version's); bf16's share of
+    heads apart (6%) is set for B 8 and 64 at 6 heads and is less than one
+    head at 8 (test_int8_attention_kernel_matches_plain_version and
+    chip_smoke hold bf16)."""
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b * 7 + pos)
+    q = _randn(gen, b, h, dk, device=cuda, dtype=tdt)
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        _randn(gen, b, h, dk, k_len, device=cuda)) for _ in range(2))
+    args = (q, kq, ks, vq, vs, pos)
+    before = i8a.LAUNCHES[i8a.KERNEL]
+    got = i8a.int8_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert i8a.LAUNCHES[i8a.KERNEL] == before + 1
+    readings = chip_smoke.output_readings(
+        torch, got, i8a.int8_decode_attention_reference(*args), dk)
+    assert not chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          readings)
+    if pos:
+        ctrl = chip_smoke.output_readings(
+            torch, got, chip_smoke.int8_attention_control(torch, *args), dk)
+        assert chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          ctrl)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    """Codes that are not 4-byte aligned, a d_model that is not a multiple
+    of 4 and a head wider than 128 raise before any launch."""
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    gen = torch.Generator().manual_seed(1)
+    before = {**i8m.LAUNCHES, **i8a.LAUNCHES}
+    q = _randn(gen, 1, 2, 8, device=cuda)
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        _randn(gen, 1, 2, 8, 16, device=cuda)) for _ in range(2))
+    store = torch.zeros(kq.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = store[1:].view(kq.shape)
+    shifted.copy_(kq)
+    with pytest.raises(ValueError, match='aligned'):
+        i8a.int8_decode_attention(q, shifted, ks, vq, vs, 5)
+    h = _randn(gen, 2, 30, device=cuda)
+    w, s = _quantized(gen, 30, 64, cuda)
+    wo, so = _quantized(gen, 64, 30, cuda)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        i8m.int8_gated_ff(h, w, s, w, s, wo, so)
+    wide = _randn(gen, 1, 1, 136, device=cuda)
+    codes = torch.zeros((1, 1, 136, 4), dtype=torch.int8, device=cuda)
+    scales = torch.ones((1, 1, 1, 4), device=cuda)
+    with pytest.raises(ValueError, match='limit'):
+        i8a.int8_decode_attention(wide, codes, scales, codes, scales, 0)
+    assert {**i8m.LAUNCHES, **i8a.LAUNCHES} == before
+
+
+@pytest.mark.parametrize('b,k,n', [(8, 512, 1024), (9, 512, 1024),
+                                   (64, 512, 1024), (8, 1024, 512),
+                                   (64, 1024, 512)])
+def test_cublas_f32_products_take_the_chunk_order(cuda, b, k, n):
+    """int8_gated_ff sums in the order cuBLAS takes for the plain
+    version's f32 products at the decoder's shapes (csrc/int8_matmul.cu,
+    ff_chunk_partials): chunks of 64 k's, each a sequence of fused
+    multiply-adds from zero, the chunks added in order; so its bf16 g is
+    the plain version's. Held here, so that a cuBLAS that orders its sums
+    otherwise shows (the kernel's bounds would still hold: g would move
+    at rounding ties)."""
+    gen = torch.Generator().manual_seed(k + n + b)
+    x = _randn(gen, b, k, device=cuda)
+    w = torch.randint(-127, 128, (k, n), generator=gen).float().to(cuda)
+    xd, wd = x.double(), w.double()
+    total = None
+    for c0 in range(0, k, 64):
+        acc = torch.zeros((b, n), device=cuda)
+        for i in range(c0, c0 + 64):
+            acc = (acc.double() + xd[:, i:i + 1] * wd[i]).float()
+        total = acc if total is None else total + acc
+    assert torch.equal(total, x @ w)
+
+
 @pytest.mark.parametrize('tier', ['int8', 'int8_kv'])
 def test_int8_launch_failure_stops_the_server(cuda, tier, monkeypatch):
     """A launch the card refuses (the library returns an error code)
