@@ -69,20 +69,23 @@
 // version bit for bit whatever the order. Built without --use_fast_math:
 // expf and the divisions that make the scales are the IEEE ones.
 //
-// Design of fd_kernel (the step, the grouped window, and the bf16 and int8
-// windows above 8 rows): one cooperative persistent launch, one block of 256 threads per
-// SM, cg::grid.sync() between phases (8 per layer plus lm_head). A
-// matrix-vector phase splits its output into 32-column x 8-row tiles over
-// the blocks and streams each tile's weights from L2/HBM after the barrier;
-// attention phases give one (row, head) pair to a block, one thread per
-// cache row for the score dot through scalar code loads, one warp per value
-// component. Each phase is a few dependent L2 round trips plus a barrier.
+// Design of fd_kernel (now only the bf16 and int8 windows above 8 rows):
+// one cooperative persistent launch, one block of 256 threads per SM,
+// cg::grid.sync() between phases (8 per layer plus lm_head and argmax). A
+// matrix-vector phase (matvec_phase) splits its output into 32-column x
+// 8-row tiles over the blocks and streams each tile's weights from L2/HBM
+// after the barrier; attention phases give one (row, head) pair to a
+// block, one thread per cache row for the score dot through scalar code
+// loads, one warp per value component. Each phase is a few dependent L2
+// round trips plus a barrier.
 //
-// Design of the window (KIND_WINDOW, fw_kernel), the same function
+// Design of fw_kernel<MODE, KIND> (the window up to 8 rows and int4 at
+// every B; the step and the grouped window at every B), the same function
 // laid out for the H100's 132 SMs and their shared memory:
 //   * one block of 256 threads per SM, in clusters of two, a cooperative
 //     launch; the grid barrier is a counter with release / acquire at gpu
-//     scope (cutlass/barrier.h's pattern), ~1 us a phase on the H100;
+//     scope (cutlass/barrier.h's pattern), ~1 us a phase on the H100; a
+//     wait past 4 s traps;
 //   * every projection's output columns are cut into 4-column units dealt
 //     round robin over all blocks (wi_0 and wi_1 in pairs, so the gated
 //     product is formed where both sums are): N = 384-2048 spread over
@@ -90,33 +93,48 @@
 //     weights in shared memory for the launch (~95 KB, loaded once); bf16
 //     and int8 stream their slices through two shared buffers with
 //     cp.async, the next projection's copy issued before the current one
-//     runs (int8 resident would take ~190 KB, too much beside the rest);
+//     runs, so its weights are in flight across the barrier (int8 resident
+//     would take ~190 KB, too much beside the rest);
 //   * every RMS norm's weights sit in shared memory (read by every block in
 //     every RMS phase, from the same L2 lines); the rows' bf16 inputs are
 //     staged once per phase as (k, row); at B <= 8 a lane owns one row, at
 //     B > 8 a lane decodes 4 weights and multiplies them by 8 rows read with
 //     one 16-byte load; codes become f32 through the 2^23 mantissa trick,
 //     not I2F (a quarter-rate instruction);
+//   * above 8 rows the step and the grouped window take fd_kernel's
+//     32-column x 8-row tiles for the projections instead (tile_project):
+//     teams of blocks, one an 8-row group staging only its rows, and this
+//     layout staging all the rows in every block both measured slower
+//     there (PERF.md);
 //   * attention reads K/V rows with 16-byte vector loads, VB of them in
 //     flight a thread: scores as per-position partial sums in registers
 //     (32 int4 / 16 int8 / 8 bf16 positions a load), value sums with
 //     __dp4a on int8 probability codes in the int modes. While every (row,
 //     head) pair can have a cluster (2 H B <= 132), its cache rows are
-//     split between the two blocks, which agree on the chunk's score max
-//     and max |p vs| through distributed shared memory before p is rounded
-//     or requantized, so the one-chunk function is kept; past that the
-//     blocks loop over whole pairs. Cross-attention takes one block a pair;
+//     split between the two blocks; past that the blocks loop over whole
+//     pairs. The window attends its cache rows as one chunk: the two
+//     blocks agree on the chunk's score max and max |p vs| through
+//     distributed shared memory before p is rounded or requantized. The
+//     step and the grouped window keep the TPU kernel's flash chunks: a
+//     chunk's running max is the prefix max of the chunk maxima, and its
+//     rounded p or requantized p vs depend on that alone, so the two
+//     blocks take the first and the second half of the chunks, exchange
+//     only their chunk maxima, and combine their partial sums as
+//     sum_c vals_c exp(M_c - M_last) (attend_chunks: the codes are the
+//     sequential update's, the f32 combination another order).
+//     Cross-attention takes one block a pair;
 //   * sums run in a fixed order (shuffle trees, warp order, split order):
-//     no float atomics, so a window is bit-identical run to run.
+//     no float atomics, so a launch is bit-identical run to run;
 //   * at B > 8 the two blocks of a cluster stage half the rows' inputs each
-//     and copy the other half through distributed shared memory.
+//     and copy the other half through distributed shared memory;
+//   * the kernel's parameters are grid constants, read in place by the
+//     functions that take them by reference (a copy of the ~0.5 KB Args in
+//     local memory would cost every phase).
 // What it leaves: ~66 phases a step, each a few dependent L2 round trips
 // (the activations after a barrier, the residual read-modify-write); no
-// tensor cores; the bf16 and int8 weights come from L2 every step. At B >
-// 8 every block stages all the rows' inputs (64 at B = 64, where
-// fd_kernel's tiles take 8), which costs bf16 and int8 more than their
-// streamed weights save: there fdw_launch takes fd_kernel's phases, measured
-// faster at B = 64; int4 takes fw_kernel at every B (PERF.md).
+// tensor cores; the bf16 and int8 weights come from L2 every step. The
+// window above 8 rows in bf16 and int8 keeps fd_kernel (every block would
+// stage all 64 rows' inputs, measured slower than its 8-row tiles).
 // Buffers written inside a launch are read with ld.global.cg or cp.async.cg
 // (L2), so no stale L1 line survives a barrier.
 
@@ -291,7 +309,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // block-wide reductions; red holds NWARPS floats; every thread gets the result
-__device__ float block_sum(float v, float* red) {
+static __device__ float block_sum(float v, float* red) {
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   v = warp_sum(v);
   __syncthreads();
@@ -300,7 +318,7 @@ __device__ float block_sum(float v, float* red) {
   return warp_sum(lane < NWARPS ? red[lane] : 0.f);
 }
 
-__device__ float block_max(float v, float* red) {
+static __device__ float block_max(float v, float* red) {
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   v = warp_max(v);
   __syncthreads();
@@ -318,7 +336,7 @@ enum InMode { IN_RMS, IN_BF16, IN_GATED };
 enum OutMode { OUT_QKV, OUT_RESID, OUT_STORE };
 
 // Fill hs (ROWS, K) with the bf16-rounded inputs of batch rows b0..b0+7.
-__device__ void load_inputs(const Args& a, float* hs, int K, int b0,
+static __device__ void load_inputs(const Args& a, float* hs, int K, int b0,
                             InMode mode, const float* norm_w,
                             const uint16_t* in_bf16) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -474,7 +492,8 @@ __device__ void emit_rows(const Args& a, float* red, int t, int l, int h,
 
 // int modes: qi = q quantized to int8 (one scale for the (row, head));
 // returns the scale. qs holds the f32 q; every thread gets the scale.
-__device__ float quantize_q(const float* qs, int* qi, int dk, float* red) {
+static __device__ float quantize_q(const float* qs, int* qi, int dk,
+                                   float* red) {
   float am = 0.f;
   for (int d = threadIdx.x; d < dk; d += NTHREADS) am = fmaxf(am, fabsf(qs[d]));
   const float qscale = fmaxf(block_max(am, red), 1e-12f) / 127.f;
@@ -486,16 +505,14 @@ __device__ float quantize_q(const float* qs, int* qi, int dk, float* red) {
 
 // int modes: attention of one (row, head) over n positions of an integer
 // K/V (row length rowlen elements) with per-position scales ksc / vsc.
-// norm: probabilities e / sum(e) (cross) or e (cache). The max is taken
-// over the n scores and m_prev (-INFINITY for none). out[d] (warp lanes 0)
-// receives the dequantized value sums, or with accumulate, out[d] *
-// exp(m_prev - max) plus them (a flash chunk). Returns (max, sum of e).
+// norm: probabilities e / sum(e) (cross) or e (cache). out[d] (warp lanes
+// 0) receives the dequantized value sums. Returns (max, sum of e).
 template <int MODE>
 __device__ float2 int_attend(const Args& a, const int* qi, float qscale,
                              const void* K, const void* Vv, size_t base,
                              int rowlen, const float* ksc, const float* vsc,
-                             int n, bool norm, float m_prev, bool accumulate,
-                             float* sc, float* red, float* out) {
+                             int n, bool norm, float* sc, float* red,
+                             float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dk = a.dk;
   float lmax = -INFINITY;
@@ -507,7 +524,7 @@ __device__ float2 int_attend(const Args& a, const int* qi, float qscale,
     sc[p] = sf;
     lmax = fmaxf(lmax, sf);
   }
-  const float m = fmaxf(block_max(lmax, red), m_prev);
+  const float m = block_max(lmax, red);
   float ls = 0.f;
   for (int p = threadIdx.x; p < n; p += NTHREADS) {
     const float e = expf(sc[p] - m);
@@ -525,28 +542,23 @@ __device__ float2 int_attend(const Args& a, const int* qi, float qscale,
   for (int p = threadIdx.x; p < n; p += NTHREADS)
     sc[p] = (float)quant(sc[p], pscale, 127.f);
   __syncthreads();
-  const float alpha = accumulate ? expf(m_prev - m) : 0.f;
   for (int d = warp; d < dk; d += NWARPS) {
     int s = 0;
     for (int p = lane; p < n; p += 32)
       s += (int)sc[p] * code_at<MODE>(Vv, base + (size_t)d * rowlen + p);
     s = warp_sum_int(s);
-    if (lane == 0) {
-      const float v = (float)s * pscale;
-      out[d] = accumulate ? out[d] * alpha + v : v;
-    }
+    if (lane == 0) out[d] = (float)s * pscale;
   }
   __syncthreads();
   return make_float2(m, lsum);
 }
 
-// bf16 mode: one flash chunk of the cache, n positions from element offset
-// base of K/V rows of length rowlen, against the bf16-rounded q qb; the same
-// contract as int_attend with norm false.
-__device__ float2 bf16_attend(const Args& a, const float* qb,
+// bf16 mode: the cache rows as one flash chunk, n positions from element
+// offset base of K/V rows of length rowlen, against the bf16-rounded q qb;
+// the same contract as int_attend with norm false.
+static __device__ float2 bf16_attend(const Args& a, const float* qb,
                               const uint16_t* K, const uint16_t* Vv,
-                              int rowlen, int n, float m_prev,
-                              bool accumulate, float* sc, float* red,
+                              int rowlen, int n, float* sc, float* red,
                               float* out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dk = a.dk;
@@ -558,7 +570,7 @@ __device__ float2 bf16_attend(const Args& a, const float* qb,
     sc[p] = s;
     lmax = fmaxf(lmax, s);
   }
-  const float m = fmaxf(block_max(lmax, red), m_prev);
+  const float m = block_max(lmax, red);
   float ls = 0.f;
   for (int p = threadIdx.x; p < n; p += NTHREADS) {
     const float e = expf(sc[p] - m);
@@ -566,20 +578,19 @@ __device__ float2 bf16_attend(const Args& a, const float* qb,
     sc[p] = bfr(e);
   }
   const float lsum = block_sum(ls, red);
-  const float alpha = accumulate ? expf(m_prev - m) : 0.f;
   for (int d = warp; d < dk; d += NWARPS) {
     const uint16_t* Vd = Vv + (size_t)d * rowlen;
     float s = 0.f;
     for (int p = lane; p < n; p += 32) s = fmaf(sc[p], bf2f(Vd[p]), s);
     s = warp_sum(s);
-    if (lane == 0) out[d] = accumulate ? out[d] * alpha + s : s;
+    if (lane == 0) out[d] = s;
   }
   __syncthreads();
   return make_float2(m, lsum);
 }
 
-// Self-attention for one layer: the cache rows < pos0 in flash chunks, then
-// the window rows 0..t (the step: its own f32 row).
+// Self-attention for one layer (the window): the cache rows < pos0 as one
+// flash chunk, then the window rows 0..t.
 template <int MODE, int KIND>
 __device__ void self_attn_phase(const Args& a, float* smem, int t, int l) {
   float* qs = smem;                 // MAX_DK f32 q
@@ -604,42 +615,20 @@ __device__ void self_attn_phase(const Args& a, float* smem, int t, int l) {
     const size_t pair = pair_index<KIND>(a, l, h, b);
     const float qscale =
         (MODE != MODE_BF16 && P0 > 0) ? quantize_q(qs, qi, dk, red) : 0.f;
-    if (KIND == KIND_WINDOW && P0 > 0) {
-      // The window's cache rows are one chunk, attended in one call: the
-      // same call inside the chunk loop below made the int4 window ~19%
-      // slower at pos0 992 (chip_smoke.py's window cases, PERF.md).
+    if (P0 > 0) {
       float2 ml;
       if (MODE == MODE_BF16) {
         const size_t base = pair * dk * a.P;
         ml = bf16_attend(a, qb, static_cast<const uint16_t*>(a.kc) + base,
                          static_cast<const uint16_t*>(a.vc) + base, a.P, P0,
-                         -INFINITY, false, sc, red, accs);
+                         sc, red, accs);
       } else {
         ml = int_attend<MODE>(a, qi, qscale, a.kc, a.vc, pair * dk * a.P,
                               a.P, a.ks + pair * a.P, a.vs + pair * a.P, P0,
-                              false, -INFINITY, false, sc, red, accs);
+                              false, sc, red, accs);
       }
       m = ml.x;
       lsum = ml.y;
-    }
-    for (int c0 = 0; KIND != KIND_WINDOW && c0 < P0; c0 += a.chunk) {
-      const int n = min(a.chunk, P0 - c0);
-      const bool acc = c0 > 0;          // a later chunk updates the sums
-      const float m_prev = acc ? m : -INFINITY;
-      float2 ml;
-      if (MODE == MODE_BF16) {
-        const size_t base = pair * dk * a.P + c0;
-        ml = bf16_attend(a, qb, static_cast<const uint16_t*>(a.kc) + base,
-                         static_cast<const uint16_t*>(a.vc) + base, a.P, n,
-                         m_prev, acc, sc, red, accs);
-      } else {
-        ml = int_attend<MODE>(a, qi, qscale, a.kc, a.vc, pair * dk * a.P + c0,
-                              a.P, a.ks + pair * a.P + c0,
-                              a.vs + pair * a.P + c0, n, false, m_prev, acc,
-                              sc, red, accs);
-      }
-      lsum = acc ? lsum * expf(m_prev - ml.x) + ml.y : ml.y;
-      m = ml.x;
     }
     if (warp == 0) {
       float acc[MAX_DK / 32], qv[MAX_DK / 32];
@@ -651,20 +640,14 @@ __device__ void self_attn_phase(const Args& a, float* smem, int t, int l) {
       }
       const size_t jstride = (size_t)a.L * HB * dk;
       const size_t row = ((size_t)l * HB + item) * dk;
-      const float* kf = a.kvf + (size_t)b * 2 * a.I + h * dk;
       for (int j = 0; j <= t; ++j) {
         float kj[MAX_DK / 32], vj[MAX_DK / 32];
         float s = 0.f;
 #pragma unroll
         for (int i = 0; i < MAX_DK / 32; ++i) {
           const int d = lane + 32 * i;
-          if (KIND == KIND_STEP) {      // the diagonal term, f32
-            kj[i] = d < dk ? ldf(kf + d) : 0.f;
-            vj[i] = d < dk ? ldf(kf + a.I + d) : 0.f;
-          } else {
-            kj[i] = d < dk ? ldb(a.kw + j * jstride + row + d) : 0.f;
-            vj[i] = d < dk ? ldb(a.vw + j * jstride + row + d) : 0.f;
-          }
+          kj[i] = d < dk ? ldb(a.kw + j * jstride + row + d) : 0.f;
+          vj[i] = d < dk ? ldb(a.vw + j * jstride + row + d) : 0.f;
           s = fmaf(qv[i], kj[i], s);
         }
         s = warp_sum(s);
@@ -708,8 +691,8 @@ __device__ void cross_attn_phase(const Args& a, float* smem, int l) {
     if (MODE != MODE_BF16) {
       const float qscale = quantize_q(qs, qi, dk, red);
       int_attend<MODE>(a, qi, qscale, a.ck, a.cv, pair * dk * S, S,
-                       a.cks + pair * S, a.cvs + pair * S, S, true,
-                       -INFINITY, false, sc, red, accs);
+                       a.cks + pair * S, a.cvs + pair * S, S, true, sc, red,
+                       accs);
       for (int d = threadIdx.x; d < dk; d += NTHREADS)
         a.attn[(size_t)b * a.I + h * dk + d] = f2bf(accs[d]);
       continue;
@@ -746,7 +729,7 @@ __device__ void cross_attn_phase(const Args& a, float* smem, int l) {
 
 // x[b] = embed[token] + pos_rows[t] for this block's rows; a token outside
 // the vocabulary (the NaN token V) embeds as zeros, like a one-hot matmul.
-__device__ void embed_row(const Args& a, int b, int token, int t) {
+static __device__ void embed_row(const Args& a, int b, int token, int t) {
   const bool in_vocab = token >= 0 && token < a.V;
   const uint16_t* e = a.embed + (size_t)(in_vocab ? token : 0) * a.D;
   const float* pr = a.pos_rows + (size_t)t * a.D;
@@ -754,7 +737,7 @@ __device__ void embed_row(const Args& a, int b, int token, int t) {
     __stcg(a.x + (size_t)b * a.D + d, (in_vocab ? bf2f(e[d]) : 0.f) + pr[d]);
 }
 
-__device__ void init_phase(const Args& a) {
+static __device__ void init_phase(const Args& a) {
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
     const int token = a.tokens_in[b];
     if (threadIdx.x == 0) {
@@ -767,7 +750,7 @@ __device__ void init_phase(const Args& a) {
 
 // Argmax (lowest index on ties; V if a logit is NaN), finished
 // bookkeeping, next step's embed.
-__device__ void argmax_phase(const Args& a, float* smem, int t) {
+static __device__ void argmax_phase(const Args& a, float* smem, int t) {
   float* bestv = smem;
   int* besti = reinterpret_cast<int*>(smem + NWARPS);
   int* nanw = besti + NWARPS;
@@ -833,10 +816,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) fd_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int I = a.I, D = a.D, F = a.F;
   const bool q = MODE != MODE_BF16;   // column scales are read
-  if (KIND != KIND_STEP) {            // the step's x arrives filled
-    init_phase(a);
-    grid.sync();
-  }
+  init_phase(a);
+  grid.sync();
   for (int t = 0; t < a.T; ++t) {
     for (int l = 0; l < a.L; ++l) {
       const float* nw = a.norms + (size_t)l * 3 * D;
@@ -876,11 +857,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) fd_kernel(Args a) {
     matvec_phase<MODE, KIND>(a, smem, D, a.V, a.lm, 0, q ? a.lm_s : nullptr,
                              IN_RMS, a.final_norm, nullptr, OUT_STORE,
                              a.logits, t, 0);
-    if (KIND != KIND_STEP) {
-      grid.sync();
-      argmax_phase(a, smem, t);
-      grid.sync();
-    }
+    grid.sync();
+    argmax_phase(a, smem, t);
+    grid.sync();
   }
 }
 
@@ -1019,7 +998,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Copy the block's slice of projection m, layer l, into dst as [sub-unit][k]
 // rows of unit_row_bytes: with cp.async (bf16 8 bytes, int8 4 bytes a row;
-// the caller commits) or with plain loads (int4's 2 bytes, once a launch).
+// the caller commits) or with plain loads (int4's 2 bytes, once a launch,
+// 8 of a thread in flight).
 template <int MODE, bool ASYNC>
 __device__ void copy_slice(const Args& a, int m, int l, uint8_t* dst) {
   const ProjShape s = proj_shape(a, m);
@@ -1028,22 +1008,36 @@ __device__ void copy_slice(const Args& a, int m, int l, uint8_t* dst) {
   const size_t first = m == PR_LM ? 0 : (size_t)l * s.K * s.N;
   const void* W = proj_weights(a, m);
   constexpr int RB = unit_row_bytes<MODE>();
+  if (!ASYNC) {                 // plain loads, 8 of a thread in flight
+    const int total = nsub * s.K;
+    for (int i0 = threadIdx.x; i0 < total; i0 += 8 * NTHREADS) {
+      uint16_t v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = min(i0 + u * NTHREADS, total - 1);
+        v[u] = __ldg(reinterpret_cast<const unsigned short*>(elem_ptr<MODE>(
+            W, first + (size_t)(i % s.K) * s.N +
+                   sub_col0(s, blk, G, i / s.K, a.F))));
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + u * NTHREADS < total)
+          reinterpret_cast<uint16_t*>(dst)[i0 + u * NTHREADS] = v[u];
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < nsub * s.K; i += NTHREADS) {
     const int sub = i / s.K, k = i % s.K;
     const uint8_t* src = elem_ptr<MODE>(
         W, first + (size_t)k * s.N + sub_col0(s, blk, G, sub, a.F));
     uint8_t* d = dst + (size_t)i * RB;
-    if (ASYNC) {
-      const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
-      if (RB == 8)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa),
-                     "l"(src));
-      else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
-                     "l"(src));
-    } else {
-      *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(src);
-    }
+    const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
+    if (RB == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa),
+                   "l"(src));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+                   "l"(src));
   }
 }
 
@@ -1083,7 +1077,7 @@ __device__ __forceinline__ void load_w4(const uint8_t* p, float w[UNIT]) {
 // rs[row] = 1 / sqrt(mean(x^2) + eps) of the batch rows lo..hi-1: a warp a
 // row, four rows of a warp at a time with all their loads in flight (the
 // sum in load_inputs' order)
-__device__ void row_rms(const Args& a, float* rs, int lo, int hi) {
+static __device__ void row_rms(const Args& a, float* rs, int lo, int hi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r0 = lo + warp; r0 < hi; r0 += 4 * NWARPS) {
     float v[4][MAX_D / 32];
@@ -1115,9 +1109,10 @@ __device__ void row_rms(const Args& a, float* rs, int lo, int hi) {
 // stores, rows fastest so that the transposed stores do not collide. Rows
 // past B are left as they are: their outputs are never stored.
 #define AB 4
-__device__ void load_acts(const Args& a, uint16_t* h, int bpad, int K, int k0,
-                          int kc, const float* norm, const float* rs,
-                          const uint16_t* in16, int lo, int hi) {
+static __device__ void load_acts(const Args& a, uint16_t* h, int bpad,
+                                 int K, int k0, int kc, const float* norm,
+                                 const float* rs, const uint16_t* in16,
+                                 int lo, int hi) {
   const int nr = hi - lo, total = nr * (kc / 8);
   for (int i0 = threadIdx.x; i0 < total; i0 += AB * NTHREADS) {
     uint4 raw[AB][2];
@@ -1166,7 +1161,7 @@ __device__ void load_acts(const Args& a, uint16_t* h, int bpad, int K, int k0,
 
 // B <= 8: the RMS rows in one pass, a warp a row, the row held in registers
 // between its sum and its scaling (the same arithmetic as row_rms).
-__device__ void load_rms_rows(const Args& a, uint16_t* h, int bpad,
+static __device__ void load_rms_rows(const Args& a, uint16_t* h, int bpad,
                               const float* norm) {
   const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (row >= a.B) return;
@@ -1206,7 +1201,7 @@ __host__ __device__ inline int h_stride(int bp) {
 // The lanes of a sub-unit are summed by a fixed shuffle tree, the k-parts
 // of a row group in warp order by one thread an output, which scales,
 // routes and stores it.
-template <int MODE>
+template <int MODE, int KIND>
 __device__ void fw_project(const Args& a, int m, int l, int t,
                            const uint8_t* wsl, const float* normsm,
                            float* un, int hcap) {
@@ -1404,7 +1399,7 @@ __device__ void fw_project(const Args& a, int m, int l, int t,
         const int hb = (nn / a.dk) * a.B + gb;
         dst[(((size_t)t * a.L + l) * a.H * a.B + hb) * a.dk + nn % a.dk] =
             f2bf(v);
-        if (MODE != MODE_BF16)
+        if (MODE != MODE_BF16 || KIND == KIND_STEP)
           __stcg(a.kvf + (size_t)gb * 2 * a.I + (n - a.I), v);
       }
     } else if (m == PR_WQC) {
@@ -1669,6 +1664,12 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // A wait that outlasts SPIN_LIMIT_NS traps, so that a barrier some block
 // never reaches ends the launch with an error instead of hanging the card.
 #define SPIN_LIMIT_NS 4000000000ull
+#ifdef PHASE_TRACE
+// a probe build (-DPHASE_TRACE): block 0 stamps %globaltimer as it leaves
+// each barrier; read with <prefix>_phase_trace
+#define PHASE_TRACE_MAX 4096
+static __device__ unsigned long long g_phase_ns[PHASE_TRACE_MAX];
+#endif
 __device__ __forceinline__ void grid_barrier(const Args& a, unsigned& epoch) {
   ++epoch;
   __syncthreads();
@@ -1679,9 +1680,24 @@ __device__ __forceinline__ void grid_barrier(const Args& a, unsigned& epoch) {
     while (ld_acquire(a.sync) < target) {
       if (global_ns() - t0 > SPIN_LIMIT_NS) __trap();
     }
+#ifdef PHASE_TRACE
+    if (blockIdx.x == 0 && epoch < PHASE_TRACE_MAX)
+      g_phase_ns[epoch] = global_ns();
+#endif
   }
   __syncthreads();
 }
+
+// cache chunks one block of a pair attends (the step, the grouped window)
+#define MAXC 4
+#define CHUNK_FLOATS (2 * NWARPS * MAXC + 6 * MAXC + 2 * MAX_DK)
+
+#ifdef PHASE_TRACE
+#define ASTAMP(k) \
+  if (stamp && threadIdx.x == 0) g_phase_ns[2048 + (k)] = global_ns();
+#else
+#define ASTAMP(k)
+#endif
 
 // attention scratch in the union region
 struct AttnSmem {
@@ -1691,6 +1707,15 @@ struct AttnSmem {
   int* acci;     // MAX_DK int32 value sums
   float* xch;    // 4 + MAX_DK: what the other block of the cluster reads
   float* red;    // 32
+  float* red2;   // NWARPS * MAXC: per-chunk block reductions
+  float* red3;   // NWARPS * MAXC
+  float* cxm;    // MAXC: this block's chunk maxima (the other block reads)
+  float* gm;     // 2 * MAXC: every chunk's running max
+  float* lsc;    // MAXC: this block's chunks' sums of exp(s - m)
+  float* psc;    // MAXC: their probability codes' scales
+  float* cw;     // MAXC: their weights exp(m_c - m_last)
+  float* kvd;    // 2 * MAX_DK: the step's own f32 k and v
+  uint8_t* vrows;  // the chunked kinds' V rows of a split, [d][vector]
   float* ksm;    // the split's K scales (int modes), nmax + 64
   float* vsm;    // its V scales
   float* sc;     // scores, then probabilities (sci layout)
@@ -1698,15 +1723,26 @@ struct AttnSmem {
   float* part;   // score partials; then the window rows
 };
 
-__device__ __forceinline__ AttnSmem attn_smem(float* un, int nmax) {
+__device__ __forceinline__ AttnSmem attn_smem(float* un, int nmax,
+                                              int vfloats) {
   AttnSmem m;
+  m.vrows = reinterpret_cast<uint8_t*>(un);
+  un += vfloats;
   m.qs = un;
   m.qf = m.qs + MAX_DK;
   m.accs = m.qf + MAX_DK;
   m.acci = reinterpret_cast<int*>(m.accs + MAX_DK);
   m.xch = m.accs + 2 * MAX_DK;
   m.red = m.xch + 4 + MAX_DK;
-  m.ksm = m.red + 32;
+  m.red2 = m.red + 32;
+  m.red3 = m.red2 + NWARPS * MAXC;
+  m.cxm = m.red3 + NWARPS * MAXC;
+  m.gm = m.cxm + MAXC;
+  m.lsc = m.gm + 2 * MAXC;
+  m.psc = m.lsc + MAXC;
+  m.cw = m.psc + MAXC;
+  m.kvd = m.cw + MAXC;
+  m.ksm = m.red + 32 + CHUNK_FLOATS;
   m.vsm = m.ksm + nmax + 64;
   m.sc = m.vsm + nmax + 64;
   const int scn = (nmax + 64) / 32 * 33;
@@ -1715,10 +1751,35 @@ __device__ __forceinline__ AttnSmem attn_smem(float* un, int nmax) {
   return m;
 }
 
+// the cache positions one block of a pair attends at most on a grid of G:
+// the window's split of the rows, or the step's and the grouped window's
+// whole chunks a split (-1 past MAXC chunks)
+template <int MODE, int KIND>
+__host__ __device__ inline int self_positions(const Args& a, int G) {
+  constexpr int EP = vec_positions<MODE>();
+  const int nsplit = 2 * a.H * a.B <= G ? 2 : 1;
+  if (KIND == KIND_WINDOW)
+    return ((a.pos0 + nsplit - 1) / nsplit + EP - 1) / EP * EP;
+  const int nc = (a.pos0 + a.chunk - 1) / a.chunk;
+  const int cmid = nsplit == 2 ? (nc + 1) / 2 : nc;
+  if (cmid > MAXC) return -1;
+  const int most = cmid * a.chunk < a.pos0 ? cmid * a.chunk : a.pos0;
+  return (most + EP - 1) / EP * EP;
+}
+
+// floats of the chunked kinds' V rows of a split in shared memory (16-byte
+// vectors of dk rows); none for the window
+template <int MODE, int KIND>
+__host__ __device__ inline int vrow_floats(const Args& a, int G) {
+  if (KIND == KIND_WINDOW) return 0;
+  const int n = self_positions<MODE, KIND>(a, G);
+  return n < 0 ? 0 : a.dk * (n / vec_positions<MODE>()) * 4;
+}
+
 // floats of AttnSmem for nmax positions a split and part_floats partials
 __host__ __device__ inline int attn_floats(int nmax, int part_floats) {
-  return 5 * MAX_DK + 4 + 32 + 2 * (nmax + 64) + (nmax + 64) / 32 * 33 +
-         (nmax + 64) / 4 + part_floats;
+  return 5 * MAX_DK + 4 + 32 + CHUNK_FLOATS + 2 * (nmax + 64) +
+         (nmax + 64) / 32 * 33 + (nmax + 64) / 4 + part_floats;
 }
 
 // v of this block and of the other block of its cluster, exchanged through
@@ -1857,32 +1918,395 @@ __device__ void attend_split(const Args& a, const AttnSmem& sm, int s,
   __syncthreads();
 }
 
+// The value sum of element e (position p) of a 16-byte V vector, as
+// value_vec takes it, for a vector that straddles two chunks.
+template <int MODE>
+__device__ __forceinline__ void value_pos(const uint4 v, int e, int p,
+                                          const float* pf, const int8_t* pc,
+                                          float& accf, int& acci) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  if (MODE == MODE_BF16) {
+    const uint32_t w = u[e >> 1];
+    accf = fmaf(pf[sci(p)],
+                __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16)),
+                accf);
+  } else if (MODE == MODE_INT8) {
+    acci += (int)pc[p] * (int)(int8_t)(u[e >> 2] >> (8 * (e & 3)));
+  } else {
+    acci += (int)pc[code_slot<MODE>(p)] *
+            ((int)(u[e >> 3] << (28 - 4 * (e & 7))) >> 28);
+  }
+}
+
+// Value sums over n positions of a (row, head)'s V rows in chunks of
+// `chunk` positions (ncl of them, at most MAXC), as fw_values lays them out,
+// each chunk's sum kept apart: out[d] = sum over chunks c of vals_c[d] *
+// cw[c], vals_c the f32 sum of pf * v (bf16) or the int32 sum of the codes
+// pc times v times psc[c] (int), in chunk order.
+template <int MODE>
+__device__ void fw_values_chunked(const Args& a, const void* V, size_t base,
+                                  int stride, int n, int chunk, int ncl,
+                                  const float* pf, const int8_t* pc,
+                                  const float* psc, const float* cw,
+                                  const uint8_t* vrows, float* out) {
+  constexpr int EP = vec_positions<MODE>();
+  constexpr bool F = MODE == MODE_BF16;
+  const int dk = a.dk, C = (n + EP - 1) / EP;
+  int dkp = 8;
+  while (dkp < dk) dkp <<= 1;
+  const int TPD = NTHREADS / dkp;               // a power of two <= 32
+  const int d = threadIdx.x / TPD, j = threadIdx.x % TPD;
+  float accf[MAXC];
+  int acci[MAXC];
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q) {
+    accf[q] = 0.f;
+    acci[q] = 0;
+  }
+  // vector c's sums into its chunk's accumulators
+  auto add = [&](const uint4 v, int c) {
+    const int p0 = c * EP, qa = p0 / chunk;
+    const int qb = (min(p0 + EP, n) - 1) / chunk;
+    float f = 0.f;
+    int i = 0;
+    if (qa == qb) {
+      value_vec<MODE>(v, c, pf, pc, f, i);
+#pragma unroll
+      for (int q = 0; q < MAXC; ++q)
+        if (q == qa) {
+          if (F) accf[q] += f;
+          else acci[q] += i;
+        }
+      return;
+    }
+    for (int e = 0; e < EP && p0 + e < n; ++e) {
+      f = 0.f;
+      i = 0;
+      value_pos<MODE>(v, e, p0 + e, pf, pc, f, i);
+      const int qe = (p0 + e) / chunk;
+#pragma unroll
+      for (int q = 0; q < MAXC; ++q)
+        if (q == qe) {
+          if (F) accf[q] += f;
+          else acci[q] += i;
+        }
+    }
+  };
+  if (d < dk && vrows != nullptr) {     // the rows staged in shared memory
+    for (int c = j; c < C; c += TPD)
+      add(*reinterpret_cast<const uint4*>(vrows + ((size_t)d * C + c) * 16),
+          c);
+  } else if (d < dk) {
+    const size_t row = base + (size_t)d * stride;
+    const bool aligned = rows_aligned<MODE>(V, base, stride);
+    const int full = n / EP;                    // whole vectors
+    int c = j;
+    if (aligned && full > 0) {
+      for (; c < full; c += VB * TPD) {
+        uint4 v[VB];
+#pragma unroll
+        for (int u = 0; u < VB; ++u)       // every load before any use
+          v[u] = *reinterpret_cast<const uint4*>(elem_ptr<MODE>(
+              V, row + (size_t)min(c + u * TPD, full - 1) * EP));
+#pragma unroll
+        for (int u = 0; u < VB; ++u)
+          if (c + u * TPD < full) add(v[u], c + u * TPD);
+      }
+      // the batches overshoot: step back to the first vector not taken
+      c = full + ((j - full) % TPD + TPD) % TPD;
+    }
+    for (; c < C; c += TPD)
+      add(load_vec<MODE>(V, row + (size_t)c * EP, min(EP, n - c * EP)), c);
+  }
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q)
+    for (int o = TPD / 2; o > 0; o >>= 1) {
+      if (F) accf[q] += __shfl_xor_sync(0xffffffffu, accf[q], o);
+      else acci[q] += __shfl_xor_sync(0xffffffffu, acci[q], o);
+    }
+  if (j == 0 && d < dk) {
+    float o = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAXC; ++q)
+      if (q < ncl)
+        o += F ? accf[q] * cw[q] : ((float)acci[q] * psc[q]) * cw[q];
+    out[d] = o;
+  }
+}
+
+// One (row, head) pair's attention over its cache rows < P0 (row d at
+// element base + d * stride) in the TPU kernel's flash chunks of a.chunk
+// positions, on one block (nsplit 1) or on the two blocks of a cluster
+// (nsplit 2: split 0 takes the first ceil(nc / 2) chunks, split 1 the
+// rest). A chunk's running max is the prefix max of the chunk maxima, M_c
+// = max(M_{c-1}, max_c), and each chunk's bf16 p = exp(s - M_c) or int
+// codes of p vs (requantized with the chunk's own max) depend only on M_c:
+// so the splits exchange only their chunk maxima (distributed shared
+// memory), each attends its own chunks, and the partial sums combine as
+// sum_c vals_c exp(M_c - M_last) (lsum likewise). The codes are the
+// sequential flash update's; the f32 combination takes another order.
+// Split 0 gets the flash state: accs (f32 value sums), m_out = M_last and
+// lsum_out.
+template <int MODE>
+__device__ void attend_chunks(const Args& a, const AttnSmem& sm, int s,
+                              int nsplit, const void* K, const void* V,
+                              size_t base, int stride, int P0,
+                              const float* ksc, const float* vsc,
+                              float qscale, float& m_out, float& lsum_out,
+                              bool stamp) {
+  constexpr int EP = vec_positions<MODE>();
+  cg::cluster_group cl = cg::this_cluster();
+  const bool two = nsplit == 2;
+  const int CH = a.chunk, nc = (P0 + CH - 1) / CH;
+  ASTAMP(0)
+  const int cmid = two ? (nc + 1) / 2 : nc;
+  const int c_lo = s == 0 ? 0 : cmid, c_hi = s == 0 ? cmid : nc;
+  const int ncl = c_hi - c_lo;
+  const int p_lo = min(P0, c_lo * CH), n = min(P0, c_hi * CH) - p_lo;
+  const int Cv = (n + EP - 1) / EP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the split's V rows into shared memory (16-byte cp.async, the last
+  // vector of a row zero-filled past n), in flight with the K loads
+  const bool vstage = n > 0 && rows_aligned<MODE>(V, base + p_lo, stride);
+  if (vstage) {
+    for (int i = tid; i < a.dk * Cv; i += NTHREADS) {
+      const int d = i / Cv, c = i % Cv, valid = min(EP, n - c * EP);
+      const int bytes = MODE == MODE_BF16   ? 2 * valid
+                        : MODE == MODE_INT8 ? valid
+                                            : (valid + 1) / 2;
+      asm volatile(
+          "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+              (unsigned)__cvta_generic_to_shared(sm.vrows + (size_t)i * 16)),
+          "l"(elem_ptr<MODE>(V, base + p_lo + (size_t)d * stride +
+                                    (size_t)c * EP)),
+          "r"(bytes));
+    }
+    cp_async_commit();
+  }
+  if (MODE != MODE_BF16) {      // the split's scales, while the scores load
+    for (int p = tid; p < n; p += NTHREADS) {
+      const unsigned dk_ = (unsigned)__cvta_generic_to_shared(sm.ksm + p);
+      const unsigned dv_ = (unsigned)__cvta_generic_to_shared(sm.vsm + p);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dk_),
+                   "l"(ksc + p_lo + p));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dv_),
+                   "l"(vsc + p_lo + p));
+    }
+    cp_async_commit();
+  }
+  if (n > 0)
+    fw_scores<MODE>(a, K, base + p_lo, stride, n, sm.qf,
+                    reinterpret_cast<const int*>(sm.qf), qscale, sm.ksm,
+                    sm.part, sm.sc);
+  __syncthreads();
+  ASTAMP(1)
+  // this block's chunk maxima, then every chunk's running max
+  float v[MAXC];
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q) v[q] = -INFINITY;
+  for (int p = tid; p < n; p += NTHREADS) {
+    const int ci = p / CH;
+    const float x = sm.sc[sci(p)];
+#pragma unroll
+    for (int q = 0; q < MAXC; ++q)
+      if (q == ci) v[q] = fmaxf(v[q], x);
+  }
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q) {
+    v[q] = warp_max(v[q]);
+    if (lane == 0) sm.red2[warp * MAXC + q] = v[q];
+  }
+  __syncthreads();
+  if (tid < ncl) {
+    float x = -INFINITY;
+    for (int w = 0; w < NWARPS; ++w) x = fmaxf(x, sm.red2[w * MAXC + tid]);
+    sm.cxm[tid] = x;
+  }
+  if (two) cl.sync();
+  else __syncthreads();
+  if (tid == 0) {
+    const float* peer =
+        two ? cl.map_shared_rank(sm.cxm, cl.block_rank() ^ 1) : nullptr;
+    const int peer_lo = s == 0 ? cmid : 0;
+    float run = -INFINITY;
+    for (int c = 0; c < nc; ++c) {
+      const float x = c >= c_lo && c < c_hi ? sm.cxm[c - c_lo]
+                                             : peer[c - peer_lo];
+      run = fmaxf(run, x);
+      sm.gm[c] = run;
+    }
+  }
+  __syncthreads();
+  ASTAMP(2)
+  // p = exp(s - M_c): bf16-rounded, or p vs for the codes; per chunk the
+  // sum of p and the max |p vs|
+  float ls[MAXC], pm[MAXC];
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q) {
+    ls[q] = 0.f;
+    pm[q] = 0.f;
+  }
+  for (int p = tid; p < Cv * EP; p += NTHREADS) {
+    if (p >= n) {
+      sm.sc[sci(p)] = 0.f;
+      continue;
+    }
+    const int ci = p / CH;
+    const float e = expf(sm.sc[sci(p)] - sm.gm[c_lo + ci]);
+    float pv = 0.f;
+    if (MODE == MODE_BF16) {
+      sm.sc[sci(p)] = bfr(e);
+    } else {
+      pv = e * sm.vsm[p];
+      sm.sc[sci(p)] = pv;
+    }
+#pragma unroll
+    for (int q = 0; q < MAXC; ++q)
+      if (q == ci) {
+        ls[q] += e;
+        pm[q] = fmaxf(pm[q], fabsf(pv));
+      }
+  }
+#pragma unroll
+  for (int q = 0; q < MAXC; ++q) {
+    ls[q] = warp_sum(ls[q]);
+    pm[q] = warp_max(pm[q]);
+    if (lane == 0) {
+      sm.red2[warp * MAXC + q] = ls[q];
+      sm.red3[warp * MAXC + q] = pm[q];
+    }
+  }
+  __syncthreads();
+  if (tid < ncl) {
+    float l_ = 0.f, x = 0.f;
+    for (int w = 0; w < NWARPS; ++w) {
+      l_ += sm.red2[w * MAXC + tid];
+      x = fmaxf(x, sm.red3[w * MAXC + tid]);
+    }
+    sm.lsc[tid] = l_;
+    sm.psc[tid] = fmaxf(x, 1e-20f) / 127.f;
+    sm.cw[tid] = expf(sm.gm[c_lo + tid] - sm.gm[nc - 1]);
+  }
+  __syncthreads();
+  ASTAMP(3)
+  if (MODE != MODE_BF16) {
+    for (int p = tid; p < Cv * EP; p += NTHREADS)
+      sm.pc[code_slot<MODE>(p)] =
+          p < n ? (int8_t)quant(sm.sc[sci(p)], sm.psc[p / CH], 127.f) : 0;
+    __syncthreads();
+  }
+  if (vstage) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  ASTAMP(4)
+  fw_values_chunked<MODE>(a, V, base + p_lo, stride, n, CH, ncl, sm.sc,
+                          sm.pc, sm.psc, sm.cw,
+                          vstage ? sm.vrows : nullptr, sm.accs);
+  __syncthreads();
+  ASTAMP(5)
+  float lpart = 0.f;
+  for (int q = 0; q < ncl; ++q) lpart += sm.lsc[q] * sm.cw[q];
+  const float m_last = sm.gm[nc - 1];
+  if (!two) {
+    lsum_out = lpart;
+    m_out = m_last;
+    ASTAMP(6)
+    return;
+  }
+  if (s == 1) {
+    for (int d = tid; d < a.dk; d += NTHREADS) sm.xch[4 + d] = sm.accs[d];
+    if (tid == 0) sm.xch[3] = lpart;
+  }
+  cl.sync();
+  if (s == 0) {
+    const float* peer = cl.map_shared_rank(sm.xch, 1);
+    for (int d = tid; d < a.dk; d += NTHREADS) sm.accs[d] += peer[4 + d];
+    lsum_out = lpart + peer[3];
+    m_out = m_last;
+  }
+  __syncthreads();
+  ASTAMP(6)
+}
+
 // Self-attention of layer l, step t: while every (row, head) pair can have
 // a cluster of two blocks (2 H B <= the grid), each pair's cache rows < pos0
-// are one flash chunk split between the two (attend_split); past that
-// (B > 11 at 6 heads) the blocks loop over whole pairs, which already fill
-// the card. Then split 0 attends the window's rows 0..t in window order,
-// an online softmax in f32.
-template <int MODE>
+// are split between the two: the window's as one flash chunk
+// (attend_split), the step's and the grouped window's in the TPU kernel's
+// chunks (attend_chunks); past that (B > 11 at 6 heads) the blocks loop
+// over whole pairs, which already fill the card. Then split 0 attends the
+// window's rows 0..t in window order, an online softmax in f32, or the
+// step's own row as an f32 diagonal term on the unrounded q, k and v.
+template <int MODE, int KIND>
 __device__ void fw_self_attn(const Args& a, float* un, int nmax, int t,
                              int l) {
-  const AttnSmem sm = attn_smem(un, nmax);
+  const AttnSmem sm =
+      attn_smem(un, nmax, vrow_floats<MODE, KIND>(a, gridDim.x));
   const int HB = a.H * a.B, dk = a.dk, P0 = a.pos0;
   const int nsplit = 2 * HB <= (int)gridDim.x ? 2 : 1;
   const int s = blockIdx.x % nsplit, stride = gridDim.x / nsplit;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the chunked kinds' spare blocks (past the pairs' clusters) emit the
+  // int modes' rows, off the attending blocks' path
+  const bool spare_emit = KIND != KIND_WINDOW && nsplit == 2 &&
+                          2 * HB < (int)gridDim.x;
+  if (MODE != MODE_BF16 && spare_emit && (int)blockIdx.x >= 2 * HB)
+    for (int pair = blockIdx.x - 2 * HB; pair < HB;
+         pair += gridDim.x - 2 * HB) {
+      __syncthreads();
+      emit_rows<KIND>(a, sm.red, t, l, pair / a.B, pair % a.B);
+    }
   for (int pair = blockIdx.x / nsplit; pair < HB; pair += stride) {
     const int h = pair / a.B, b = pair % a.B;   // pair == h * B + b
+    const bool stamp = KIND == KIND_STEP && blockIdx.x == 0 && l == 0 &&
+                       pair == 0;
     __syncthreads();
+    if (KIND == KIND_STEP && s == 0)   // in flight meanwhile
+      for (int d = threadIdx.x; d < 2 * dk; d += NTHREADS)
+        sm.kvd[d] = ldf(a.kvf + (size_t)b * 2 * a.I + (d < dk ? 0 : a.I) +
+                        h * dk + d % dk);
     const float qscale = load_q<MODE>(a, sm, b, h);
-    if (MODE != MODE_BF16 && s == nsplit - 1)
-      emit_rows<KIND_WINDOW>(a, sm.red, t, l, h, b);
+    if (MODE != MODE_BF16 && s == nsplit - 1 && !spare_emit)
+      emit_rows<KIND>(a, sm.red, t, l, h, b);
     float m = -1e30f, lsum = 0.f;
     if (P0 > 0) {
-      const size_t pr = pair_index<KIND_WINDOW>(a, l, h, b);
-      attend_split<MODE>(a, sm, s, nsplit, a.kc, a.vc, pr * dk * a.P, a.P,
-                         P0, a.ks + pr * a.P, a.vs + pr * a.P, qscale, false,
-                         m, lsum);
+      const size_t pr = pair_index<KIND>(a, l, h, b);
+      if (KIND == KIND_WINDOW)
+        attend_split<MODE>(a, sm, s, nsplit, a.kc, a.vc, pr * dk * a.P, a.P,
+                           P0, a.ks + pr * a.P, a.vs + pr * a.P, qscale,
+                           false, m, lsum);
+      else
+        attend_chunks<MODE>(a, sm, s, nsplit, a.kc, a.vc, pr * dk * a.P,
+                            a.P, P0, a.ks + pr * a.P, a.vs + pr * a.P,
+                            qscale, m, lsum, stamp);
+    }
+    if (s != 0) continue;
+    if (KIND == KIND_STEP) {
+      if (warp == 0) {               // the diagonal term, f32
+        float acc[MAX_DK / 32], vj[MAX_DK / 32], sv = 0.f;
+#pragma unroll
+        for (int i = 0; i < MAX_DK / 32; ++i) {
+          const int d = lane + 32 * i;
+          acc[i] = (P0 > 0 && d < dk) ? sm.accs[d] : 0.f;
+          const float kd = d < dk ? sm.kvd[d] : 0.f;
+          vj[i] = d < dk ? sm.kvd[dk + d] : 0.f;
+          sv = fmaf(d < dk ? sm.qs[d] : 0.f, kd, sv);
+        }
+        sv = warp_sum(sv);
+        const float m_new = fmaxf(m, sv);
+        const float alpha = expf(m - m_new);
+        const float p = expf(sv - m_new);
+        lsum = lsum * alpha + p;
+#pragma unroll
+        for (int i = 0; i < MAX_DK / 32; ++i) {
+          const int d = lane + 32 * i;
+          if (d < dk)
+            a.attn[(size_t)b * a.I + h * dk + d] =
+                f2bf((acc[i] * alpha + p * vj[i]) / lsum);
+        }
+      }
+      ASTAMP(7)
+      continue;
     }
     if (s != 0) continue;
     // split 0: the window's rows 0..t, an online softmax in window order
@@ -1954,15 +2378,16 @@ __device__ void fw_self_attn(const Args& a, float* un, int nmax, int t,
 // Cross-attention of layer l over the encoder K/V: a full f32 softmax, one
 // block a pair (attend_split, normalized). Its 256-320 rows are too few to
 // pay for a split's exchanges.
-template <int MODE>
+template <int MODE, int KIND>
 __device__ void fw_cross_attn(const Args& a, float* un, int nmax, int l) {
-  const AttnSmem sm = attn_smem(un, nmax);
+  const AttnSmem sm =
+      attn_smem(un, nmax, vrow_floats<MODE, KIND>(a, gridDim.x));
   const int HB = a.H * a.B, dk = a.dk, S = a.Lenc;
   for (int pair = blockIdx.x; pair < HB; pair += gridDim.x) {
     const int h = pair / a.B, b = pair % a.B;
     __syncthreads();
     const float qscale = load_q<MODE>(a, sm, b, h);
-    const size_t pr = pair_index<KIND_WINDOW>(a, l, h, b);
+    const size_t pr = pair_index<KIND>(a, l, h, b);
     float m = 0.f, lsum = 0.f;
     attend_split<MODE>(a, sm, 0, 1, a.ck, a.cv, pr * dk * S, S, S,
                        a.cks + pr * S, a.cvs + pr * S, qscale, true, m, lsum);
@@ -1993,9 +2418,65 @@ __device__ __forceinline__ bool next_projection(const Args& a, int& m, int& l,
   return true;
 }
 
-template <int MODE>
+// Projection m of layer l by fd_kernel's 32-column x 8-row tiles over every
+// block (matvec_phase), its weights read straight from L2: the step and the
+// grouped window above 8 rows.
+template <int MODE, int KIND>
+__device__ void tile_project(const Args& a, int m, int l, int t,
+                             float* smem) {
+  const int I = a.I, D = a.D, F = a.F;
+  const bool q = MODE != MODE_BF16;
+  const float* nw = a.norms + (size_t)l * 3 * D;
+  switch (m) {
+    case PR_QKV:
+      matvec_phase<MODE, KIND>(a, smem, D, 3 * I, a.wqkv,
+                               (size_t)l * D * 3 * I,
+                               q ? a.sqkv + (size_t)l * 3 * I : nullptr,
+                               IN_RMS, nw, nullptr, OUT_QKV, nullptr, t, l);
+      break;
+    case PR_WO:
+      matvec_phase<MODE, KIND>(a, smem, I, D, a.wo, (size_t)l * I * D,
+                               q ? a.so + (size_t)l * D : nullptr, IN_BF16,
+                               nullptr, a.attn, OUT_RESID, nullptr, t, l);
+      break;
+    case PR_WQC:
+      matvec_phase<MODE, KIND>(a, smem, D, I, a.wqc, (size_t)l * D * I,
+                               q ? a.sqc + (size_t)l * I : nullptr, IN_RMS,
+                               nw + D, nullptr, OUT_STORE, a.q, t, l);
+      break;
+    case PR_WOC:
+      matvec_phase<MODE, KIND>(a, smem, I, D, a.woc, (size_t)l * I * D,
+                               q ? a.soc + (size_t)l * D : nullptr, IN_BF16,
+                               nullptr, a.attn, OUT_RESID, nullptr, t, l);
+      break;
+    case PR_FFIN:
+      matvec_phase<MODE, KIND>(a, smem, D, 2 * F, a.wff_in,
+                               (size_t)l * D * 2 * F,
+                               q ? a.sff_in + (size_t)l * 2 * F : nullptr,
+                               IN_RMS, nw + 2 * D, nullptr, OUT_STORE, a.g,
+                               t, l);
+      break;
+    case PR_FFOUT:
+      matvec_phase<MODE, KIND>(a, smem, F, D, a.wff_out, (size_t)l * F * D,
+                               q ? a.sff_out + (size_t)l * D : nullptr,
+                               IN_GATED, nullptr, nullptr, OUT_RESID,
+                               nullptr, t, l);
+      break;
+    default:
+      matvec_phase<MODE, KIND>(a, smem, D, a.V, a.lm, 0, q ? a.lm_s : nullptr,
+                               IN_RMS, a.final_norm, nullptr, OUT_STORE,
+                               a.logits, t, 0);
+  }
+}
+
+// The window (KIND_WINDOW), the grouped window (KIND_GROUPED) and the step
+// (KIND_STEP: one step from the given x, ending at the logits): one
+// persistent launch, the phases between grid barriers. The parameters are
+// grid constants: functions that take them by reference read them in
+// place.
+template <int MODE, int KIND>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    fw_kernel(Args a, int nmax, int hcap) {
+    fw_kernel(const __grid_constant__ Args a, int nmax, int hcap) {
   extern __shared__ float4 smem4[];
   uint8_t* wreg = reinterpret_cast<uint8_t*>(smem4);
   float* normsm = reinterpret_cast<float*>(wreg + a.wbytes);
@@ -2006,22 +2487,38 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int half = a.wbytes / 2;
   unsigned epoch = 0;
   int ord = 0;                                  // streamed projections
+#ifdef PHASE_TRACE
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_ns[0] = global_ns();
+#endif
   if (RESIDENT) {
     for (int l = 0; l < a.L; ++l)
       for (int m = PR_QKV; m < PR_LM; ++m)
-        copy_slice<MODE, false>(a, m, l,
-                                wreg + resident_offset<MODE>(a, m, l, blk, G));
-    copy_slice<MODE, false>(a, PR_LM, 0,
-                            wreg + resident_offset<MODE>(a, PR_LM, 0, blk, G));
+        copy_slice<MODE, false>(
+            a, m, l, wreg + resident_offset<MODE>(a, m, l, blk, G));
+    copy_slice<MODE, false>(
+        a, PR_LM, 0, wreg + resident_offset<MODE>(a, PR_LM, 0, blk, G));
   } else {
     copy_slice<MODE, true>(a, PR_QKV, 0, wreg);
     cp_async_commit();
   }
-  // every RMS norm's weights, read by every block in every RMS phase
-  for (int i = threadIdx.x; i < nnorm; i += NTHREADS)
-    normsm[i] = i < 3 * a.L * a.D ? a.norms[i] : a.final_norm[i - 3 * a.L * a.D];
-  init_phase(a);
-  grid_barrier(a, epoch);
+  // every RMS norm's weights, read by every block in every RMS phase:
+  // 16-byte cp.async, waited for with the first weights
+  for (int i = 4 * threadIdx.x; i < nnorm; i += 4 * NTHREADS) {
+    const float* src = i < 3 * a.L * a.D ? a.norms + i
+                                         : a.final_norm + (i - 3 * a.L * a.D);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(normsm + i)),
+                 "l"(src));
+  }
+  cp_async_commit();
+  if (RESIDENT) {                               // project does not wait
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (KIND != KIND_STEP) {                      // the step's x arrives filled
+    init_phase(a);
+    grid_barrier(a, epoch);
+  }
   // the weights of projection m, layer l; streamed: wait for its copy and
   // start the next projection's into the other buffer
   auto project = [&](int m, int l, int t) {
@@ -2038,19 +2535,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       cp_async_commit();
       ++ord;
     }
-    fw_project<MODE>(a, m, l, t, w, normsm, un, hcap);
+    fw_project<MODE, KIND>(a, m, l, t, w, normsm, un, hcap);
   };
   for (int t = 0; t < a.T; ++t) {
     for (int l = 0; l < a.L; ++l) {
       project(PR_QKV, l, t);
       grid_barrier(a, epoch);
-      fw_self_attn<MODE>(a, un, nmax, t, l);
+      fw_self_attn<MODE, KIND>(a, un, nmax, t, l);
       grid_barrier(a, epoch);
       project(PR_WO, l, t);
       grid_barrier(a, epoch);
       project(PR_WQC, l, t);
       grid_barrier(a, epoch);
-      fw_cross_attn<MODE>(a, un, nmax, l);
+      fw_cross_attn<MODE, KIND>(a, un, nmax, l);
       grid_barrier(a, epoch);
       project(PR_WOC, l, t);
       grid_barrier(a, epoch);
@@ -2060,59 +2557,75 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       grid_barrier(a, epoch);
     }
     project(PR_LM, 0, t);
+#ifdef PHASE_TRACE
+    if (KIND == KIND_STEP && blockIdx.x == 0 && threadIdx.x == 0)
+      g_phase_ns[epoch + 1] = global_ns();   // block 0's own end
+#endif
+    if (KIND == KIND_STEP) break;               // the logits are the output
     grid_barrier(a, epoch);
     argmax_phase(a, un, t);
     if (t + 1 < a.T) grid_barrier(a, epoch);
   }
 }
 
-// Launch one window: one block of NTHREADS per SM in clusters of two (a
-// cooperative launch, so all are resident for the spin barrier), weights
-// resident (int4) or two streamed slices (bf16, int8). Returns a CUDA error
-// code; invalid value for a projection with more than MAX_SUB sub-units a
-// block, d_kv above MAX_DK, widths not multiples of 8, or no sync buffer.
-template <int MODE>
-static int launch_window(Args a, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int G = sms / 2 * 2;                    // whole clusters of two
-  if (G < 2 || a.dk > MAX_DK || a.D > MAX_D || a.sync == nullptr ||
-      a.D % 8 || a.I % 8 || a.F % 8 || a.V % 8)
-    return (int)cudaErrorInvalidValue;
-  size_t resident = 0, stream_slice = 0;
-  int kmax = 0;
-  for (int m = PR_QKV; m <= PR_LM; ++m) {
-    const ProjShape s = proj_shape(a, m);
-    const int nsub = proj_subunits(s, 0, G);
-    if (nsub > MAX_SUB) return (int)cudaErrorInvalidValue;
-    const size_t sz = slice_bytes<MODE>(s, nsub);
-    resident += m == PR_LM ? sz : (size_t)a.L * sz;
-    if (sz > stream_slice) stream_slice = sz;
-    if (s.K > kmax) kmax = s.K;
+// The step and the grouped window above 8 rows: fd_kernel's 32-column x
+// 8-row tiles for the projections (tile_project; teams of blocks, one an
+// 8-row group, and fw_kernel's layout staging all the rows in every block
+// both measured slower there, PERF.md), this header's chunked attention
+// and grid barrier. A kernel of its own, so that fw_kernel's projection
+// code does not set its registers (the same tiles inside fw_kernel ran
+// ~20% slower).
+template <int MODE, int KIND>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    ft_kernel(const __grid_constant__ Args a, int nmax) {
+  extern __shared__ float4 smem4[];
+  float* un = reinterpret_cast<float*>(smem4);
+  unsigned epoch = 0;
+#ifdef PHASE_TRACE
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_ns[0] = global_ns();
+#endif
+  if (KIND != KIND_STEP) {
+    init_phase(a);
+    grid_barrier(a, epoch);
   }
-  a.wbytes = (int)(MODE == MODE_INT4 ? resident : 2 * stream_slice);
-  const int bpad = h_stride((a.B + ROWS - 1) / ROWS * ROWS);
-  int hcap = bpad * kmax;
-  if (hcap > HCAP) hcap = HCAP / bpad / 8 * 8 * bpad;
-  constexpr int EP = vec_positions<MODE>();
-  const int nsplit = 2 * a.H * a.B <= G ? 2 : 1;
-  const int r_self = ((a.pos0 + nsplit - 1) / nsplit + EP - 1) / EP * EP;
-  const int r_cross = (a.Lenc + EP - 1) / EP * EP;
-  int nmax = r_self > r_cross ? r_self : r_cross;
-  int part_floats = NTHREADS * EP;
-  if (nmax + EP > part_floats) part_floats = nmax + EP;
-  if (2 * a.T * a.dk + a.T > part_floats) part_floats = 2 * a.T * a.dk + a.T;
-  const int mv_floats = hcap / 2 + NWARPS * 4 * ROWS * UNIT + bpad;
-  int un = attn_floats(nmax, part_floats);
-  if (mv_floats > un) un = mv_floats;
-  if (3 * NWARPS + 1 > un) un = 3 * NWARPS + 1;
-  const int norm_floats = ((3 * a.L + 1) * a.D + 3) / 4 * 4;
-  const size_t smem =
-      (size_t)a.wbytes + (size_t)(norm_floats + un) * sizeof(float);
+  for (int t = 0; t < a.T; ++t) {
+    for (int l = 0; l < a.L; ++l) {
+      tile_project<MODE, KIND>(a, PR_QKV, l, t, un);
+      grid_barrier(a, epoch);
+      fw_self_attn<MODE, KIND>(a, un, nmax, t, l);
+      grid_barrier(a, epoch);
+      tile_project<MODE, KIND>(a, PR_WO, l, t, un);
+      grid_barrier(a, epoch);
+      tile_project<MODE, KIND>(a, PR_WQC, l, t, un);
+      grid_barrier(a, epoch);
+      fw_cross_attn<MODE, KIND>(a, un, nmax, l);
+      grid_barrier(a, epoch);
+      tile_project<MODE, KIND>(a, PR_WOC, l, t, un);
+      grid_barrier(a, epoch);
+      tile_project<MODE, KIND>(a, PR_FFIN, l, t, un);
+      grid_barrier(a, epoch);
+      tile_project<MODE, KIND>(a, PR_FFOUT, l, t, un);
+      grid_barrier(a, epoch);
+    }
+    tile_project<MODE, KIND>(a, PR_LM, 0, t, un);
+#ifdef PHASE_TRACE
+    if (KIND == KIND_STEP && blockIdx.x == 0 && threadIdx.x == 0)
+      g_phase_ns[epoch + 1] = global_ns();   // block 0's own end
+#endif
+    if (KIND == KIND_STEP) break;
+    grid_barrier(a, epoch);
+    argmax_phase(a, un, t);
+    if (t + 1 < a.T) grid_barrier(a, epoch);
+  }
+}
+
+// a launch of clusters of two over the card's SMs, cooperative (all
+// resident for the spin barrier)
+template <typename... P, typename... A>
+static int launch_clusters(void (*kernel)(P...), int G, size_t smem,
+                           cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      fw_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(G);
@@ -2129,12 +2642,98 @@ static int launch_window(Args a, cudaStream_t stream) {
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fw_kernel<MODE>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (clusters < G / 2) return (int)cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchKernelEx(&cfg, fw_kernel<MODE>, a, nmax, hcap);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// the attention's positions a block holds at most (nmax) on a grid of G:
+// the cache rows a split attends, or the encoder rows (-1 past MAXC
+// chunks)
+template <int MODE, int KIND>
+static int attention_positions(const Args& a, int G) {
+  constexpr int EP = vec_positions<MODE>();
+  const int r_self = self_positions<MODE, KIND>(a, G);
+  const int r_cross = (a.Lenc + EP - 1) / EP * EP;
+  return r_self < 0 ? -1 : r_self > r_cross ? r_self : r_cross;
+}
+
+// the attention's floats of shared memory for nmax positions on a grid of
+// G, the chunked kinds' V rows included
+template <int MODE, int KIND>
+static int attention_floats(const Args& a, int nmax, int G) {
+  constexpr int EP = vec_positions<MODE>();
+  int part_floats = NTHREADS * EP;
+  if (nmax + EP > part_floats) part_floats = nmax + EP;
+  if (2 * a.T * a.dk + a.T > part_floats) part_floats = 2 * a.T * a.dk + a.T;
+  return attn_floats(nmax, part_floats) + vrow_floats<MODE, KIND>(a, G);
+}
+
+// Launch ft_kernel (checked by launch_window). External, like
+// launch_window, so that a source can leave an instantiation to another
+// translation unit of its library (extern template; cuda_build.PARTS).
+template <int MODE, int KIND>
+int launch_tiles(Args a, int G, cudaStream_t stream) {
+  const int nmax = attention_positions<MODE, KIND>(a, G);
+  if (nmax < 0) return (int)cudaErrorInvalidValue;
+  int kmax = a.D > a.I ? a.D : a.I;
+  if (a.F > kmax) kmax = a.F;
+  int un = attention_floats<MODE, KIND>(a, nmax, G);
+  if (ROWS * kmax + NWARPS * ROWS * TILE_N > un)
+    un = ROWS * kmax + NWARPS * ROWS * TILE_N;
+  if (3 * NWARPS + 1 > un) un = 3 * NWARPS + 1;
+  return launch_clusters(ft_kernel<MODE, KIND>, G, (size_t)un * sizeof(float),
+                         stream, a, nmax);
+}
+
+// Launch fw_kernel: one block of NTHREADS per SM in clusters of two (a
+// cooperative launch, so all are resident for the spin barrier), weights
+// resident (int4) or two streamed slices (bf16, int8); the step and the
+// grouped window above 8 rows read theirs from L2 in fd_kernel's tiles.
+// Returns a CUDA error code; invalid value for a projection with more than
+// MAX_SUB sub-units a block, d_kv above MAX_DK, widths not multiples of 8,
+// no sync buffer, a chunk below 1, or (the step and the grouped window) a
+// block with more than MAXC cache chunks.
+template <int MODE, int KIND>
+int launch_window(Args a, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int G = sms / 2 * 2;                    // whole clusters of two
+  if (G < 2 || a.dk > MAX_DK || a.D > MAX_D || a.sync == nullptr ||
+      a.D % 8 || a.I % 8 || a.F % 8 || a.V % 8 || a.chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  if (KIND != KIND_WINDOW && a.B > ROWS)
+    return launch_tiles<MODE, KIND>(a, G, stream);
+  size_t resident = 0, stream_slice = 0;
+  int kmax = 0;
+  for (int m = PR_QKV; m <= PR_LM; ++m) {
+    const ProjShape s = proj_shape(a, m);
+    const int nsub = proj_subunits(s, 0, G);
+    if (nsub > MAX_SUB) return (int)cudaErrorInvalidValue;
+    const size_t sz = slice_bytes<MODE>(s, nsub);
+    resident += m == PR_LM ? sz : (size_t)a.L * sz;
+    if (sz > stream_slice) stream_slice = sz;
+    if (s.K > kmax) kmax = s.K;
+  }
+  a.wbytes = (int)(MODE == MODE_INT4 ? resident : 2 * stream_slice);
+  const int bpad = h_stride((a.B + ROWS - 1) / ROWS * ROWS);
+  int hcap = bpad * kmax;
+  if (hcap > HCAP) hcap = HCAP / bpad / 8 * 8 * bpad;
+  const int nmax = attention_positions<MODE, KIND>(a, G);
+  if (nmax < 0) return (int)cudaErrorInvalidValue;
+  const int mv_floats = hcap / 2 + NWARPS * 4 * ROWS * UNIT + bpad;
+  int un = attention_floats<MODE, KIND>(a, nmax, G);
+  if (mv_floats > un) un = mv_floats;
+  if (3 * NWARPS + 1 > un) un = 3 * NWARPS + 1;
+  const int norm_floats = ((3 * a.L + 1) * a.D + 3) / 4 * 4;
+  const size_t smem =
+      (size_t)a.wbytes + (size_t)(norm_floats + un) * sizeof(float);
+  return launch_clusters(fw_kernel<MODE, KIND>, G, smem, stream, a, nmax,
+                         hcap);
 }
 
 // The order of the launchers' pointer and dimension arrays (the Python

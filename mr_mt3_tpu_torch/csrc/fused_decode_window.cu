@@ -10,14 +10,16 @@
 //     kernel's 256-position chunks were a VMEM tile);
 //   * benchmarks/group_axis_kernel.py::fused_decode_window_grouped
 //     (pallas_call at :385, body _make_grouped_kernel :78): fdw_grouped_launch,
-//     int8 only (fd_kernel<MODE_INT8, KIND_GROUPED>). It reads the group-major
-//     cache and cross K/V (L*G, H, 8, ...) directly, attends the cache rows
-//     < pos0 in the TPU kernel's chunks (chunk_base_for: 256 positions at
-//     Lenc 256), and rounds the emitted K/V scales to bf16, as the TPU kernel
-//     does. On the TPU the group axis made each layer's weights stream once
-//     per (token, layer) for all groups; here every launch already streams
-//     them once per step for all <= 64 rows, so the grouped form differs from
-//     the window only in its layouts and numerics.
+//     int8 only (fw_kernel<MODE_INT8, KIND_GROUPED>). It reads the
+//     group-major cache and cross K/V (L*G, H, 8, ...) directly, attends the
+//     cache rows < pos0 in the TPU kernel's chunks (chunk_base_for: 256
+//     positions at Lenc 256) split over the two blocks of a cluster that
+//     exchange their chunk maxima, and rounds the emitted K/V scales to
+//     bf16, as the TPU kernel does. On the TPU the group axis made each
+//     layer's weights stream once per (token, layer) for all groups; here
+//     the 32-column x 8-row tiles of each group stream them from L2 in
+//     every step, so the grouped form differs from the window only in its
+//     layouts and numerics.
 // The device code, its cast points and its design are in fused_decode.cuh.
 //
 // Bound on the H100 (3.35 TB/s HBM, 50 MB L2), MT3 at full width, B = 8,
@@ -35,6 +37,10 @@
 // says what fw_kernel does about it and what it leaves.
 
 #include "fused_decode.cuh"
+
+// the grouped window: compiled in fused_decode_window_grouped.cu
+extern template int launch_window<MODE_INT8, KIND_GROUPED>(Args,
+                                                           cudaStream_t);
 
 extern "C" {
 
@@ -56,11 +62,11 @@ int fdw_launch(void* const* p, const int* dim, float eps, void* stream) {
   switch (dim[D_MODE]) {
     case MODE_BF16:
       return pr7 ? launch<MODE_BF16, KIND_WINDOW>(a, smem, s)
-                 : launch_window<MODE_BF16>(a, s);
+                 : launch_window<MODE_BF16, KIND_WINDOW>(a, s);
     case MODE_INT8:
       return pr7 ? launch<MODE_INT8, KIND_WINDOW>(a, smem, s)
-                 : launch_window<MODE_INT8>(a, s);
-    case MODE_INT4: return launch_window<MODE_INT4>(a, s);
+                 : launch_window<MODE_INT8, KIND_WINDOW>(a, s);
+    case MODE_INT4: return launch_window<MODE_INT4, KIND_WINDOW>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -74,8 +80,16 @@ int fdw_grouped_launch(void* const* p, const int* dim, float eps,
   const Args a = make_args(p, dim, eps, &smem);
   if (dim[D_MODE] != MODE_INT8 || a.B % GROUP_ROWS || a.chunk < 1)
     return (int)cudaErrorInvalidValue;
-  return launch<MODE_INT8, KIND_GROUPED>(a, smem, (cudaStream_t)stream);
+  return launch_window<MODE_INT8, KIND_GROUPED>(a, (cudaStream_t)stream);
 }
+
+#ifdef PHASE_TRACE
+// the probe build's barrier stamps (ns), n of them from index 0
+int fdw_phase_trace(unsigned long long* dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, g_phase_ns,
+                                   n * sizeof(unsigned long long));
+}
+#endif
 
 const char* fdw_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -866,7 +866,9 @@ def fused_decode_step_cuda(cfg: MT3Config, fp: FusedParams, x: torch.Tensor,
         q=torch.empty((B, inner), dtype=f32, **z),
         attn=torch.empty((B, inner), dtype=bf16, **z),
         g=torch.empty((B, 2 * F), dtype=f32, **z), logits=logits_out,
-        kvf=torch.empty((B, 2 * inner), dtype=f32, **z))
+        kvf=torch.empty((B, 2 * inner), dtype=f32, **z),
+        # the kernel's grid barrier counts up from 0
+        sync=torch.zeros((1,), dtype=torch.int32, **z))
     dims = [B, L, H, dk, D, F, V, S, P, 1, int(position), cfg.pad_token_id,
             cfg.eos_token_id, _MODE_ID[tier], chunk]
     _launch('fused_decode_step', 'fds_launch', 'fused_decode_step', tensors,

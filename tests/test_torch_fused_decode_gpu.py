@@ -522,13 +522,28 @@ def test_int8_wrappers_check_operands(cuda):
     assert {**i8m.LAUNCHES, **i8a.LAUNCHES} == before
 
 
-# bf16 at B >= 13 only: INT8_BOUNDS' share of unequal bf16 outputs (1e-3)
-# is set for thousands of outputs; one row has 512, and a single output
-# on a bf16 rounding tie (the kernel's f32 order against cuBLAS's one-row
-# product) is 0.2% of them
+def _int8_violations(kernel, dtype, got, args, plain, head_width=None):
+    """chip_smoke's INT8_BOUNDS violations of got against plain(*args);
+    in bf16 with the tie-aware check (chip_smoke.int8_bf16_violations): a
+    share bound coarser than one element holds only through every unequal
+    output being a rounding tie of the plain version."""
+    readings = chip_smoke.output_readings(torch, got, plain(*args),
+                                          head_width)
+    if dtype != 'bfloat16':
+        return chip_smoke.int8_violations(kernel, dtype, readings)
+    readings.update(chip_smoke.bf16_tie_readings(
+        torch, got, plain(*args), plain(args[0].float(), *args[1:]),
+        head_width, chip_smoke.TIE_MOVEMENT[kernel](torch, *args)))
+    return chip_smoke.int8_bf16_violations(kernel, readings)
+
+
+# bf16 at B 1 under the tie-aware check: INT8_BOUNDS' share of unequal
+# bf16 outputs (1e-3) is set for thousands of outputs; one row has 512,
+# and a single output on a bf16 rounding tie (the kernel's f32 order
+# against cuBLAS's one-row product) is 0.2% of them
 @pytest.mark.parametrize('b,dtype', [(1, 'float32'), (13, 'float32'),
-                                     (64, 'float32'), (13, 'bfloat16'),
-                                     (64, 'bfloat16')])
+                                     (64, 'float32'), (1, 'bfloat16'),
+                                     (13, 'bfloat16'), (64, 'bfloat16')])
 def test_int8_gated_ff_full_width_batches(cuda, b, dtype):
     """The feed-forward at the decoder's 512 / 1024 at B 1, 13 (a ragged
     second row tile) and 64 (8 tiles, several tasks a block), one launch
@@ -546,9 +561,8 @@ def test_int8_gated_ff_full_width_batches(cuda, b, dtype):
         got = i8m.int8_gated_ff(*args)
     torch.cuda.synchronize()
     assert i8m.LAUNCHES['int8_gated_ff'] == before + 3
-    readings = chip_smoke.output_readings(
-        torch, got, i8m.int8_gated_ff_reference(*args))
-    assert not chip_smoke.int8_violations('int8_gated_ff', dtype, readings)
+    assert not _int8_violations('int8_gated_ff', dtype, got, args,
+                                i8m.int8_gated_ff_reference)
     stream = torch.cuda.current_stream().cuda_stream
     bar = i8m._barrier(h.device, stream)
     assert bar.tolist()[0] == 0       # the count; bar[1] is the generation
@@ -576,16 +590,17 @@ INT8_ATTN_EDGE_CASES = [
     (22, 6, 64, 512, 300), (22, 6, 64, 512, 301)]
 
 
-@pytest.mark.parametrize('dtype', ['float32'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('b,h,dk,k_len,pos', INT8_ATTN_EDGE_CASES)
 def test_int8_attention_edges(cuda, b, h, dk, k_len, pos, dtype):
     """The attention kernel at the edges of its layouts and of its design
     rule, one launch each, within INT8_BOUNDS; the control caught wherever
-    a position past 0 takes part. f32 only: there the bounds ask every
-    head to agree (the codes are the plain version's); bf16's share of
-    heads apart (6%) is set for B 8 and 64 at 6 heads and is less than one
-    head at 8 (test_int8_attention_kernel_matches_plain_version and
-    chip_smoke hold bf16)."""
+    a position past 0 takes part. In f32 the bounds ask every head to
+    agree (the codes are the plain version's); in bf16 the share of heads
+    apart (6%) is less than one head below 17 pairs, so there the
+    tie-aware check holds it: every unequal output is a rounding tie of
+    the plain version (of the output, of a probability code, or of a q
+    code of its head)."""
     from mr_mt3_tpu_torch.ops import int8_attention as i8a
     tdt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(b * 7 + pos)
@@ -597,10 +612,8 @@ def test_int8_attention_edges(cuda, b, h, dk, k_len, pos, dtype):
     got = i8a.int8_decode_attention(*args)
     torch.cuda.synchronize()
     assert i8a.LAUNCHES[i8a.KERNEL] == before + 1
-    readings = chip_smoke.output_readings(
-        torch, got, i8a.int8_decode_attention_reference(*args), dk)
-    assert not chip_smoke.int8_violations('int8_decode_attention', dtype,
-                                          readings)
+    assert not _int8_violations('int8_decode_attention', dtype, got, args,
+                                i8a.int8_decode_attention_reference, dk)
     if pos:
         ctrl = chip_smoke.output_readings(
             torch, got, chip_smoke.int8_attention_control(torch, *args), dk)
@@ -911,6 +924,118 @@ def test_grouped_wrapper_checks_operands(cuda):
                                             finished, pos0, flat, cross, T,
                                             chunk)
     assert gk.LAUNCHES == before
+
+
+# ---- the redesigned step and grouped window (fw_kernel, ft_kernel) ------
+# At B 8 the chunks of a pair are split between the two blocks of a
+# cluster (2 H B <= the grid); at B 64 one block takes a pair, and the
+# projections run in 32-column x 8-row tiles (ft_kernel).
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+@pytest.mark.parametrize('batch,pos', [(8, 1000), (64, 1000)])
+def test_step_kernel_is_bit_identical_run_to_run(cuda, tier, batch, pos):
+    """Three launches of the step on the same inputs (four live chunks)
+    give the same logits and rows bit for bit (fixed sum orders, no float
+    atomics), one launch each."""
+    _, args = _step_case(cuda, tier, batch, pos, cache_len=1024)
+    before = fd.STEP_LAUNCHES[tier]
+    outs = [fd.fused_decode_step_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fd.STEP_LAUNCHES[tier] == before + 3
+    for logits, rows in outs[1:]:
+        assert torch.equal(logits, outs[0][0])
+        for key in rows:
+            assert torch.equal(rows[key], outs[0][1][key])
+
+
+def test_grouped_kernel_is_bit_identical_run_to_run(cuda):
+    """Three grouped windows at G 8 (ft_kernel) on the same inputs are
+    equal bit for bit, one launch each."""
+    from mr_mt3_tpu_torch.ops import group_axis_kernel as gk
+    _, args = _grouped_case(cuda, 8, 24)
+    before = gk.LAUNCHES['fused']
+    outs = [gk.fused_decode_window_grouped_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES['fused'] == before + 3
+    for toks, fin, rows in outs[1:]:
+        assert torch.equal(toks, outs[0][0]) and torch.equal(fin, outs[0][1])
+        for key in rows:
+            assert torch.equal(rows[key], outs[0][2][key])
+
+
+@pytest.mark.parametrize('tier', ['fused_bf16', 'fused', 'fused_int4'])
+@pytest.mark.parametrize('batch', [8, 64])
+def test_step_kernel_equals_the_chunk_emulation(cuda, tier, batch,
+                                                monkeypatch):
+    """The step on the card against the plain version whose cache
+    attention is tests/test_torch_step_tiles.py's emulation of the
+    kernel's order (two splits that exchange their chunk maxima at B 8,
+    one block a pair at B 64), at four live chunks: within the bounds that
+    hold the kernel to the plain version; and the emulated step within
+    them of the plain one on the card."""
+    from test_torch_step_tiles import emulated_chunk_attention
+    _, args = _step_case(cuda, tier, batch, 1000, cache_len=1024)
+    cfg = args[0]
+    splits = 2 if 2 * cfg.num_heads * batch <= \
+        torch.cuda.get_device_properties(cuda).multi_processor_count else 1
+    logits, rows = fd.fused_decode_step_cuda(*args)
+    plain_logits, plain_rows = fd.fused_decode_step_reference(*args)
+    monkeypatch.setattr(
+        fd, '_cache_attention',
+        lambda q, kc, vc, ks, vs, chunk, exact: emulated_chunk_attention(
+            q, kc, vc, ks, vs, tier, chunk, splits)[0])
+    want, w_rows = fd.fused_decode_step_reference(*args)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((logits - want).abs().max()) <= LOGIT_RTOL * scale
+    assert float((plain_logits - want).abs().max()) <= LOGIT_RTOL * scale
+    for key in ('kq', 'vq'):
+        a, r = rows[key].float(), w_rows[key].float()
+        if tier == 'fused_bf16':
+            assert float((a - r).abs().max()) <= \
+                KV_RTOL * float(r.abs().max())
+        else:
+            assert float((a == r).float().mean()) >= CODE_SHARE, key
+            assert float((a - r).abs().max()) <= CODE_DIFF, key
+            assert float((plain_rows[key] == w_rows[key]).float().mean()) \
+                >= CODE_SHARE, key
+
+
+_NEVER_REACHED = r'''
+import sys, torch
+sys.path.insert(0, {root!r}); sys.path.insert(0, {tests!r})
+import test_torch_fused_decode_gpu as t
+from mr_mt3_tpu_torch.ops import fused_decode as fd
+_, args = t._step_case(torch.device('cuda'), 'fused', 8, 300)
+real = fd._launch
+def launch(name, entry, label, tensors, dims, eps, dev):
+    tensors[-1].fill_(-8)   # the barrier word: 132 arrivals wrap short of 132
+    real(name, entry, label, tensors, dims, eps, dev)
+fd._launch = launch
+fd.fused_decode_step_cuda(*args)
+torch.cuda.synchronize()
+print('NO TRAP')
+'''
+
+
+def test_a_barrier_never_reached_traps(cuda):
+    """A step whose grid barrier can never fill (its word starts just
+    below 2^32, so the arrivals wrap short of the target) ends with an
+    error after the 4 s spin limit instead of hanging the card; run in its
+    own process, whose context the trap spoils."""
+    import os
+    import subprocess
+    import sys
+    import time
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = _NEVER_REACHED.format(root=os.path.dirname(tests), tests=tests)
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0 and 'NO TRAP' not in proc.stdout
+    assert 'CUDA' in proc.stderr or 'cuda' in proc.stderr, proc.stderr[-2000:]
+    assert time.monotonic() - t0 < 120
 
 
 def _check_window(cfg, tier, batch, got, want):
