@@ -102,10 +102,11 @@
 //     one 16-byte load; codes become f32 through the 2^23 mantissa trick,
 //     not I2F (a quarter-rate instruction);
 //   * above 8 rows the step and the grouped window take fd_kernel's
-//     32-column x 8-row tiles for the projections instead (tile_project):
-//     teams of blocks, one an 8-row group staging only its rows, and this
-//     layout staging all the rows in every block both measured slower
-//     there (PERF.md);
+//     32-column x 8-row tiles for the projections instead (tile_project),
+//     in a kernel of their own (ft_kernel) with this design's barrier and
+//     attention: teams of blocks, one an 8-row group staging only its
+//     rows, and this layout staging all the rows in every block both
+//     measured slower there (PERF.md);
 //   * attention reads K/V rows with 16-byte vector loads, VB of them in
 //     flight a thread: scores as per-position partial sums in registers
 //     (32 int4 / 16 int8 / 8 bf16 positions a load), value sums with
@@ -121,8 +122,9 @@
 //     blocks take the first and the second half of the chunks, exchange
 //     only their chunk maxima, and combine their partial sums as
 //     sum_c vals_c exp(M_c - M_last) (attend_chunks: the codes are the
-//     sequential update's, the f32 combination another order).
-//     Cross-attention takes one block a pair;
+//     sequential update's, the f32 combination another order); each
+//     split's V rows are copied to shared memory by cp.async while its K
+//     rows load. Cross-attention takes one block a pair;
 //   * sums run in a fixed order (shuffle trees, warp order, split order):
 //     no float atomics, so a launch is bit-identical run to run;
 //   * at B > 8 the two blocks of a cluster stage half the rows' inputs each
