@@ -31,10 +31,12 @@ Phases (any failure exits non-zero and prints no result line):
      at positions 0, 31 and 1023 and across 256 and 320 encoder rows
      (head width 64, and 24), each at B 8 and 64 with f32 and bf16
      inputs, within INT8_BOUNDS, which must also catch a control (the
-     attention without the requantization of p); CUDA-event times of the
-     wrappers and each kernel's own time from a profiler trace
-     (trace_ms) beside the bound, the plain version's and a library
-     yardstick;
+     attention without the requantization of p; the matmul on x rounded
+     to bf16 in f32, on bf16-dequantized weights in bf16); CUDA-event
+     times of the wrappers and each kernel's own time from a profiler
+     trace (trace_ms) beside the bound, the plain version's and a library
+     yardstick (for the matmul also torch._weight_int8pack_mm, the same
+     function);
   3c. the log-mel kernel (logmel_cases) at the handler's shapes, B in
      {8, 64} segments of 32768 samples (and a ragged 16000), a tone, white
      noise and zeros, both filterbank styles: within LOGMEL_BOUNDS of its
@@ -113,17 +115,17 @@ Phases (any failure exits non-zero and prints no result line):
      prepare_handler(probe=False)): the same clips, every answer MIDI;
   8b. the int8 tiers as `serve +eval.quantize=int8|int8_kv` builds them:
      the ladder's walk from each (printed), a handler held at each
-     serving the clips at eval.max_length 256 (cut for time), the int8 kernels' launches equal to the greedy
+     serving the clips at eval.max_length 128 (cut for time), the int8 kernels' launches equal to the greedy
      steps times num_decoder_layers + 1 (int8) or 2 x num_decoder_layers
      (int8_kv); and the segment-memory model at bf16 through each tier
-     held, one clip at eval.max_length 128 (cut from 1024 for time);
+     held, one clip at eval.max_length 64 (cut from 1024 for time);
   9. one worst-case decode (B=8, 1024 steps) on each window tier, each
      int8 tier and the exact path (fp32, TF32 off), and one chained
      segment-memory
      decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
   9b. the step path (step_path): 1024 greedy steps of B=8 segments through
      fused_decode_step in each mode, the argmax taken outside: launches
-     equal to the steps, ms per step and RTF, the first 256 steps' tokens
+     equal to the steps, ms per step and RTF, the first 128 steps' tokens
      against the same loop on the plain version (a row may part only at a
      near-tie, BOUNDS' max_gap_rel); on the parity model the step-driven tokens equal the
      window's in fused_bf16 and fused, up to each row's EOS;
@@ -655,7 +657,7 @@ PARITY_STEP_BOUNDS = {
 }
 STEP_PATH_STEPS = 1024
 # the step path's steps held against the plain loop (~20-30 ms a step)
-STEP_PATH_PLAIN_STEPS = 256
+STEP_PATH_PLAIN_STEPS = 128
 # the grouped window's cases (groups, pos0) and its path's shape, after
 # benchmarks/dev_fused_group_axis.py: 8 groups (B 64), t_window 32, chunk 256
 GROUPED_CASES = [(g, p) for g in (2, 8) for p in (0, 224, 992)]
@@ -1731,22 +1733,37 @@ def kernel_trace_ms(torch, fn, symbol, runs=TRACE_RUNS, tries=3):
     now and then: the reading is the median of the events the trace
     holds, and a trace that holds fewer than half of them is taken again,
     `tries` times. symbol may be a tuple of names, any of which counts."""
+    return kernel_traces_ms(torch, [(fn, symbol)], runs, tries)[0]
+
+
+def kernel_traces_ms(torch, calls, runs=TRACE_RUNS, tries=3):
+    """kernel_trace_ms of each (fn, symbol) of calls, all from one trace,
+    so that a yardstick adds no profiler session (a process that had
+    opened some 40 of them once recorded no kernel in the next: run DB,
+    PERF.md)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    symbols = (symbol,) if isinstance(symbol, str) else tuple(symbol)
-    fn()
+    calls = [(fn, (sym,) if isinstance(sym, str) else tuple(sym))
+             for fn, sym in calls]
+    for fn, _ in calls:
+        fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
+            for fn, _ in calls:
+                for _ in range(runs):
+                    fn()
             torch.cuda.synchronize()
-        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and any(sym in e.name for sym in symbols)]
-        if 2 * len(ms) >= runs:
-            return statistics.median(ms)
-    fail(f'{tries} traces of {runs} calls hold {len(ms)} {symbol} kernels')
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        ms = [[e.time_range.elapsed_us() / 1e3 for e in events
+               if any(sym in e.name for sym in symbols)]
+              for _, symbols in calls]
+        if all(2 * len(m) >= runs for m in ms):
+            return [statistics.median(m) for m in ms]
+    fail(f'{tries} traces of {runs} calls each hold '
+         f'{[len(m) for m in ms]} of the kernels '
+         f'{[symbols for _, symbols in calls]}')
 
 
 def device_per_step(torch, decode, wall_ms_per_step):
@@ -2474,11 +2491,10 @@ def decode_versus(torch, old):
 
 def int8_versus(torch, old):
     """versus()'s int8 part: every int8_kernel_cases case (int8_case_inputs)
-    through each design's C launch, the old library called with the new
-    one's leading arguments (the feed-forward's scratch and barrier words
-    come last, and the old one has none), in turns: the launches' time_ms
-    and the kernel's own trace_ms, and the largest |difference| between the
-    two outputs."""
+    through each design's C launch with the same arguments (a design
+    whose feed-forward takes no scratch and barrier words ignores those
+    last two), in turns: the launches' time_ms and the kernel's own
+    trace_ms, and the largest |difference| between the two outputs."""
     import ctypes
 
     from mr_mt3_tpu_torch.ops import int8_attention as i8a
@@ -2486,7 +2502,7 @@ def int8_versus(torch, old):
     ptr, num = ctypes.c_void_p, ctypes.c_int
     old_mm, old_att = old['int8_matmul'], old['int8_decode_attention']
     old_mm.i8mm_launch.argtypes = [ptr] * 4 + [num] * 4 + [ptr]
-    old_mm.i8ff_launch.argtypes = [ptr] * 8 + [num] * 4 + [ptr]
+    old_mm.i8ff_launch.argtypes = [ptr] * 8 + [num] * 4 + [ptr] * 3
     old_att.i8att_launch.argtypes = [ptr] * 6 + [num] * 6 + [ptr]
     libs = {'old': (old_mm, old_att), 'new': (i8m._library(), i8a._library())}
     dev = torch.device('cuda')
@@ -2524,8 +2540,7 @@ def int8_versus(torch, old):
             if kernel == 'int8_matmul':
                 rc = mm.i8mm_launch(*ptrs, o, *dims, stream)
             elif kernel == 'int8_gated_ff':
-                rc = mm.i8ff_launch(*ptrs, o, *dims, stream,
-                                    *(extra if which == 'new' else ()))
+                rc = mm.i8ff_launch(*ptrs, o, *dims, stream, *extra)
             else:
                 rc = att.i8att_launch(*ptrs[:5], o, *dims, stream)
             if rc:
@@ -3015,6 +3030,28 @@ def int8_attention_control(torch, q, k_q, k_scale, v_q, v_scale, position):
     return out.reshape(b, h * dk).to(q.dtype)
 
 
+# torch._weight_int8pack_mm(x (B, K), W (N, K) int8, scales (N,)) is
+# y = (x @ W^T) * scales, int8_matmul's function: the library yardstick
+# where this torch registers a CUDA kernel for it. On the card (run CO,
+# torch 2.11.0+cu128) its kernel (weight_int8pack_mm_kernel, f32
+# throughout) took f32 and bf16 x with f32 scales; bf16 x goes through two
+# more kernels, a conversion to f32 and of the output back, which the
+# kernel's trace leaves out.
+INT8PACK_OP = 'aten::_weight_int8pack_mm'
+INT8PACK_KERNEL = 'weight_int8pack_mm_kernel'
+
+
+def int8_matmul_control(torch, x, w_q, scale):
+    """A deliberately wrong plain version of int8_matmul: in f32, x rounded
+    to bf16 first (what a bf16 tensor-core product would take); in bf16,
+    the product on weights dequantized to bf16 (lm_deq: the library
+    yardstick's function). The bounds must tell the kernel from it."""
+    from mr_mt3_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    if x.dtype == torch.float32:
+        return int8_matmul_reference(x.to(torch.bfloat16).float(), w_q, scale)
+    return x @ (w_q.float() * scale).to(x.dtype)
+
+
 def int8_matmul_bound_ms(b, k, n, elt):
     """x read once, the int8 weights and f32 scales once, y written once,
     against HBM; 2 b k n operations at the bf16 peak (the TPU kernel's bf16
@@ -3089,13 +3126,17 @@ def int8_case_inputs(torch):
 
 def int8_kernel_cases(torch):
     """int8_matmul, int8_gated_ff and int8_decode_attention against their
-    plain versions on int8_case_inputs; the attention also against its
-    control. Then each kernel's time: its wrapper's, as the decode calls it
+    plain versions on int8_case_inputs; the matmul and the attention also
+    against their controls (int8_matmul_control, int8_attention_control).
+    Then each kernel's time: its wrapper's, as the decode calls it
     (time_ms), and the kernel's own from a trace (trace_ms); the plain
     version's, the bound and a library yardstick that is not the same
     function: torch.matmul on weights dequantized once beforehand, and
     scaled_dot_product_attention (scale 1.0) over the dequantized
-    positions <= position; none for the feed-forward."""
+    positions <= position; none for the feed-forward. The matmul also
+    against torch._weight_int8pack_mm, the same function, where the card's
+    torch has it: its call's time, its kernel's own (traced with the
+    kernel's) and its output against the plain version's."""
     phase('int8 kernels vs plain (full width)')
     import torch.nn.functional as F
 
@@ -3131,7 +3172,7 @@ def int8_kernel_cases(torch):
             case['control_caught_by'] = caught
             if not caught:
                 bad.append(f'{name}: the bounds do not tell the kernel from '
-                           f'the control without the requantization of p')
+                           f'its control')
         return case
 
     kernels = {'int8_matmul': (i8m.int8_matmul_cuda,
@@ -3140,8 +3181,9 @@ def int8_kernel_cases(torch):
                                  i8m.int8_gated_ff_reference),
                'int8_decode_attention': (i8a.int8_decode_attention_cuda,
                                          i8a.int8_decode_attention_reference)}
-    lm_deq = {}
+    lm_deq, lm_pack = {}, {}
     for kernel, case, args in int8_case_inputs(torch):
+        library_call = None
         cuda, plain = kernels[kernel]
         dtype, b = case['dtype'], case['batch']
         tdt = getattr(torch, dtype)
@@ -3149,11 +3191,25 @@ def int8_kernel_cases(torch):
         got = cuda(*args)
         if kernel == 'int8_matmul':
             x, w_lm, s_lm = args
-            record(kernel, case, got, args)
+            record(kernel, case, got, args,
+                   control=int8_matmul_control(torch, *args))
             if dtype not in lm_deq:
                 lm_deq[dtype] = (w_lm.float() * s_lm).to(tdt)
             case['library_ms'] = time_ms(
                 torch, lambda: torch.matmul(x, lm_deq[dtype]))
+            if torch._C._dispatch_has_kernel_for_dispatch_key(INT8PACK_OP,
+                                                              'CUDA'):
+                if not lm_pack:   # W (N, K) and the scales (N,), once
+                    lm_pack['w'] = w_lm.t().contiguous()
+                    lm_pack['s'] = s_lm[0].contiguous()
+
+                def library_call():
+                    return torch._weight_int8pack_mm(x, lm_pack['w'],
+                                                     lm_pack['s'])
+                got_lib = output_readings(torch, library_call(), plain(*args))
+                case.update(int8pack_ms=time_ms(torch, library_call),
+                            int8pack_rel_err=got_lib['rel_err'],
+                            int8pack_unequal=got_lib['unequal'])
             case['bound_ms'], case['bound_by'] = int8_matmul_bound_ms(
                 b, *w_lm.shape, elt)
         elif kernel == 'int8_gated_ff':
@@ -3183,8 +3239,12 @@ def int8_kernel_cases(torch):
                 b, heads, dk, n, elt)
             del kt, vt
         case['ms'] = time_ms(torch, lambda: cuda(*args))
-        case['trace_ms'] = kernel_trace_ms(
-            torch, lambda: cuda(*args), INT8_KERNEL_NAMES[kernel])
+        traced = [(lambda: cuda(*args), INT8_KERNEL_NAMES[kernel])]
+        if library_call is not None:
+            traced.append((library_call, INT8PACK_KERNEL))
+        case['trace_ms'], *library_trace = kernel_traces_ms(torch, traced)
+        if library_trace:
+            case['int8pack_trace_ms'] = library_trace[0]
         case['plain_ms'] = time_ms(torch, lambda: plain(*args),
                                    runs=PLAIN_TIMED_RUNS, warmup=0)
         print(json.dumps(case), flush=True)
@@ -3267,9 +3327,9 @@ def check_int8_launches(tier, steps, layers):
     return got
 
 
-# the int8 tiers' held servers (their eager step loop is host-bound, ~7-11
+# the int8 tiers' held servers (their eager step loop is host-bound, ~7-15
 # ms a step at B 8): cut from 1024 for time
-INT8_SERVING_MAX_LENGTH = 256
+INT8_SERVING_MAX_LENGTH = 128
 
 
 def int8_tier_serving(torch):
@@ -3326,7 +3386,7 @@ def int8_tier_serving(torch):
     return out
 
 
-SEGMEM_INT8_MAX_LENGTH = 128
+SEGMEM_INT8_MAX_LENGTH = 64
 
 
 def segmem_int8_leg(torch):
@@ -4548,9 +4608,12 @@ def main():
                         'scaled_dot_product_attention, scale 1.0, timed only',
         'cases': bwd_cases})
     notes = {
-        'int8_matmul': 'torch.matmul on the weights dequantized once '
+        'int8_matmul': 'torch._weight_int8pack_mm (x, W (N, K) int8 '
+                       'transposed once beforehand, f32 scales): the same '
+                       'function, timed only; dequant_matmul_ms: '
+                       'torch.matmul on the weights dequantized once '
                        'beforehand (reads bf16/f32 weights, not int8: not '
-                       'the same function), timed only',
+                       'the same function)',
         'int8_gated_ff': 'none: no single PyTorch call computes the gated '
                          'feed-forward',
         'int8_decode_attention': 'torch.nn.functional.scaled_dot_product_'
@@ -4567,6 +4630,12 @@ def main():
         rows = int8_cases[kernel]
         case = next(c for c in rows if c['case'] == main_case and
                     c['batch'] == 8 and c['dtype'] == 'float32')
+        library = {'library_ms': case['library_ms']}
+        if kernel == 'int8_matmul':
+            library = {'library_ms': case.get('int8pack_ms'),
+                       'library_trace_ms': case.get('int8pack_trace_ms'),
+                       'trace_ms': case['trace_ms'],
+                       'dequant_matmul_ms': case['library_ms']}
         kernels.append({
             'name': kernel, 'route': 'cuda',
             'source': f'mr_mt3_tpu_torch/csrc/{source}',
@@ -4575,8 +4644,7 @@ def main():
             'max_abs_err': max(c['max_abs_err'] for c in rows),
             'ms': case['ms'], 'plain_ms': case['plain_ms'],
             'bound_ms': case['bound_ms'], 'bound_by': case['bound_by'],
-            'library_ms': case['library_ms'],
-            'library_note': notes[kernel],
+            **library, 'library_note': notes[kernel],
             'segmem_path_launches': int8_segmem[tier]['launches'][kernel],
             'cases': rows})
     case = next(c for c in mel_cases if c['style'] == 'torch' and

@@ -20,14 +20,27 @@
 // 1536, 0.79 MB) takes at least 0.24 us, a layer's feed-forward (3 x 0.5
 // MB) 0.47 us. chip_smoke.py computes the bound of each case.
 //
-// int8_matmul (right and simple first): one block of 256 threads owns RT
-// = 4 rows and CT = 64 output columns. The block's input rows sit in
-// shared memory as f32. Each thread owns 4 adjacent columns (one char4
-// load of a weight row) and one of 16 interleaved slices of the K axis;
-// the 16 partial sums of each output are added in slice order in shared
-// memory, so a result does not depend on scheduling. The K loops are
-// unrolled so that several weight loads are in flight. Not done yet:
-// tensor cores, copies overlapped with the sums.
+// int8_matmul: tasks of 16 columns (one 16-byte vector of a W row) x RT
+// rows (8 up to 8 rows, else 16). Where the tasks fit the SMs a block
+// takes one (the lm_head at B 8: 96 blocks over 96 SMs, each weight read
+// once); past that a block an SM owns a row tile and walks its column
+// units, Q groups of 128 threads summing Q of them at once (B 64:
+// 132 blocks of three groups, one round), so x is copied once a block and
+// an SM has 4 Q warps to issue from. A task's codes and x rows go to
+// shared memory by cp.async, all in flight at once (x through L1, which
+// the H100 serves faster where every SM reads the same lines), a group's
+// next unit in flight while it sums the current one. The sums take
+// cuBLAS's order for the plain version's products at B 8 (as int8_gated_ff
+// does): chunks of 64 k's, each a sequence of fused multiply-adds from
+// zero, the chunks added in order, then the scale; a half-warp owns a chunk
+// at a time, a thread 4 columns x RT / 4 rows of it, its codes turned into
+// floats in registers (a shared f32 copy of them made the sums wait on
+// shared memory's bandwidth) and bf16 x widened as it is read. No tensor
+// cores: a bf16 mma would round f32 x, and its sums are not a sequence of
+// FMAs. On the H100 bound by latency at B 8 (~4 us against ~1.2 us for
+// an empty launch and ~1.9 us for a kernel that only reads the codes at
+// this grid: probes/int8_kernels.py), by instruction issue at B 64. K is
+// bounded by shared memory (~1800 at 16 rows in f32).
 //
 // int8_gated_ff: one cooperative launch of up to one block an SM. Phase
 // 1 deals tasks of 16 columns (one 16-byte vector of a W row) and 8 rows
@@ -54,12 +67,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#define NTHREADS 256
-#define RT 4                        // rows per block
-#define CT 64                       // output columns per block
-#define CG (CT / 4)                 // column groups of 4: 16
-#define KS (NTHREADS / CG)          // K slices: 16
-
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -74,72 +81,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ float gelu_new(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * (x * x * x))));
-}
-
-// rows row0.. of x (B, K) into xs (RT x K, f32); rows past B are zeros
-template <typename T>
-__device__ void load_rows(float* xs, const T* x, int row0, int B, int K) {
-  for (int i = threadIdx.x; i < RT * K; i += NTHREADS) {
-    const int r = i / K, row = row0 + r;
-    xs[i] = row < B ? to_f(x[(size_t)row * K + (i - r * K)]) : 0.f;
-  }
-}
-
-// out[row0 + r, col0 + c] = (sum_k xs[r, k] W[k, col0 + c]) * s[col0 + c]
-// for the block's RT rows and CT columns; part holds KS x RT x CT floats
-template <typename T>
-__device__ void tile_product(const float* xs, const int8_t* W,
-                             const float* s, int K, int N, int col0,
-                             float* part, T* out, int row0, int B) {
-  const int cg = threadIdx.x % CG, ks = threadIdx.x / CG;
-  const int c = col0 + 4 * cg;
-  float acc[RT][4];
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-  if (c < N) {
-#pragma unroll 4
-    for (int k = ks; k < K; k += KS) {
-      const char4 w = *reinterpret_cast<const char4*>(W + (size_t)k * N + c);
-      const float w0 = w.x, w1 = w.y, w2 = w.z, w3 = w.w;
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float xv = xs[r * K + k];
-        acc[r][0] = fmaf(xv, w0, acc[r][0]);
-        acc[r][1] = fmaf(xv, w1, acc[r][1]);
-        acc[r][2] = fmaf(xv, w2, acc[r][2]);
-        acc[r][3] = fmaf(xv, w3, acc[r][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      part[(ks * RT + r) * CT + 4 * cg + j] = acc[r][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < RT * CT; i += NTHREADS) {
-    const int r = i / CT, cc = i - r * CT;
-    const int row = row0 + r, col = col0 + cc;
-    if (row >= B || col >= N) continue;
-    float v = 0.f;
-    for (int j = 0; j < KS; ++j) v += part[(j * RT + r) * CT + cc];
-    store(out + (size_t)row * N + col, v * s[col]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    i8mm_kernel(const T* x, const int8_t* w, const float* s, T* out, int B,
-                int K, int N) {
-  extern __shared__ float sm[];
-  float* xs = sm;                   // RT x K
-  float* part = xs + RT * K;        // KS x RT x CT
-  const int row0 = blockIdx.y * RT, col0 = blockIdx.x * CT;
-  load_rows(xs, x, row0, B, K);
-  __syncthreads();
-  tile_product(xs, w, s, K, N, col0, part, out, row0, B);
 }
 
 // ---- int8_gated_ff --------------------------------------------------------
@@ -177,6 +118,17 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                  "l"(src));
+}
+// the same with 16 bytes through L1 too (.ca): where many SMs read the
+// same lines at once (x in int8_matmul), faster on the H100 (PERF.md)
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+  else
+    cp_async(dst, src, bytes);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -444,11 +396,222 @@ __global__ void __launch_bounds__(FF_THREADS, 1) i8ff_kernel(FFArgs a) {
   }
 }
 
-// ---- launch -------------------------------------------------------------
+// ---- int8_matmul ----------------------------------------------------------
 
-static size_t smem_mm(int K) {
-  return 4 * ((size_t)RT * K + (size_t)KS * RT * CT);
+#define MM_THREADS 128              // 8 half-warps, one chunk each at a time
+#define MM_HALVES (MM_THREADS / 16)
+#define MM_UNIT 16                  // columns a task: 16 bytes of a W row
+#define MM_CHUNK 64                 // k's of a chunk: cuBLAS's order
+#define MM_SKEW 16                  // elements after each chunk of a row of x
+                                    // in shared memory (a row of 16 bytes
+                                    // after each chunk of the codes): the
+                                    // half-warps of a warp, on chunks c and
+                                    // c + 1, read other banks
+
+struct MMArgs {
+  const void* x;
+  const int8_t* w;
+  const float* s;
+  void* out;
+  int B, K, N;
+  int ww;   // bytes a copy of a W row: 16, 8 or 4
+  int xw;   // bytes a copy of x: 16, 8 or 4; 0: bf16 read one by one
+};
+
+// Shared memory of i8mm_kernel at RT rows a task and Q units at once, in
+// this order: the block's x rows in x's type, a row's chunks MM_SKEW
+// elements apart and the rows mm_ld elements apart (16 bytes more than a
+// multiple of 128 in bf16, 4 floats more than one of 32 in f32, so the
+// four row groups of a half-warp read other banks); two buffers of a
+// unit's codes for each of the Q, K rows of 16 bytes and a spare row after
+// each chunk; the chunks' sums of each.
+__host__ __device__ inline int mm_chunks(int K) {
+  return (K + MM_CHUNK - 1) / MM_CHUNK;
 }
+__host__ __device__ inline int mm_ld(int K, int elt) {
+  const int span = elt == 4 ? 32 : 64;
+  return (mm_chunks(K) * (MM_CHUNK + MM_SKEW) + span - 1) / span * span +
+         16 / elt;
+}
+__host__ __device__ inline int mm_wbytes(int K) {
+  return (K + mm_chunks(K)) * MM_UNIT;
+}
+__host__ __device__ inline int mm_red(int RT, int K) {   // floats
+  return mm_chunks(K) * RT * MM_UNIT;
+}
+__host__ __device__ inline size_t mm_smem(int RT, int K, int elt, int Q) {
+  return (size_t)elt * RT * mm_ld(K, elt) + 2 * (size_t)Q * mm_wbytes(K) +
+         sizeof(float) * (size_t)Q * mm_red(RT, K);
+}
+
+// element t of v (t a constant once unrolled)
+__device__ __forceinline__ float lane_of(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+
+// x[k .. k + 3] as floats (bf16 widened exactly: its bits are a float's
+// upper half)
+__device__ __forceinline__ float4 mm_x4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 mm_x4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// k .. k + 3 of a thread's chunk sums: its R rows of x (4 i rows apart)
+// at xp, its word of 4 codes a k at cp, the codes turned into floats in
+// registers (a shared-memory copy of them as f32 made the sums wait on
+// shared memory's bandwidth)
+template <int R, typename T>
+__device__ __forceinline__ void mm_step(const T* xp, const int8_t* cp,
+                                        int ld, int k, float (&acc)[R][4]) {
+  float4 xv[R];
+  unsigned wd[4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) xv[i] = mm_x4(xp + 4 * i * ld + k);
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    wd[t] = *reinterpret_cast<const unsigned*>(cp + (k + t) * MM_UNIT);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    float w[4];
+    codes_to_f(wd[t], w);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        acc[i][cc] = fmaf(lane_of(xv[i], t), w[cc], acc[i][cc]);
+  }
+}
+
+// where k of a row of x lies in shared memory (in elements)
+__device__ __forceinline__ int mm_k(int k) {
+  return k + MM_SKEW * (k / MM_CHUNK);
+}
+
+// columns [16 u, 16 u + 16) of the K x N codes (those < N) into dst, row
+// k at (k + k / MM_CHUNK) * 16, by the MM_THREADS threads t of a group
+__device__ __forceinline__ void mm_copy_unit(int8_t* dst, const int8_t* w,
+                                             int K, int N, int u, int ww,
+                                             int t) {
+  const int col0 = MM_UNIT * u, ncol = min(MM_UNIT, N - col0);
+  for (int k = t; k < K; k += MM_THREADS)
+    for (int b = 0; b < ncol; b += ww)
+      cp_async(dst + (k + k / MM_CHUNK) * MM_UNIT + b,
+               w + (size_t)k * N + col0 + b, ww);
+}
+
+// A block owns a row tile [r0, r0 + RT), RT = 4 R, and the column units
+// u0 = blockIdx.x / tiles, u0 + stride, u0 + 2 stride, ... (stride =
+// gridDim.x / tiles; one unit a block where the tasks fit the SMs). Its Q
+// groups of 128 threads (Q = blockDim.x / 128) sum Q of them at once,
+// group q the q-th of each round, so an SM keeps Q x 4 warps busy. The x
+// rows go to shared memory once (in x's type; rows past B zero), each
+// unit's codes by cp.async, a group's next unit in
+// flight while it sums the current one. In a group, half-warp h sums
+// chunks h, h + 8, ..., a thread (rg, j) the rows rg + 4 i (i < R) and the
+// columns 4 j .. 4 j + 3 of a chunk, each a sequence of fused
+// multiply-adds from zero; then the chunks' sums are added in chunk order,
+// the scale applied, and x's type stored.
+template <typename T, int R>
+__global__ void __launch_bounds__(4 * MM_THREADS) i8mm_kernel(MMArgs a) {
+  constexpr int RT = 4 * R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int K = a.K, N = a.N, C = mm_chunks(K), ld = mm_ld(K, sizeof(T));
+  const int wbytes = mm_wbytes(K), tid = threadIdx.x, nt = blockDim.x;
+  const int Q = nt / MM_THREADS, q = tid / MM_THREADS, t = tid % MM_THREADS;
+  T* xs = reinterpret_cast<T*>(smem);                         // RT x ld
+  int8_t* wbuf = reinterpret_cast<int8_t*>(xs + RT * ld);     // Q x 2 x wbytes
+  float* red = reinterpret_cast<float*>(wbuf + 2 * Q * wbytes);
+  int8_t* wq = wbuf + 2 * q * wbytes;          // the group's two buffers
+  float* rq = red + q * mm_red(RT, K);         // its C x RT x 16 sums
+  const int tiles = (a.B + RT - 1) / RT, units = (N + MM_UNIT - 1) / MM_UNIT;
+  const int stride = gridDim.x / tiles, r0 = (blockIdx.x % tiles) * RT;
+  const int nr = min(RT, a.B - r0), u0 = blockIdx.x / tiles;
+  const T* x = static_cast<const T*>(a.x) + (size_t)r0 * K;
+
+  // the x rows (rows past B zero) and each group's first unit
+  int u = u0 + q * stride;
+  if (u < units) mm_copy_unit(wq, a.w, K, N, u, a.ww, t);
+  const int per = a.xw / (int)sizeof(T);
+  for (int r = 0; r < nr; ++r)
+    if (per)
+      for (int k = tid * per; k < K; k += nt * per)
+        cp_async_ca(xs + r * ld + mm_k(k), x + (size_t)r * K + k, a.xw);
+    else
+      for (int k = tid; k < K; k += nt) xs[r * ld + mm_k(k)] = x[r * K + k];
+  for (int r = nr; r < RT; ++r)
+    for (int k = tid; k < K; k += nt) xs[r * ld + mm_k(k)] = T(0.f);
+  cp_async_commit();
+
+  const int oc = t % MM_UNIT, j = t & 3, rg = (t >> 2) & 3;
+  // rounds while group 0 has a unit, so every thread meets each barrier
+  for (int buf = 0; u - q * stride < units; u += Q * stride, buf ^= 1) {
+    const bool mine = u < units;
+    const int col0 = MM_UNIT * u, ncol = mine ? min(MM_UNIT, N - col0) : 0;
+    const float sv = oc < ncol ? a.s[col0 + oc] : 0.f;
+    cp_async_wait_all();
+    __syncthreads();
+    if (u + Q * stride < units)
+      mm_copy_unit(wq + (buf ^ 1) * wbytes, a.w, K, N, u + Q * stride, a.ww,
+                   t);
+    cp_async_commit();
+
+    // the chunks' sums
+    const int8_t* wb = wq + buf * wbytes;
+    for (int c = mine ? t >> 4 : C; c < C; c += MM_HALVES) {
+      const int n = min(MM_CHUNK, K - c * MM_CHUNK);
+      const T* xp = xs + rg * ld + c * (MM_CHUNK + MM_SKEW);
+      const int8_t* cp = wb + c * (MM_CHUNK + 1) * MM_UNIT + 4 * j;
+      float acc[R][4];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[i][cc] = 0.f;
+      if (n == MM_CHUNK) {   // unrolled, so the loads run ahead of the sums
+#pragma unroll
+        for (int k = 0; k < MM_CHUNK; k += 4)
+          mm_step<R, T>(xp, cp, ld, k, acc);
+      } else {
+        int k = 0;
+        for (; k + 4 <= n; k += 4) mm_step<R, T>(xp, cp, ld, k, acc);
+        for (; k < n; ++k) {
+          float w[4];
+          codes_to_f(*reinterpret_cast<const unsigned*>(cp + k * MM_UNIT), w);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              acc[i][cc] = fmaf(to_f(xp[4 * i * ld + k]), w[cc],
+                                acc[i][cc]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          rq[(c * RT + rg + 4 * i) * MM_UNIT + 4 * j + cc] = acc[i][cc];
+    }
+    __syncthreads();
+
+    // the chunks in order, the scale, the store
+    for (int o = t; o < RT * MM_UNIT; o += MM_THREADS) {
+      const int r = o / MM_UNIT;
+      if (r >= nr || oc >= ncol) continue;
+      float v = rq[o];
+#pragma unroll 8
+      for (int c = 1; c < C; ++c) v += rq[c * RT * MM_UNIT + o];
+      store(static_cast<T*>(a.out) + (size_t)(r0 + r) * N + col0 + oc,
+            v * sv);
+    }
+  }
+}
+
+// ---- launch -------------------------------------------------------------
 
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel* kernel, size_t smem) {
@@ -517,6 +680,40 @@ static cudaError_t ff_grid(const FFArgs& a, cudaStream_t st) {
   return err != cudaSuccess ? err : last;
 }
 
+// R = 2 (8 rows a task) up to 8 rows, else R = 4. One block a task where
+// the tasks fit the SMs; past that one block an SM (tiles divides the
+// grid), its Q groups (up to 4, as many as shared memory holds) summing as
+// many of its units at once
+template <typename T, int R>
+static cudaError_t mm_grid(const MMArgs& a, cudaStream_t st) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (a.B + 4 * R - 1) / (4 * R);
+  const long long units = (a.N + MM_UNIT - 1) / MM_UNIT;
+  const long long grid = tiles * units <= sms ? tiles * units
+                         : tiles >= sms ? tiles : sms / tiles * tiles;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long each = (units + grid / tiles - 1) / (grid / tiles);
+  int Q = each < 4 ? (int)each : 4;
+  while (Q > 1 && mm_smem(4 * R, a.K, sizeof(T), Q) > (size_t)optin) --Q;
+  const size_t smem = mm_smem(4 * R, a.K, sizeof(T), Q);
+  err = allow_smem(i8mm_kernel<T, R>, smem);
+  if (err != cudaSuccess) return err;
+  i8mm_kernel<T, R><<<(unsigned)grid, Q * MM_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t mm_rows(const MMArgs& a, cudaStream_t st) {
+  return a.B <= 8 ? mm_grid<T, 2>(a, st) : mm_grid<T, 4>(a, st);
+}
+
 extern "C" {
 
 // y (B, N) = (x (B, K) @ w (K, N)) * s (N,), x and y of `dtype` (DType).
@@ -528,26 +725,19 @@ extern "C" {
 int i8mm_launch(const void* x, const void* w, const void* s, void* out,
                 int B, int K, int N, int dtype, void* stream) {
   if (B < 1 || K < 1 || N < 4 || N % 4 || (dtype != DT_F32 &&
-      dtype != DT_BF16) || (B + RT - 1) / RT > 65535)
+      dtype != DT_BF16) || (uintptr_t)w % 4)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_mm(K);
-  const dim3 grid((N + CT - 1) / CT, (B + RT - 1) / RT), block(NTHREADS);
+  MMArgs a;
+  a.x = x; a.w = (const int8_t*)w; a.s = (const float*)s; a.out = out;
+  a.B = B; a.K = K; a.N = N;
+  a.ww = widest_copy(N, (uintptr_t)w);
+  // a row of x in whole 4-byte words on a 4-byte boundary (f32 always)
+  const int row = K * (dtype == DT_F32 ? 4 : 2);
+  a.xw = row % 4 == 0 && (uintptr_t)x % 4 == 0
+             ? widest_copy(row, (uintptr_t)x) : 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (dtype == DT_F32) {
-    err = allow_smem(i8mm_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    i8mm_kernel<float><<<grid, block, smem, st>>>(
-        (const float*)x, (const int8_t*)w, (const float*)s, (float*)out, B,
-        K, N);
-  } else {
-    err = allow_smem(i8mm_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return (int)err;
-    i8mm_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)s,
-        (__nv_bfloat16*)out, B, K, N);
-  }
-  return (int)cudaGetLastError();
+  return (int)(dtype == DT_F32 ? mm_rows<float>(a, st)
+                               : mm_rows<__nv_bfloat16>(a, st));
 }
 
 // out (B, D) = gated-GELU feed-forward of h (B, D): w0, w1 (D, F), wo

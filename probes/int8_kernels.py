@@ -10,7 +10,12 @@ Run from the repository root on a machine with one NVIDIA card:
    the cost of one building block: a block reduction, a cp.async round
    trip, a cluster barrier with its distributed stores, a dependent
    shared memory or L2 load.
-2. The phases of csrc/int8_decode_attention.cu's one-block kernel: a copy
+2. The floors of csrc/int8_matmul.cu's int8_matmul at its grid, the
+   lm_head (B x 512 @ 512 x 1536) at B 8 and 64: mm_floor's minimal
+   kernel and its kernel that only reads the codes and writes B x N
+   outputs, beside the int8_matmul kernel in f32 and bf16, each from a
+   profiler trace, with the kernel's ratio to each floor.
+3. The phases of csrc/int8_decode_attention.cu's one-block kernel: a copy
    of the source with clock64() stamps of thread 0 at its phase
    boundaries, built the same way; per-phase microseconds at 1.98 GHz,
    the median over the blocks of 9 launches, at B 8 x 6 heads of 64 over
@@ -80,6 +85,9 @@ def trace_us(fn, symbol, runs=20):
     return statistics.median(us) if us else None
 
 
+FLOOR_BATCHES = (8, 64)
+
+
 def micro():
     lib = build(os.path.join(REPO, 'probes', 'int8_micro.cu'), 'int8_micro')
     lib.micro_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
@@ -103,6 +111,54 @@ def micro():
                                         'cluster': cluster,
                                         'us': trace_us(run, 'micro')}}),
                   flush=True)
+    return lib
+
+
+def mm_grid(b, n, sms):
+    """csrc/int8_matmul.cu's mm_grid at the lm_head's K (Q not cut by
+    shared memory): (blocks, groups of 128 threads, rows a tile)."""
+    rt = 8 if b <= 8 else 16
+    tiles, units = -(-b // rt), -(-n // 16)
+    grid = tiles * units if tiles * units <= sms else \
+        tiles if tiles >= sms else sms // tiles * tiles
+    return grid, min(4, -(-units // (grid // tiles))), rt
+
+
+def floors(lib):
+    """The int8_matmul kernel's floors at its grid (FLOOR_BATCHES)."""
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    lib.mm_floor_launch.argtypes = [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(5)
+    k, n = 512, 1536
+    codes, scale = i8m.quantize_columns(
+        (torch.randn((k, n), generator=gen) * 0.05).to(dev))
+    scale = scale[None].contiguous()
+    for b in FLOOR_BATCHES:
+        grid, q, rt = mm_grid(b, n, sms)
+        out = torch.empty((b, n), device=dev)
+        reading = {'batch': b, 'k': k, 'n': n, 'blocks': grid,
+                   'threads': 128 * q}
+        for read, name in ((0, 'minimal_us'), (1, 'read_codes_us')):
+            def run(read=read):
+                rc = lib.mm_floor_launch(
+                    codes.data_ptr(), out.data_ptr(), b, k, n, rt, read,
+                    grid, q, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    sys.exit(f'mm_floor failed: {rc}')
+            reading[name] = trace_us(run, 'mm_floor')
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((b, k), generator=gen).to(dev, dtype)
+            us = trace_us(lambda: i8m.int8_matmul(x, codes, scale),
+                          'i8mm_kernel')
+            name = str(dtype).split('.')[-1]
+            reading[f'kernel_{name}_us'] = us
+            reading[f'{name}_over_minimal'] = us / reading['minimal_us']
+            reading[f'{name}_over_read_codes'] = \
+                us / reading['read_codes_us']
+        print(json.dumps({'int8_matmul_floors': reading}), flush=True)
 
 
 def phases():
@@ -168,7 +224,7 @@ def phases():
 def main():
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA card')
-    micro()
+    floors(micro())
     phases()
 
 

@@ -4,7 +4,12 @@
 // with, by variant bit, 1: three more block reductions; 2: 64 cp.async
 // copies of 16 bytes and their wait; 4: four cluster barriers, each after
 // distributed shared memory stores; 8: 64 dependent shared memory loads;
-// 16: 16 dependent L2 loads.
+// 16: 16 dependent L2 loads. mm_floor: the floors of
+// csrc/int8_matmul.cu's int8_matmul at its grid (its blocks, Q groups of
+// 128 threads, each group walking 16-column units of its block's row
+// tile): with read 0 a minimal kernel (a block writes one word); with
+// read 1 a kernel that only reads each unit's codes (K rows of 16 bytes,
+// a group's loads in flight together) and writes its outputs.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,4 +101,38 @@ extern "C" int micro_launch(const void* q, const void* k, void* out,
   cudaError_t e = cudaLaunchKernelEx(&cfg, micro, (const float*)q,
                                      (const int8_t*)k, (float*)out, variant);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+__global__ void __launch_bounds__(512)
+    mm_floor(const int8_t* w, float* out, int B, int K, int N, int rt,
+             int read) {
+  const int tiles = (B + rt - 1) / rt, units = (N + 15) / 16;
+  const int stride = gridDim.x / tiles, r0 = (blockIdx.x % tiles) * rt;
+  const int Q = blockDim.x / 128, t = threadIdx.x % 128;
+  if (!read) {
+    if (threadIdx.x == 0) out[blockIdx.x] = 0.f;
+    return;
+  }
+  for (int u = blockIdx.x / tiles + threadIdx.x / 128 * stride; u < units;
+       u += Q * stride) {
+    unsigned acc = 0;
+#pragma unroll 4
+    for (int k = t; k < K; k += 128) {
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(w + (size_t)k * N + 16 * u);
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+    for (int o = t; o < rt * 16; o += 128)
+      if (r0 + o / 16 < B)
+        out[(size_t)(r0 + o / 16) * N + 16 * u + o % 16] = (float)acc;
+  }
+}
+
+// grid and Q x 128 threads as csrc/int8_matmul.cu's mm_grid gives them
+extern "C" int mm_floor_launch(const void* w, void* out, int B, int K,
+                               int N, int rt, int read, int grid, int Q,
+                               void* stream) {
+  mm_floor<<<grid, Q * 128, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)w, (float*)out, B, K, N, rt, read);
+  return (int)cudaGetLastError();
 }

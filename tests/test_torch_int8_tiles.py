@@ -19,24 +19,27 @@ meet on the card.
   added in order (cuBLAS's order for the plain version's products on the
   card); a and b scaled after their dots, g = bf16(gelu_new(a) * b), then
   the same sums over g. The control leaves g in f32.
+- Matmul (the lm_head): tasks of 16 columns x 8 rows (B <= 8) or 16 rows;
+  a block owns a row tile and walks its column units, Q groups of 128
+  threads summing Q units at once; in a group, half-warp h sums chunks
+  h, h + 8, ..., a thread 4 columns x RT / 4 rows of a chunk, each
+  chunk's sum a sequence of fused multiply-adds from zero, the chunks
+  added in order, then the scale. Every output is one task's; the
+  controls are what a bf16 tensor-core product would compute (f32 x
+  rounded to bf16) and the product on weights dequantized to bf16.
 
-The emulations live here, not in the package."""
+The emulations live here, not in the package, and this module imports
+JAX only inside the tests that call it, so the card's tests can import
+the emulations where no JAX is installed."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from mr_mt3_tpu.ops.int8_attention import (
-    int8_decode_attention as jax_attention,
-)
-from mr_mt3_tpu.ops.int8_attention import quantize_kv_rows as jax_quantize_kv
-from mr_mt3_tpu.ops.int8_matmul import int8_gated_ff as jax_gated_ff
 from mr_mt3_tpu_torch.models.mt3 import gelu_new
 from mr_mt3_tpu_torch.ops import int8_attention as i8a
 from mr_mt3_tpu_torch.ops import int8_matmul as i8m
-from tests.test_torch_int8_decode import (ATTN_CASES, WIDTHS, _agree,
-                                          _inputs, _quantized)
 
 # csrc/int8_decode_attention.cu
 PG_POS = 16            # positions a position group
@@ -222,6 +225,14 @@ def test_controls_are_caught(position, dtype):
 def test_kernel_order_meets_jax(seed, dtype):
     """The emulated kernel against the JAX kernel (interpreted) at
     tests/test_torch_int8_decode.py's sizes and tolerances."""
+    from mr_mt3_tpu.ops.int8_attention import (
+        int8_decode_attention as jax_attention,
+    )
+    from mr_mt3_tpu.ops.int8_attention import (
+        quantize_kv_rows as jax_quantize_kv,
+    )
+    from tests.test_torch_int8_decode import (ATTN_CASES, WIDTHS, _agree,
+                                              _inputs)
     for width, (*_, heads, dk) in WIDTHS.items():
         k_len, position = ATTN_CASES[width]
         (qj, kj, vj), (qt, _, _) = _inputs(
@@ -338,6 +349,9 @@ def test_gated_ff_tasks_meet_the_plain_version(batch, d, f, dtype):
 def test_gated_ff_tasks_meet_jax(seed, dtype):
     """The emulation against the JAX kernel (interpreted) at
     tests/test_torch_int8_decode.py's sizes and tolerances."""
+    from mr_mt3_tpu.ops.int8_matmul import int8_gated_ff as jax_gated_ff
+    from tests.test_torch_int8_decode import (WIDTHS, _agree, _inputs,
+                                              _quantized)
     for width, (d, _, f, *_) in WIDTHS.items():
         (hj,), (ht,) = _inputs(seed, dtype, (3, d))
         jq, tq = _quantized(seed, (d, f), (d, f), (f, d), scale=0.2)
@@ -346,3 +360,185 @@ def test_gated_ff_tasks_meet_jax(seed, dtype):
         got, _ = emulated_gated_ff(ht, *[a for pair in tq for a in pair])
         _agree(f'gated_ff tasks {width} seed {seed} {dtype}', got, want,
                dtype, 'gated_ff')
+
+
+# ---- matmul ---------------------------------------------------------------
+# csrc/int8_matmul.cu, int8_matmul
+MM_THREADS = 128       # threads a group: 8 half-warps
+MM_CHUNK = 64          # k's a chunk
+MM_SKEW = 16           # elements after each chunk of a row of x
+SMS = 132              # the H100's SMs
+SMEM_OPTIN = 232448    # bytes of shared memory a block can opt into (H100)
+
+
+def mm_rows(batch):
+    """Rows a tile (csrc: mm_rows, RT = 4 R): 8 up to 8 rows, else 16."""
+    return 8 if batch <= 8 else 16
+
+
+def mm_grid(batch, n, k, elt, sms=SMS):
+    """csrc: mm_grid: (blocks, groups of MM_THREADS a block)."""
+    tiles, units = -(-batch // mm_rows(batch)), -(-n // UNIT)
+    grid = tiles * units if tiles * units <= sms else \
+        tiles if tiles >= sms else sms // tiles * tiles
+    q = min(4, -(-units // (grid // tiles)))
+    while q > 1 and mm_smem(mm_rows(batch), k, elt, q) > SMEM_OPTIN:
+        q -= 1
+    return grid, q
+
+
+def mm_tasks(batch, n, k=512, elt=4):
+    """(block, group, round, first row, column unit) of every task the
+    kernel's blocks walk: block b owns row tile b % tiles and the units
+    b // tiles + i * stride, group q the i = m Q + q of round m."""
+    rt = mm_rows(batch)
+    tiles, units = -(-batch // rt), -(-n // UNIT)
+    grid, q_n = mm_grid(batch, n, k, elt)
+    stride = grid // tiles
+    tasks = []
+    for b in range(grid):
+        for m in range(-(-units // stride)):
+            for q in range(q_n):
+                u = b // tiles + (m * q_n + q) * stride
+                if u < units:
+                    tasks.append((b, q, m, b % tiles * rt, u))
+    return tasks
+
+
+def mm_ld(k, elt):
+    """Elements between rows of x in shared memory (csrc: mm_ld)."""
+    span = 32 if elt == 4 else 64
+    return -(-(-(-k // MM_CHUNK) * (MM_CHUNK + MM_SKEW)) // span) * span \
+        + 16 // elt
+
+
+def mm_smem(rt, k, elt, q):
+    """Bytes of shared memory a block takes (csrc: mm_smem)."""
+    chunks = -(-k // MM_CHUNK)
+    return elt * rt * mm_ld(k, elt) + 2 * q * (k + chunks) * UNIT \
+        + 4 * q * chunks * rt * UNIT
+
+
+def mm_thread_sums(t, rt, k):
+    """The (chunk, row, column) sums of a unit that thread t of a group
+    computes."""
+    j, rg, r = t & 3, (t >> 2) & 3, rt // 4
+    return [(c, rg + 4 * i, 4 * j + cc)
+            for c in range(t >> 4, -(-k // MM_CHUNK), MM_THREADS // 16)
+            for i in range(r) for cc in range(4)]
+
+
+def emulated_int8_matmul(x, w, s):
+    """The kernel's int8_matmul: every output written by exactly one task
+    (mm_tasks), its sum in chunk_dot's order (a column's sum does not
+    depend on the task that holds it), then its column scale; x's
+    dtype."""
+    b, n = x.shape[0], w.shape[1]
+    rt = mm_rows(b)
+    sums = chunk_dot(x.float(), w.float())
+    out = torch.full((b, n), float('nan'))
+    written = torch.zeros((b, n), dtype=torch.int32)
+    for *_, r0, u in mm_tasks(b, n, x.shape[1], x.element_size()):
+        rows, cols = slice(r0, min(b, r0 + rt)), slice(UNIT * u,
+                                                       UNIT * u + UNIT)
+        out[rows, cols] = sums[rows, cols] * s[0, cols]
+        written[rows, cols] += 1
+    assert bool((written == 1).all())
+    return out.to(x.dtype)
+
+
+def _mm_inputs(seed, batch, k, n, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(batch, k)).astype(np.float32))
+    codes, scale = i8m.quantize_columns(torch.from_numpy(
+        (rng.normal(size=(k, n)) * 0.05).astype(np.float32)))
+    return x.to(getattr(torch, dtype)), codes, scale[None]
+
+
+def _bf16_violations(kernel, got, args, plain):
+    """chip_smoke's tie-aware INT8_BOUNDS check of a bf16 output."""
+    want = plain(*args)
+    readings = chip_smoke.output_readings(torch, got, want)
+    readings.update(chip_smoke.bf16_tie_readings(
+        torch, got, want, plain(args[0].float(), *args[1:]), None,
+        chip_smoke.TIE_MOVEMENT[kernel](torch, *args)))
+    return chip_smoke.int8_bf16_violations(kernel, readings), readings
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('batch,k,n', [(8, 512, 1536), (64, 512, 1536),
+                                       (1, 96, 132), (9, 64, 132),
+                                       (17, 100, 52)])
+def test_int8_matmul_tasks_meet_the_plain_version(batch, k, n, dtype):
+    """The lm_head's width (B 8 and 64) and ragged sizes (B 1 / 9 / 17, N
+    a multiple of 4 but not of 16, a K with a short last chunk): the
+    emulation meets INT8_BOUNDS against int8_matmul_reference (in bf16
+    through the tie-aware check, as on the card), and both controls are
+    caught: chip_smoke.int8_matmul_control's x rounded to bf16 (f32) and
+    product on bf16-dequantized weights (bf16)."""
+    args = _mm_inputs(batch * k + n, batch, k, n, dtype)
+    got = emulated_int8_matmul(*args)
+    if dtype == 'float32':
+        readings = chip_smoke.output_readings(
+            torch, got, i8m.int8_matmul_reference(*args))
+        bad = chip_smoke.int8_violations('int8_matmul', dtype, readings)
+    else:
+        bad, readings = _bf16_violations('int8_matmul', got, args,
+                                         i8m.int8_matmul_reference)
+    ctrl = chip_smoke.output_readings(
+        torch, got, chip_smoke.int8_matmul_control(torch, *args))
+    caught = chip_smoke.int8_violations('int8_matmul', dtype, ctrl)
+    print(f'B {batch} {k} x {n} {dtype}: {readings}; control {ctrl}')
+    assert not bad, readings
+    assert caught, ctrl
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_int8_matmul_tasks_meet_jax(seed, dtype):
+    """The emulation against the JAX kernel (interpreted, as
+    tests/test_torch_int8_decode.py runs it) at its sizes and tolerances."""
+    from mr_mt3_tpu.ops.int8_matmul import int8_matmul as jax_matmul
+    from tests.test_torch_int8_decode import (WIDTHS, _agree, _inputs,
+                                              _quantized)
+    for width, (d, vocab, *_) in WIDTHS.items():
+        (xj,), (xt,) = _inputs(seed, dtype, (3, d))
+        [(wq, s)], [(wt, st)] = _quantized(seed, (d, vocab), scale=0.05)
+        want = jax_matmul(xj, wq, s, interpret=True)
+        _agree(f'int8_matmul tasks {width} seed {seed} {dtype}',
+               emulated_int8_matmul(xt, wt, st), want, dtype, 'matmul')
+
+
+@pytest.mark.parametrize('batch,k', [(8, 512), (64, 512), (1, 96),
+                                     (17, 100), (3, 33), (200, 512)])
+def test_int8_matmul_thread_layout(batch, k):
+    """Every (chunk, row, column) sum of a unit is one thread's; the two
+    half-warps of a warp (chunks c, c + 1) and the four row groups of a
+    half-warp read x from other banks, in f32 (4-byte loads of 16 bytes, a
+    quarter-warp at a time) and in bf16 (8 bytes, a half-warp at a time);
+    every x copy lands 16-byte aligned; the lm_head's grids (B 8: 96
+    blocks of one group; B 64: 132 blocks of 3 groups, one round) and a
+    block's shared memory fit the card."""
+    rt = mm_rows(batch)
+    owned = [s for t in range(MM_THREADS) for s in mm_thread_sums(t, rt, k)]
+    chunks = -(-k // MM_CHUNK)
+    assert len(owned) == len(set(owned)) == chunks * rt * UNIT
+    for elt in (4, 2):
+        ld = mm_ld(k, elt)
+        assert ld >= chunks * (MM_CHUNK + MM_SKEW)
+        assert ld * elt % 128 == 16 and MM_SKEW * elt % 16 == 0
+        words = 4 * elt // 4               # 4-byte banks a row's load takes
+        for c in range(0, chunks - 1, 2):
+            pair = (c, c + 1) if elt == 4 else (c,)   # f32: a warp's two
+            banks = [((rg * ld + cc * (MM_CHUNK + MM_SKEW)) * elt // 4 + e)
+                     % 32 for cc in pair for rg in range(4)
+                     for e in range(words)]
+            assert len(set(banks)) == len(banks)
+        assert mm_smem(rt, k, elt, mm_grid(batch, 1536, k, elt)[1]) \
+            <= SMEM_OPTIN
+    grid, q = mm_grid(batch, 1536, k, 4)
+    if (batch, k) == (8, 512):
+        assert (grid, q) == (96, 1)
+    if (batch, k) == (64, 512):
+        assert (grid, q) == (132, 3)
+        assert max(m for *_, m, _, _ in mm_tasks(batch, 1536)) == 0
