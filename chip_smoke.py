@@ -37,6 +37,17 @@ Phases (any failure exits non-zero and prints no result line):
      trace (trace_ms) beside the bound, the plain version's and a library
      yardstick (for the matmul also torch._weight_int8pack_mm, the same
      function);
+  3b'. int8_decode_attention's device-position entry (the step loop's
+     self-attention: the position an int32 in device memory, the launch
+     sized for n_max, the phase bound; int8_device_position_cases): B 8
+     and 64 x f32 / bf16 x positions 0, 31, 63, 511 and 1023 of a 1024
+     cache, within INT8_BOUNDS of the plain version with the control
+     caught, against the host-int launch (its unequal share printed), a
+     host position at n_max and n_max past the cache refused, a device
+     position at n_max giving NaN; then capture_survival: one block of
+     the int8 step loop replayed from a saved state equal to the block
+     run eagerly, and 120 more replays leaving int8_gated_ff's grid
+     barrier count word zero, its generation word advanced once a launch;
   3c. the log-mel kernel (logmel_cases) at the handler's shapes, B in
      {8, 64} segments of 32768 samples (and a ragged 16000), a tone, white
      noise and zeros, both filterbank styles: within LOGMEL_BOUNDS of its
@@ -122,7 +133,12 @@ Phases (any failure exits non-zero and prints no result line):
   9. one worst-case decode (B=8, 1024 steps) on each window tier, each
      int8 tier and the exact path (fp32, TF32 off), and one chained
      segment-memory
-     decode on fused_bf16 (8 chains x 8 segments x 1024 steps);
+     decode on fused_bf16 (8 chains x 8 segments x 1024 steps); the
+     step-by-step tiers (int8, int8_kv, none) both eagerly (graphs=False)
+     and from replayed CUDA graphs (the main path, every phase captured
+     first: capture seconds and graph memory printed), each with ms/step,
+     RTF, device ms/step and idle share; the exact tier's graphed tokens
+     equal to the eager ones, an int8 tier's apart only at benign flips;
   9b. the step path (step_path): 1024 greedy steps of B=8 segments through
      fused_decode_step in each mode, the argmax taken outside: launches
      equal to the steps, ms per step and RTF, the first 128 steps' tokens
@@ -159,7 +175,11 @@ Phases (any failure exits non-zero and prints no result line):
      (TRAIN_EVAL_ARGS) logs val_f1_* after each validation.
 Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
 each leg of 8b, 9b and 9c and of 12 and read just after; the window launches must cover every
-window the decoded tokens needed. Each phase prints its seconds. Then one
+window the decoded tokens needed. The step loops replay captured CUDA
+graphs, which call no Python: their runners add each replayed block's
+launches (recorded at its capture, and taken back off the counts then)
+and its steps to the wrappers' LAUNCHES and to fast_decode.STEPS, which
+StepLog reads, so launches still equal steps x the per-step count. Each phase prints its seconds. Then one
 JSON line of kernel numbers, the card line, and the result line.
 versus() is not a phase: it times the attention, log-mel and decode
 kernels against another design's sources, which a run has to be given.
@@ -1624,13 +1644,23 @@ def parity_on_card(torch):
 
 def worst_case(torch):
     """B=8, 1024-step decode on each window tier, each int8 tier and the
-    exact fp32 path; for the step-by-step tiers (int8, int8_kv, none)
-    device_per_step gives the device's busy time per step, its idle share
-    of the timed step, and the int8 kernels' share."""
+    exact fp32 path. The step-by-step tiers (int8, int8_kv, none) run both
+    ways: the eager switch (graphs=False, comparison only) and the main
+    path, replayed CUDA graphs (every phase captured first, its seconds
+    and memory read); for each, device_per_step gives the device's busy
+    time per step, its idle share of the timed step, and the int8 kernels'
+    share. The exact tier's graphed tokens must equal its eager ones; an
+    int8 tier's may part only where infer/probe.classify_flips calls the
+    first flip of the row benign."""
     phase('worst-case decode (B=8, max_length 1024)')
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.infer.probe import classify_flips
     from mr_mt3_tpu_torch.models import MT3, MT3Config
     from mr_mt3_tpu_torch.ops.decode import greedy_decode
-    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+    from mr_mt3_tpu_torch.ops.fast_decode import (
+        capture_phases,
+        stack_decode_params,
+    )
     from mr_mt3_tpu_torch.utils.builders import init_params
 
     cfg = MT3Config()
@@ -1640,38 +1670,87 @@ def worst_case(torch):
     mel = torch.rand((8, 256, cfg.mel_bins), generator=gen).to(dev)
     audio_s = 8 * 256 * 128 / 16000
     out, rows = {}, {}
-    for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS + (
-            'none',):
-        dp = stack_decode_params(model, quantize=tier)
-        greedy_decode(model, mel[:, :, :], 32, quantize=tier, dp=dp)
+
+    def timed(tier, dp, label, graphs=None):
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        toks = greedy_decode(model, mel, 1024, quantize=tier, dp=dp)
+        toks = greedy_decode(model, mel, 1024, quantize=tier, dp=dp,
+                             graphs=graphs)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
         toks = toks.cpu()
         if toks.shape != (8, 1025) or int(toks.min()) < 0 or \
                 int(toks.max()) >= cfg.vocab_size:
-            fail(f'{tier}: bad tokens {tuple(toks.shape)}')
+            fail(f'{label}: bad tokens {tuple(toks.shape)}')
         steps = int((toks[:, 1:] != cfg.pad_token_id).sum(1).max())
-        out[tier] = toks
-        rows[tier] = {'seconds': secs, 'steps': steps,
-                      'ms_per_step': secs / max(steps, 1) * 1e3,
-                      'rtf': audio_s / secs}
-        print(f'{tier}: {secs:.3f} s, {steps} steps decoded, '
-              f'{secs / max(steps, 1) * 1e3:.4f} ms/step, '
-              f'realtime factor {audio_s / secs:.2f}')
-        if tier in INT8_TIERS + ('none',):
-            rows[tier].update(device_per_step(
-                torch, lambda n: greedy_decode(model, mel, n, quantize=tier,
-                                               dp=dp),
-                secs / max(steps, 1) * 1e3))
-            print(f'{tier}: device busy '
-                  f'{rows[tier]["device_ms_per_step"]:.4f} ms/step at '
-                  f'positions {PROFILE_STEPS[0]}-{PROFILE_STEPS[1] - 1} '
-                  f'(idle share {rows[tier]["idle_share"]:.3f} of the '
-                  f'timed step); int8 kernels ms/step '
-                  f'{json.dumps(rows[tier]["kernel_ms_per_step"])}')
+        row = {'seconds': secs, 'steps': steps,
+               'ms_per_step': secs / max(steps, 1) * 1e3,
+               'rtf': audio_s / secs}
+        print(f'{label}: {secs:.3f} s, {steps} steps decoded, '
+              f'{row["ms_per_step"]:.4f} ms/step, realtime factor '
+              f'{row["rtf"]:.2f}')
+        return toks, row
+
+    def profiled(tier, dp, label, row, graphs=None):
+        def decode(n):
+            return greedy_decode(model, mel, n, quantize=tier, dp=dp,
+                                 graphs=graphs)
+        for n in PROFILE_STEPS:      # the graphs of both lengths captured
+            decode(n)
+        row.update(device_per_step(torch, decode, row['ms_per_step']))
+        print(f'{label}: device busy {row["device_ms_per_step"]:.4f} '
+              f'ms/step at positions {PROFILE_STEPS[0]}-'
+              f'{PROFILE_STEPS[1] - 1} (idle share {row["idle_share"]:.3f} '
+              f'of the timed step); int8 kernels ms/step '
+              f'{json.dumps(row["kernel_ms_per_step"])}')
+
+    for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS + (
+            'none',):
+        dp = stack_decode_params(model, quantize=tier)
+        greedy_decode(model, mel[:, :, :], 32, quantize=tier, dp=dp,
+                      graphs=False)
+        if tier in TIERS:
+            out[tier], rows[tier] = timed(tier, dp, tier)
+            continue
+        eager, rows[tier] = timed(tier, dp, f'{tier} eager', graphs=False)
+        profiled(tier, dp, f'{tier} eager', rows[tier], graphs=False)
+        t0 = time.monotonic()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        capture = capture_phases(dp)
+        torch.cuda.synchronize()
+        capture['seconds_with_warmups'] = time.monotonic() - t0
+        capture['allocated_bytes_after'] = torch.cuda.memory_allocated()
+        capture['allocated_bytes_before'] = allocated
+        print(f'{tier}: captured {capture["graphs"]} graphs of 8 steps in '
+              f'{capture["capture_seconds"]:.3f} s of captures '
+              f'({capture["seconds_with_warmups"]:.3f} s with their '
+              f'warm-ups), graph memory {capture["graph_allocated_bytes"]} '
+              f'bytes allocated and {capture["graph_reserved_bytes"]} '
+              f'reserved (torch.cuda.memory_allocated / memory_reserved '
+              f'before and after each capture)')
+        out[tier], graphed = timed(tier, dp, f'{tier} graphed')
+        profiled(tier, dp, f'{tier} graphed', graphed)
+        graphed['capture'] = capture
+        rows[tier] = {'eager': rows[tier], 'graphed': graphed,
+                      **{k: graphed[k] for k in ('ms_per_step', 'rtf',
+                                                 'seconds', 'steps')}}
+        same = bool((out[tier] == eager).all())
+        rows[tier]['graphed_equals_eager'] = same
+        print(f'{tier}: graphed tokens equal the eager ones: {same}')
+        if tier == 'none' and not same:
+            fail('the exact tier\'s graphed tokens differ from its eager '
+                 'ones')
+        if not same:
+            handler = InferenceHandler(model=model, max_length=1024,
+                                       quantize=tier)
+            flips = classify_flips(handler, out[tier].numpy(),
+                                   eager.numpy(), mel)
+            rows[tier]['graphed_vs_eager_flips'] = flips
+            print(f'{tier}: graphed vs eager flips {json.dumps(flips)}')
+            if flips['material_rows']:
+                fail(f'{tier}: the graphed loop parts from the eager one '
+                     f'at a material margin: {flips}')
     for tier in ('fused_int4', 'fused', 'fused_bf16') + INT8_TIERS:
         agree = float((out[tier] == out['none']).float().mean())
         rows[tier]['agreement_with_exact'] = agree
@@ -2573,7 +2652,10 @@ def segmem_parity_on_card(torch):
     phase('segment-memory parity on the card (parity_withprev.npz, '
           'parity_v1.npz)')
     from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.ops import fast_decode
     from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.ops.decode import module_runners
+    from mr_mt3_tpu_torch.ops.fast_decode import merge_stats
 
     def decode_songs(model, quantize, audios, max_length):
         handler = InferenceHandler(model=model, max_length=max_length,
@@ -2594,7 +2676,17 @@ def segmem_parity_on_card(torch):
         model, golden, max_length, audios = parity_model(torch, name, **kw)
         for tier in tiers:
             t0 = time.monotonic()
+            module_steps = fast_decode.STEPS['module']
             tokens = decode_songs(model, tier, audios, max_length)
+            if name == 'parity_v1.npz':
+                # the v1 model's exact path: _greedy_loop's captured blocks
+                stats = merge_stats(list(module_runners(model).values()))
+                ran = fast_decode.STEPS['module'] - module_steps
+                print(f'{name}: {ran} module-path steps, graphs '
+                      f'{json.dumps(stats)}')
+                if ran < 1 or stats['graphs'] < 1:
+                    fail(f'{name}: the module path ran {ran} steps and '
+                         f'captured {stats["graphs"]} graphs')
             off = sum(int((t != g).sum()) for t, g in zip(tokens, golden))
             flips[f'{name}:{tier}'] = off
             print(f'{name} {tier}: {off} of {golden.size} tokens off the '
@@ -3255,21 +3347,195 @@ def int8_kernel_cases(torch):
     return results
 
 
+# The device-position entry of int8_decode_attention (the step loop's
+# self-attention: the position an int32 in device memory, the launch sized
+# for n_max, the phase bound) at these positions of a 1024 cache, at
+# INT8_BATCHES x INT8_DTYPES, full width (6 heads of 64)
+DEVICE_POSITIONS = (0, 31, 63, 511, 1023)
+
+
+def int8_device_position_cases(torch):
+    """The device-position int8_decode_attention against its plain version
+    (the host-int form at the same position) within INT8_BOUNDS, the
+    attention control caught past position 0, and against the host-int
+    launch at the same position (its share of unequal outputs printed:
+    the layout follows n_max, so the softmax sum's order may differ); its
+    time and the host-int launch's. A host-known position at or past
+    n_max raises, n_max past the cache raises before any launch, and a
+    device position at or past n_max gives NaN outputs."""
+    phase('int8_decode_attention, device position (full width)')
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops.fast_decode import phase_bounds
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(13)
+    bounds = phase_bounds(1024)
+    rows, bad = [], []
+    for dtype in INT8_DTYPES:
+        tdt = getattr(torch, dtype)
+        for b in INT8_BATCHES:
+            for pos in DEVICE_POSITIONS:
+                n_max = next(bound for bound in bounds if pos < bound)
+                q = (torch.randn((b, 6, 64), generator=gen)).to(dev, tdt)
+                (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(torch.randn(
+                    (b, 6, 64, 1024), generator=gen).to(dev))
+                    for _ in range(2))
+                args = (q, kq, ks, vq, vs, pos)
+                where = torch.tensor(pos, dtype=torch.int32, device=dev)
+
+                def device_call():
+                    return i8a.int8_decode_attention_cuda(
+                        q, kq, ks, vq, vs, where, n_max)
+                before = i8a.LAUNCHES[i8a.KERNEL]
+                got = device_call()
+                torch.cuda.synchronize()
+                name = f'B={b} {dtype} position {pos} n_max {n_max}'
+                if i8a.LAUNCHES[i8a.KERNEL] != before + 1:
+                    bad.append(f'{name}: not one launch')
+                plain = i8a.int8_decode_attention_reference(*args)
+                readings = output_readings(torch, got, plain, 64)
+                if dtype == 'bfloat16':
+                    readings.update(bf16_tie_readings(
+                        torch, got, plain,
+                        i8a.int8_decode_attention_reference(
+                            q.float(), *args[1:]), 64,
+                        int8_attention_tie_movement(torch, *args)))
+                    violations = int8_bf16_violations(
+                        'int8_decode_attention', readings)
+                else:
+                    violations = int8_violations('int8_decode_attention',
+                                                 dtype, readings)
+                bad.extend(f'{name}: {v}' for v in violations)
+                case = {'batch': b, 'dtype': dtype, 'position': pos,
+                        'n_max': n_max, **readings}
+                if pos:
+                    ctrl = output_readings(
+                        torch, got, int8_attention_control(torch, *args), 64)
+                    caught = int8_violations('int8_decode_attention', dtype,
+                                             ctrl)
+                    case['control_caught_by'] = caught
+                    if not caught:
+                        bad.append(f'{name}: the bounds do not tell the '
+                                   f'kernel from its control')
+                host = i8a.int8_decode_attention_cuda(*args)
+                vs_host = output_readings(torch, got, host, 64)
+                case['vs_host_int'] = vs_host
+                if int8_violations('int8_decode_attention', dtype, vs_host):
+                    bad.append(f'{name}: against the host-int launch '
+                               f'{vs_host}')
+                case['ms'] = time_ms(torch, device_call)
+                case['host_int_ms'] = time_ms(
+                    torch, lambda: i8a.int8_decode_attention_cuda(*args))
+                case['bound_ms'], case['bound_by'] = \
+                    int8_attention_bound_ms(b, 6, 64, pos + 1,
+                                            4 if dtype == 'float32' else 2)
+                print(json.dumps(case), flush=True)
+                rows.append(case)
+    # refusals on the host side, and the device-side guard
+    q, kq, ks = args[:3]
+    try:
+        i8a.int8_decode_attention(q, kq, ks, kq, ks, 64, 64)
+        bad.append('a host position at n_max was not refused')
+    except ValueError as e:
+        print(f'host position 64 at n_max 64 refused: {e}')
+    where = torch.tensor(64, dtype=torch.int32, device=dev)
+    try:
+        i8a.int8_decode_attention(q, kq, ks, kq, ks, where, 1025)
+        bad.append('n_max past the cache was not refused')
+    except ValueError as e:
+        print(f'n_max 1025 over a 1024 cache refused: {e}')
+    nan = i8a.int8_decode_attention(q, kq, ks, kq, ks, where, 64)
+    if not bool(torch.isnan(nan).all()):
+        bad.append('a device position at n_max did not give NaN')
+    print('device position 64 at n_max 64: every output NaN')
+    unequal = [c['vs_host_int']['unequal'] for c in rows]
+    print(f'device-position vs host-int launch: unequal share at most '
+          f'{max(unequal):.4g}, mean {statistics.mean(unequal):.4g}')
+    if bad:
+        fail('int8_decode_attention, device position: ' + '; '.join(bad))
+    return rows
+
+
+def capture_survival(torch):
+    """One block of the 'int8' step loop at full width (B 8, the first
+    phase, 8 steps of 8 int8_gated_ff and 1 int8_matmul launches each)
+    replayed from a saved state against the same block run eagerly from
+    it: tokens, flags and caches equal. Then 120 more replays: the
+    feed-forward's grid barrier words of the capture stream read back with
+    the count word zero and the generation word advanced once a launch."""
+    phase('capture survival (one int8 block, 120 replays)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    from mr_mt3_tpu_torch.ops.fast_decode import (
+        stack_decode_params,
+        greedy_loop_fast,
+    )
+    from mr_mt3_tpu_torch.utils.builders import init_params
+    cfg = MT3Config()
+    dev = torch.device('cuda')
+    model = init_params(MT3(cfg), seed=0).to(dev).eval()
+    dp = stack_decode_params(model, quantize='int8')
+    gen = torch.Generator().manual_seed(6)
+    enc = torch.randn((8, 256, cfg.d_model), generator=gen).to(dev)
+    greedy_loop_fast(cfg, dp, enc, 64, 'int8')      # captures (64, 8)
+    runner = next(iter(dp.runners.values()))
+    runner.reset(dp, enc, None)
+    for _ in range(2):
+        runner.block(dp, 64, 8, graphs=False)
+    state = [runner.tokens, runner.finished, runner.step_index,
+             *runner.cache]
+    saved = [t.clone() for t in state]
+    runner.block(dp, 64, 8, graphs=False)
+    eager = [t.clone() for t in state]
+    for t, was in zip(state, saved):
+        t.copy_(was)
+    bar = i8m._barrier(runner.device, runner.stream.cuda_stream)
+    generation = int(bar[1])
+    runner.block(dp, 64, 8, graphs=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(state, eager))
+    for _ in range(120):
+        runner.step_index.fill_(16)
+        runner.block(dp, 64, 8, graphs=True)
+    torch.cuda.synchronize()
+    words = bar.tolist()
+    launches = 121 * 8 * cfg.num_decoder_layers
+    out = {'replay_equals_eager': same, 'barrier_words': words,
+           'generation_advance': words[1] - generation,
+           'feed_forward_launches_replayed': launches}
+    print(f'capture survival: {json.dumps(out)}')
+    if not same:
+        fail('a replayed int8 block differs from the same block run '
+             'eagerly')
+    if words[0] != 0 or words[1] - generation != launches:
+        fail(f'the captured int8_gated_ff left its barrier words at '
+             f'{words} (generation {generation} before {launches} '
+             f'launches)')
+    return out
+
+
 class StepLog(Patches):
-    """Stands in for fast_decode.decode_step_fast until closed, counting
-    the greedy steps of each tier (its quantize argument)."""
+    """Counts the greedy steps of each tier from when it is made until
+    closed: the step loops' counter (fast_decode.STEPS), which the
+    runners add to at every step run eagerly and, for a captured block,
+    at every replay (a replay calls no Python step)."""
 
     def __init__(self):
         from mr_mt3_tpu_torch.ops import fast_decode
         super().__init__()
-        self.steps = {}
+        self._counter = fast_decode.STEPS
+        self._start = dict(fast_decode.STEPS)
+        self._final = None
 
-        def counting(real, cfg, dp, tokens, position, cache, cross_kv,
-                     quantize='none'):
-            self.steps[quantize] = self.steps.get(quantize, 0) + 1
-            return real(cfg, dp, tokens, position, cache, cross_kv,
-                        quantize=quantize)
-        self.patch(fast_decode, 'decode_step_fast', counting)
+    @property
+    def steps(self):
+        counts = self._final if self._final is not None else self._counter
+        return {tier: n - self._start.get(tier, 0)
+                for tier, n in counts.items() if n != self._start.get(tier, 0)}
+
+    def close(self):
+        if self._final is None:
+            self._final = dict(self._counter)
+        super().close()
 
 
 def steps_needed(log, tier):
@@ -3373,13 +3639,18 @@ def int8_tier_serving(torch):
         if health['decode'].get('quantize') != tier:
             fail(f'/healthz decode info: {health["decode"]}')
         ran = steps.steps.get(tier, 0)
-        need = steps_needed(log, tier)
+        # the decodes' steps, and those the prewarm's captures warmed up
+        # (every phase the decodes did not reach)
+        warmups = info['graphs']['capture_warmup_steps']
+        need = steps_needed(log, tier) + warmups
+        print(f'{tier}: graphs {json.dumps(info["graphs"])}')
         if set(steps.steps) != {tier} or ran != need:
             fail(f'{tier}: {steps.steps} greedy steps run, {need} needed by '
                  f'the decoded tokens')
         launches = check_int8_launches(tier, ran,
                                        handler.cfg.num_decoder_layers)
         out[tier] = {'walk': walk, 'steps': ran, 'launches': launches,
+                     'graphs': info['graphs'],
                      'decodes': len(log.calls)}
         del handler
         torch.cuda.empty_cache()
@@ -3433,12 +3704,17 @@ def segmem_int8_leg(torch):
 
 class PlainInt8(Patches):
     """Swaps the int8 kernels' wrappers for their plain versions until
-    closed (the decode then runs the plain versions on the card)."""
+    closed (the decode then runs the plain versions on the card), and runs
+    the step loop eagerly: the plain attention reads the device position
+    back to the host, which a graph capture cannot hold."""
 
     def __init__(self):
+        from mr_mt3_tpu_torch.ops import fast_decode
         from mr_mt3_tpu_torch.ops import int8_attention as i8a
         from mr_mt3_tpu_torch.ops import int8_matmul as i8m
         super().__init__()
+        self.patch(fast_decode, 'use_graphs', lambda real, device, graphs:
+                   real(device, False))
         for mod, name, plain in (
                 (i8m, 'int8_matmul', i8m.int8_matmul_reference),
                 (i8m, 'int8_gated_ff', i8m.int8_gated_ff_reference),
@@ -4500,6 +4776,8 @@ def main():
     stepped = step_cases(torch)
     grouped = grouped_cases(torch)
     int8_cases = int8_kernel_cases(torch)
+    device_position = int8_device_position_cases(torch)
+    survival = capture_survival(torch)
     mel_cases = logmel_cases(torch)
     attn_cases = attention_cases(torch)
     bwd_cases = attention_backward_cases(torch)
@@ -4647,6 +4925,19 @@ def main():
             **library, 'library_note': notes[kernel],
             'segmem_path_launches': int8_segmem[tier]['launches'][kernel],
             'cases': rows})
+        if kernel == 'int8_decode_attention':
+            case = next(c for c in device_position if c['batch'] == 8 and
+                        c['dtype'] == 'float32' and c['position'] == 1023)
+            kernels[-1]['device_position'] = {
+                'entry': 'i8att_launch_dev (position in device memory, '
+                         'launch sized for n_max, the phase bound)',
+                'max_abs_err': max(c['max_abs_err']
+                                   for c in device_position),
+                'ms': case['ms'], 'host_int_ms': case['host_int_ms'],
+                'bound_ms': case['bound_ms'],
+                'vs_host_int_unequal_max': max(
+                    c['vs_host_int']['unequal'] for c in device_position),
+                'cases': device_position}
     case = next(c for c in mel_cases if c['style'] == 'torch' and
                 c['batch'] == 8 and c['kind'] == 'tone' and
                 c['samples'] == LOGMEL_SAMPLES)
@@ -4680,6 +4971,7 @@ def main():
                    'int8_serving': int8_serving,
                    'int8_segmem': int8_segmem,
                    'worst_case': worst, 'training': training,
+                   'capture_survival': survival,
                    'step_path': step_main, 'grouped_path': grouped_main,
                    'phase_seconds': PHASE_SECONDS}, f, indent=1)
     print(json.dumps({'kernels': kernels}))

@@ -26,6 +26,13 @@
 // positions contiguous; ks, vs (B, H, 1, K) f32; out (B, H * dk). K is a
 // multiple of 4 (the port allocates its caches so).
 //
+// The position: a host int (i8att_launch), or an int32 in device memory
+// (i8att_launch_dev), as the TPU kernel reads it from SMEM, so that one
+// launch captured into a CUDA graph serves every position of a decode
+// phase: the host sizes the launch (layout, shared memory, design) for
+// n_max, the phase bound, and the kernel attends over *pos + 1 <= n_max
+// positions, the loads past them dropped as above.
+//
 // Bound on the H100 (3.35 TB/s HBM; 1,979 TOP/s int8): a call reads
 // 2 x dk + 8 bytes per cached position and head and does 4 x dk integer
 // operations per position: bound by bytes. At B = 8, H = 6, dk = 64 over
@@ -82,7 +89,9 @@ struct Args {
   const int8_t* vq;
   const float* vs;
   void* out;
-  int B, H, dk, K, n;   // n = position + 1 positions attended
+  const int* pos;       // the position in device memory, or null
+  int B, H, dk, K, n;   // n = position + 1 positions attended; with pos,
+                        // the host's upper bound n_max (the layout's)
   int npg, pgp, dg;     // position groups, groups a pass (a power of 2),
                         // row groups (at most MAX_THREADS / pgp)
   int rows, sw;         // rows a row group; bytes a scale copy (16 or 4)
@@ -130,6 +139,22 @@ __device__ __forceinline__ float block_reduce_once(float v, float* buf,
 // atomicMax on shared memory: a max is exact in any order
 __device__ __forceinline__ int ordered(int bits) {
   return bits >= 0 ? bits : bits ^ 0x7fffffff;
+}
+
+// the positions a pair attends: a.n, or with a position in device memory
+// *a.pos + 1, which must lie in 1..a.n (a.n = n_max, the bound the host
+// sized the launch for); 0 when it does not, and then the pair's outputs
+// are NaN (bad_position), so a fault never reads as a plausible result
+__device__ __forceinline__ int attended(const Args& a) {
+  if (!a.pos) return a.n;
+  const int p = *a.pos;
+  return p >= 0 && p < a.n ? p + 1 : 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void bad_position(const Args& a, size_t bh) {
+  T* out = static_cast<T*>(a.out) + bh * a.dk;
+  for (int d = threadIdx.x; d < a.dk; d += blockDim.x) store(out + d, NAN);
 }
 
 // The sums over a warp's 32 lanes of MR values a lane (MR a power of 2, at
@@ -223,14 +248,16 @@ __global__ void __launch_bounds__(MAX_THREADS) i8att_kernel(Args a) {
   __shared__ int qpk[MAX_DK / 4];   // int8 q, 4 rows a word (zero past dk)
   __shared__ float red[2][MAX_WARPS];   // q's max, the exp sum
   __shared__ int smax[2];           // the score max, max |p vs| (ordered)
-  const int h = blockIdx.x, b = blockIdx.y, dk = a.dk, K = a.K, n = a.n;
+  const int h = blockIdx.x, b = blockIdx.y, dk = a.dk, K = a.K;
+  const int n = attended(a);
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const size_t bh = (size_t)b * a.H + h;
+  if (n == 0) return bad_position<T>(a, bh);
   if (tid == 0) {
     smax[0] = ordered(__float_as_int(-INFINITY));
     smax[1] = 0;
   }
   const int warp = tid >> 5;
-  const size_t bh = (size_t)b * a.H + h;
   const int npg = a.npg, pgp = a.pgp, dg = a.dg, rows = a.rows;
   const int np = npg * PG_POS;                   // positions rounded up
   const int pg = tid % pgp, grp = tid / pgp;     // position and row group
@@ -441,8 +468,9 @@ __global__ void __launch_bounds__(STREAM_THREADS)
   __shared__ int qi[MAX_DK];
   __shared__ float red[STREAM_WARPS];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int dk = a.dk, K = a.K, n = a.n, n4 = (n + 3) & ~3;
+  const int dk = a.dk, K = a.K, n = attended(a), n4 = (n + 3) & ~3;
   const size_t bh = (size_t)b * a.H + h;
+  if (n == 0) return bad_position<T>(a, bh);
   int* pq = reinterpret_cast<int*>(sc + n4);   // n4 / 4 packed codes
 
   // 1. q per (row, head) to int8
@@ -554,20 +582,59 @@ static size_t smem_bytes(const Args& a) {
          (size_t)a.dg * a.pgp * PG_POS * sizeof(int);
 }
 
-template <typename T, int LW, int MR>
-static cudaError_t launch(const Args& a, cudaStream_t stream) {
-  int dev = 0, optin = 0;
+// The card's SM count and the shared memory a block can opt into, asked
+// once a device at its first launch and kept: a launch being captured
+// into a CUDA graph then makes no query
+#define MAX_DEVICES 64
+struct DeviceInfo {
+  int dev, sms, optin;
+};
+
+static cudaError_t device_info(DeviceInfo* info) {
+  static DeviceInfo known[MAX_DEVICES];
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (known[dev].sms == 0) {
+    DeviceInfo d;
+    d.dev = dev;
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    known[dev] = d;
+  }
+  *info = known[dev];
+  return cudaSuccess;
+}
+
+// Let `kernel` take smem bytes of dynamic shared memory: the attribute is
+// set the first time a launch of the kernel needs more than it was granted
+// (per device), so a graph captured after a launch of the same shape sets
+// nothing
+template <typename Kernel>
+static cudaError_t grant_smem(Kernel* kernel, size_t smem, size_t fixed,
+                              size_t* granted) {
+  DeviceInfo info;
+  cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(a);
-  if (smem + 4 * (MAX_DK / 4 + MAX_WARPS) > (size_t)optin)
-    return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(i8att_kernel<T, LW, MR>,
+  if (smem + fixed > (size_t)info.optin) return cudaErrorInvalidValue;
+  if (smem <= granted[info.dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
+  if (err == cudaSuccess) granted[info.dev] = smem;
+  return err;
+}
+
+template <typename T, int LW, int MR>
+static cudaError_t launch(const Args& a, cudaStream_t stream) {
+  static size_t granted[MAX_DEVICES];
+  const size_t smem = smem_bytes(a);
+  cudaError_t err = grant_smem(i8att_kernel<T, LW, MR>, smem,
+                               4 * (MAX_DK / 4 + MAX_WARPS), granted);
   if (err != cudaSuccess) return err;
   i8att_kernel<T, LW, MR><<<dim3(a.H, a.B), threads(a), smem, stream>>>(a);
   return cudaGetLastError();
@@ -600,23 +667,44 @@ static bool stream_wins(const Args& a, int sms) {
 
 template <typename T>
 static cudaError_t launch_stream(const Args& a, cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  static size_t granted[MAX_DEVICES];
   const size_t n4 = (size_t)((a.n + 3) & ~3);
   const size_t smem = 4 * n4 + n4;  // f32 scores + packed int8 codes
-  if (smem + 4 * (2 * MAX_DK + STREAM_WARPS) > (size_t)optin)
-    return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(i8att_kernel_stream<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  cudaError_t err = grant_smem(i8att_kernel_stream<T>, smem,
+                               4 * (2 * MAX_DK + STREAM_WARPS), granted);
   if (err != cudaSuccess) return err;
   i8att_kernel_stream<T><<<dim3(a.H, a.B), STREAM_THREADS, smem, stream>>>(
       a);
   return cudaGetLastError();
+}
+
+// Both entries: the layout, the shared memory and the design from a.n
+static int launch_pairs(const void* q, const void* kq, const void* ks,
+                        const void* vq, const void* vs, void* out, int B,
+                        int H, int dk, int K, const int* pos, int n,
+                        int dtype, void* stream) {
+  if (B < 1 || H < 1 || dk < 1 || dk > MAX_DK || K < 4 || K % 4 ||
+      n < 1 || n > K || B > 65535 ||
+      (dtype != DT_F32 && dtype != DT_BF16) ||
+      ((uintptr_t)kq | (uintptr_t)vq | (uintptr_t)ks | (uintptr_t)vs |
+       (uintptr_t)pos) % 4)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q; a.kq = (const int8_t*)kq; a.ks = (const float*)ks;
+  a.vq = (const int8_t*)vq; a.vs = (const float*)vs; a.out = out;
+  a.pos = pos;
+  a.B = B; a.H = H; a.dk = dk; a.K = K; a.n = n;
+  layout(a);
+  a.sw = ((uintptr_t)ks | (uintptr_t)vs) % 16 ? 4 : 16;
+  DeviceInfo info;
+  const cudaError_t err = device_info(&info);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (stream_wins(a, info.sms))
+    return (int)(dtype == DT_F32 ? launch_stream<float>(a, st)
+                                 : launch_stream<__nv_bfloat16>(a, st));
+  return (int)(dtype == DT_F32 ? launch_width<float>(a, st)
+                               : launch_width<__nv_bfloat16>(a, st));
 }
 
 extern "C" {
@@ -633,28 +721,23 @@ int i8att_max_dk() { return MAX_DK; }
 int i8att_launch(const void* q, const void* kq, const void* ks,
                  const void* vq, const void* vs, void* out, int B, int H,
                  int dk, int K, int position, int dtype, void* stream) {
-  if (B < 1 || H < 1 || dk < 1 || dk > MAX_DK || K < 4 || K % 4 ||
-      position < 0 || position >= K || B > 65535 ||
-      (dtype != DT_F32 && dtype != DT_BF16) ||
-      ((uintptr_t)kq | (uintptr_t)vq | (uintptr_t)ks | (uintptr_t)vs) % 4)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = q; a.kq = (const int8_t*)kq; a.ks = (const float*)ks;
-  a.vq = (const int8_t*)vq; a.vs = (const float*)vs; a.out = out;
-  a.B = B; a.H = H; a.dk = dk; a.K = K; a.n = position + 1;
-  layout(a);
-  a.sw = ((uintptr_t)ks | (uintptr_t)vs) % 16 ? 4 : 16;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (stream_wins(a, sms))
-    return (int)(dtype == DT_F32 ? launch_stream<float>(a, st)
-                                 : launch_stream<__nv_bfloat16>(a, st));
-  return (int)(dtype == DT_F32 ? launch_width<float>(a, st)
-                               : launch_width<__nv_bfloat16>(a, st));
+  if (position < 0 || position >= K) return (int)cudaErrorInvalidValue;
+  return launch_pairs(q, kq, ks, vq, vs, out, B, H, dk, K, nullptr,
+                      position + 1, dtype, stream);
+}
+
+// The same with the position an int32 in device memory (pos), read by the
+// kernel, so that one launch captured into a CUDA graph serves every
+// position below n_max: the launch (its layout, shared memory and design)
+// is sized for n_max positions, and the kernel attends over *pos + 1 of
+// them. A position outside 0..n_max - 1 makes the outputs NaN.
+int i8att_launch_dev(const void* q, const void* kq, const void* ks,
+                     const void* vq, const void* vs, void* out, int B,
+                     int H, int dk, int K, const void* pos, int n_max,
+                     int dtype, void* stream) {
+  if (!pos) return (int)cudaErrorInvalidValue;
+  return launch_pairs(q, kq, ks, vq, vs, out, B, H, dk, K,
+                      (const int*)pos, n_max, dtype, stream);
 }
 
 const char* i8att_error_string(int code) {

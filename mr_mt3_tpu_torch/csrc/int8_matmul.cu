@@ -47,7 +47,9 @@
 // over the blocks, so each column of W0 and W1 is read and summed once
 // per row tile, over many SMs; a task writes its g, bf16, to a B x F
 // scratch (16 KB at B = 8, in L2). A grid barrier (its counter left as it
-// was found). Phase 2 deals tasks of 16 columns of Wo and 8 rows, each
+// was found; the launch is captured into the step loop's CUDA graphs as
+// it is, the words of the capture stream allocated before the capture).
+// Phase 2 deals tasks of 16 columns of Wo and 8 rows, each
 // reading its rows of g back. A task's weights and rows go to shared
 // memory with cp.async: a block copies its first task of both phases when
 // it starts and the next task of a phase while it computes the current
@@ -613,18 +615,51 @@ __global__ void __launch_bounds__(4 * MM_THREADS) i8mm_kernel(MMArgs a) {
 
 // ---- launch -------------------------------------------------------------
 
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel* kernel, size_t smem) {
-  int dev = 0, optin = 0;
+// The card's SM count and the shared memory a block can opt into, asked
+// once a device at its first launch and kept: a launch being captured
+// into a CUDA graph then makes no query
+#define MAX_DEVICES 64
+struct DeviceInfo {
+  int dev, sms, optin;
+};
+
+static cudaError_t device_info(DeviceInfo* info) {
+  static DeviceInfo known[MAX_DEVICES];
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (known[dev].sms == 0) {
+    DeviceInfo d;
+    d.dev = dev;
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &d.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    known[dev] = d;
+  }
+  *info = known[dev];
+  return cudaSuccess;
+}
+
+// Let `kernel` take smem bytes of dynamic shared memory: the attribute is
+// set the first time a launch of the kernel needs more than it was granted
+// (per device, `granted` the kernel's own), so a graph captured after a
+// launch of the same shape sets nothing
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel* kernel, size_t smem,
+                              size_t* granted) {
+  DeviceInfo info;
+  cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  if (smem > (size_t)info.optin) return cudaErrorInvalidValue;
+  if (smem <= granted[info.dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) granted[info.dev] = smem;
+  return err;
 }
 
 // the widest of 16, 8 and 4 bytes that divides n and the address bits
@@ -654,19 +689,34 @@ static bool ff_args(FFArgs& a, const void* h, const void* w0, const void* w1,
   return true;
 }
 
+// the feed-forward kernel's resident blocks an SM at smem bytes, asked at
+// the first launch of each shared-memory size (per device) and kept
+template <typename T>
+static cudaError_t ff_blocks_per_sm(int dev, size_t smem, int* per_sm) {
+  static size_t asked[MAX_DEVICES];
+  static int blocks[MAX_DEVICES];
+  if (asked[dev] != smem) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks[dev], i8ff_kernel<T>, FF_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    asked[dev] = smem;
+  }
+  *per_sm = blocks[dev];
+  return cudaSuccess;
+}
+
 template <typename T>
 static cudaError_t ff_grid(const FFArgs& a, cudaStream_t st) {
+  static size_t granted[MAX_DEVICES];
   const size_t smem = ff_smem(a.D, a.F, a.Fp, sizeof(T));
-  cudaError_t err = allow_smem(i8ff_kernel<T>, smem);
+  cudaError_t err = allow_smem(i8ff_kernel<T>, smem, granted);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
+  DeviceInfo info;
+  int per_sm = 0;
+  err = device_info(&info);
+  if (err == cudaSuccess) err = ff_blocks_per_sm<T>(info.dev, smem, &per_sm);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, i8ff_kernel<T>, FF_THREADS, smem);
-  if (err != cudaSuccess) return err;
+  const int sms = info.sms;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int tiles = (a.B + FF_RT - 1) / FF_RT;
   const int units = (a.D > a.F ? a.D : a.F) + FF_UNIT - 1;
@@ -686,14 +736,11 @@ static cudaError_t ff_grid(const FFArgs& a, cudaStream_t st) {
 // many of its units at once
 template <typename T, int R>
 static cudaError_t mm_grid(const MMArgs& a, cudaStream_t st) {
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static size_t granted[MAX_DEVICES];
+  DeviceInfo info;
+  cudaError_t err = device_info(&info);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
+  const int sms = info.sms, optin = info.optin;
   const long long tiles = (a.B + 4 * R - 1) / (4 * R);
   const long long units = (a.N + MM_UNIT - 1) / MM_UNIT;
   const long long grid = tiles * units <= sms ? tiles * units
@@ -703,7 +750,7 @@ static cudaError_t mm_grid(const MMArgs& a, cudaStream_t st) {
   int Q = each < 4 ? (int)each : 4;
   while (Q > 1 && mm_smem(4 * R, a.K, sizeof(T), Q) > (size_t)optin) --Q;
   const size_t smem = mm_smem(4 * R, a.K, sizeof(T), Q);
-  err = allow_smem(i8mm_kernel<T, R>, smem);
+  err = allow_smem(i8mm_kernel<T, R>, smem, granted);
   if (err != cudaSuccess) return err;
   i8mm_kernel<T, R><<<(unsigned)grid, Q * MM_THREADS, smem, st>>>(a);
   return cudaGetLastError();

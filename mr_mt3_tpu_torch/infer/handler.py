@@ -140,10 +140,30 @@ class InferenceHandler:
 
     def _invalidate_compiled(self):
         """Drop the decode parameters stacked and packed for the current
-        tier. Called whenever the tier changes (the probe ladder, serve's
+        tier, and with them the step loop's runners and CUDA graphs.
+        Called whenever the tier changes (the probe ladder, serve's
         prewarm demotion), so a demoted handler never decodes with the
         previous tier's packed weights."""
         self._dp = None
+
+    def capture_graphs(self) -> dict:
+        """Capture every phase of every step-loop decode shape this
+        handler has run (serve's prewarm, after its decodes): a request
+        then replays graphs only, even where the prewarm's audio stopped
+        early. On the card only. Returns the graphs' numbers for /healthz:
+        the captures' seconds in all, the device memory
+        (torch.cuda.memory_allocated and memory_reserved, before and
+        after each capture) and the greedy steps the warm-ups ran."""
+        from mr_mt3_tpu_torch.ops.decode import capture_module_phases
+        from mr_mt3_tpu_torch.ops.fast_decode import capture_phases
+        if self.device.type != 'cuda':
+            return {}
+        parts = [capture_module_phases(self.model)]
+        if self._dp is not None:
+            parts.append(capture_phases(self._dp))
+        out = {k: sum(p[k] for p in parts) for k in parts[0]}
+        out['capture_seconds'] = round(out['capture_seconds'], 3)
+        return out
 
     # ---- host-side preprocessing (reference: inference.py:64-127) ----
 

@@ -55,7 +55,10 @@ PROBE_MAX_LENGTH = 256
 def _probe_twin(handler, quantize: str, max_length: int):
     """A handler sharing `handler`'s model, device and decode config
     (contiguous mode, segment bucket, memory chain and format), with the
-    given quantize tier and (short) decode length."""
+    given quantize tier and (short) decode length. At the handler's own
+    tier it shares the handler's decode parameters too, and with them the
+    step loop's runners and graphs: the full-length confirm then captures
+    the graphs the server replays."""
     from mr_mt3_tpu_torch.infer.handler import InferenceHandler
     twin = InferenceHandler(
         model=handler.model, mel_norm=handler.mel_norm,
@@ -65,6 +68,9 @@ def _probe_twin(handler, quantize: str, max_length: int):
         device=handler.device, segmem_chain=handler.segmem_chain,
         segmem_memory_format=handler.segmem_memory_format)
     twin.spectrogram_config = handler.spectrogram_config
+    if quantize == handler.quantize and \
+            handler.cfg.segmem_variant != 'decoder_prepend':
+        twin._dp = handler._decode_params()
     return twin
 
 

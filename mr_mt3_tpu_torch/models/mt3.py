@@ -482,25 +482,33 @@ class MT3(nn.Module):
                  torch.zeros(shape, dtype=self.dtype, device=dev))
                 for _ in range(cfg.num_decoder_layers)]
 
-    def decode_step(self, tokens: torch.Tensor, position: int,
+    def decode_step(self, tokens: torch.Tensor, position,
                     self_kv: List[Tuple[torch.Tensor, torch.Tensor]],
                     cross_kv: Dict[str, torch.Tensor]
                     ) -> Tuple[torch.Tensor, list]:
         """One greedy step: tokens (B,) -> (logits (B, vocab), self_kv).
 
-        self_kv holds per-layer (B, max_len, H, Dk) caches; row `position`
-        is written in place, and positions after it are masked."""
+        self_kv holds per-layer (B, max_len, H, Dk) caches (views of a
+        longer cache do: the loop passes the phase's first positions);
+        row `position` is written in place (index_copy_), and positions
+        after it are masked. position: a 0-d int tensor on the device (an
+        int is moved there), as the JAX loop's traced position."""
         x = self._cast(self.decoder_embed_tokens(tokens[:, None]))
-        x = x + self.decoder.pos_table[position:position + 1].to(x.dtype)
+        if not isinstance(position, torch.Tensor):
+            position = torch.tensor(int(position), device=x.device)
+        where = position.reshape(1)
+        x = x + self.decoder.pos_table.index_select(0, where).to(x.dtype)
         max_len = self_kv[0][0].shape[1]
-        step_mask = torch.zeros(max_len, dtype=x.dtype, device=x.device)
-        step_mask[position + 1:] = -1e9
+        step_mask = torch.where(
+            torch.arange(max_len, device=x.device) <= position, 0.0,
+            -1e9).to(x.dtype)
+        index = where.long()
         for i, blk in enumerate(self.decoder.block):
             k_cache, v_cache = self_kv[i]
             h = blk.norm(0)(x)
             k_step, v_step = blk.self_attn.project_kv(h)
-            k_cache[:, position] = k_step[:, 0]
-            v_cache[:, position] = v_step[:, 0]
+            k_cache.index_copy_(1, index, k_step)
+            v_cache.index_copy_(1, index, v_step)
             x = x + blk.self_attn.attend(h, k_cache, v_cache, step_mask)
             h = blk.norm(1)(x)
             x = x + blk.cross_attn.attend(h, cross_kv['k'][i],

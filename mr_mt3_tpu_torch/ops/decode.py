@@ -12,18 +12,20 @@ start token, finished rows pad with pad_token_id, EOS is included.
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from typing import Any, Dict, Optional
 
 import torch
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.models.mt3 import MT3
 from mr_mt3_tpu_torch.ops.fast_decode import (
-    _EXIT_CHECK_EVERY,
     DecodeParams,
-    _start,
+    DecodeRunner,
     greedy_loop_fast,
+    merge_stats,
     stack_decode_params,
+    use_graphs,
 )
 
 # every decode tier of the JAX package; all are ported
@@ -41,7 +43,8 @@ def check_quantize(quantize: str) -> None:
 def greedy_decode(model: MT3, mel: torch.Tensor, max_length: int = 1024,
                   quantize: str = 'none',
                   valid_mask: Optional[torch.Tensor] = None,
-                  dp: Optional[DecodeParams] = None) -> torch.Tensor:
+                  dp: Optional[DecodeParams] = None,
+                  graphs: Optional[bool] = None) -> torch.Tensor:
     """Vanilla MT3 transcription decode.
 
     mel (B, frames, mel_bins) -> tokens (B, max_length + 1) with a leading
@@ -63,45 +66,116 @@ def greedy_decode(model: MT3, mel: torch.Tensor, max_length: int = 1024,
       'fused_int4' — int4 weights and K/V (codes in [-7, 7]); the
                      serving default on the card.
     dp: DecodeParams already stacked for this quantize tier (callers that
-    decode repeatedly keep them)."""
+    decode repeatedly keep them, and with them the step loop's captured
+    graphs). graphs=False runs the step loop eagerly on the card (for
+    comparison only; see greedy_loop_fast)."""
     check_quantize(quantize)
     encoder_out = model.encode_audio(mel)
     if dp is None:
         dp = stack_decode_params(model, quantize=quantize)
     return greedy_loop_fast(model.cfg, dp, encoder_out, max_length,
-                            quantize=quantize, valid_mask=valid_mask)
+                            quantize=quantize, valid_mask=valid_mask,
+                            graphs=graphs)
+
+
+# the module path's phase bounds (mr_mt3_tpu/ops/decode.py::_greedy_loop)
+MODULE_PHASES = (256, 512)
+# the module path's runners of each model (keyed weakly: a runner holds
+# no reference to its model), by decode shape
+_MODULE_RUNNERS: 'weakref.WeakKeyDictionary' = weakref.WeakKeyDictionary()
+
+
+class ModuleRunner(DecodeRunner):
+    """_greedy_loop's runner: MT3.decode_step on the model's own modules,
+    per-layer (B, P + max_length, H, Dk) caches (P the prefix length) of
+    which a step of the phase ending at b passes the first P + b, the
+    cross K/V for `lenc` encoder rows. Its graphs read the model's
+    parameters where they lie: a model whose parameters moved (another
+    device or dtype, new tensors) gets its graphs captured anew."""
+
+    tier = 'module'
+
+    def __init__(self, model: MT3, batch: int, lenc: int, prefix_len: int,
+                 max_length: int, device):
+        super().__init__(model.cfg, batch, max_length, device, MODULE_PHASES)
+        cfg = model.cfg
+        self.prefix_len = prefix_len
+        self.cache = model.init_cache(batch, prefix_len + max_length)
+        shape = (cfg.num_decoder_layers, batch, lenc, cfg.num_heads,
+                 cfg.d_kv)
+        self.cross = {name: torch.empty(shape, dtype=model.dtype,
+                                        device=device) for name in 'kv'}
+        self.weights = None
+
+    def reset(self, model: MT3, encoder_out: torch.Tensor,
+              prefix_embeds: Optional[torch.Tensor],
+              valid_mask: Optional[torch.Tensor]) -> None:
+        weights = tuple(t.data_ptr() for t in (*model.parameters(),
+                                               *model.buffers()))
+        if weights != self.weights:
+            self.graphs.clear()
+            self.weights = weights
+        for name, t in model.precompute_cross_kv(encoder_out).items():
+            self.cross[name].copy_(t)
+        for k, v in self.cache:
+            k.zero_()
+            v.zero_()
+        if self.prefix_len:
+            model.prefill_cache(prefix_embeds, self.cache, self.cross)
+        self.reset_state(valid_mask)
+
+    def step(self, model: MT3, bound: int) -> None:
+        length = self.prefix_len + bound
+        logits, _ = model.decode_step(
+            self.current_tokens().long(), self.step_index + self.prefix_len,
+            [(k[:, :length], v[:, :length]) for k, v in self.cache],
+            self.cross)
+        self.advance(logits)
+
+
+def module_runners(model: MT3) -> Dict[Any, ModuleRunner]:
+    """The module path's runners of `model`, by decode shape."""
+    if model not in _MODULE_RUNNERS:
+        _MODULE_RUNNERS[model] = {}
+    return _MODULE_RUNNERS[model]
+
+
+def capture_module_phases(model: MT3) -> Dict[str, Any]:
+    """ModuleRunner.capture_all for every runner of `model` on the card
+    (prewarm); their summed stats."""
+    runners = [r for r in module_runners(model).values()
+               if r.device.type == 'cuda']
+    steps = sum(r.capture_all(model) for r in runners)
+    return merge_stats(runners, steps)
 
 
 @torch.no_grad()
 def _greedy_loop(model: MT3, encoder_out: torch.Tensor, max_length: int,
                  decoder_prefix_embeds: Optional[torch.Tensor] = None,
-                 valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 valid_mask: Optional[torch.Tensor] = None,
+                 graphs: Optional[bool] = None) -> torch.Tensor:
     """The module-path decode loop (MT3.decode_step); encoder_out (B, Lenc,
     D) -> tokens (B, max_length + 1). With decoder_prefix_embeds (B, P, D)
-    the prefix is prefilled into the cache and generation starts at
-    position P (the v1 memory). The cache holds all P + max_length
-    positions at once; the positions after the current one are masked to
-    exact zeros, as the JAX loop's phase-grown cache is."""
-    cfg = model.cfg
-    batch = encoder_out.shape[0]
+    the prefix is prefilled into the cache (eagerly) and generation starts
+    at position P (the v1 memory). The steps run in the JAX loop's phases
+    (MODULE_PHASES, then max_length) through the model's ModuleRunner for
+    this shape: a step of the phase ending at b attends over the first
+    P + b cache positions, those after the current one masked to exact
+    zeros, as in the JAX loop's phase-grown cache. graphs as in
+    greedy_loop_fast: captured blocks on the card unless False."""
+    batch, lenc = encoder_out.shape[:2]
     dev = encoder_out.device
+    graphs = use_graphs(dev, graphs)
     prefix_len = (0 if decoder_prefix_embeds is None
                   else decoder_prefix_embeds.shape[1])
-    cross_kv = model.precompute_cross_kv(encoder_out)
-    cache = model.init_cache(batch, prefix_len + max_length)
-    if prefix_len:
-        cache = model.prefill_cache(decoder_prefix_embeds, cache, cross_kv)
-    tokens, finished = _start(cfg, batch, max_length, dev, valid_mask)
-    for i in range(max_length):
-        if i % _EXIT_CHECK_EVERY == 0 and bool(finished.all()):
-            break
-        logits, cache = model.decode_step(tokens[:, i].long(),
-                                          i + prefix_len, cache, cross_kv)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(finished, cfg.pad_token_id, nxt)
-        finished = finished | (nxt == cfg.eos_token_id)
-        tokens[:, i + 1] = nxt
-    return tokens
+    key = (batch, lenc, prefix_len, max_length, model.dtype)
+    runners = module_runners(model) if dev.type == 'cuda' else {}
+    runner = runners.get(key)
+    if runner is None:
+        runner = runners[key] = ModuleRunner(model, batch, lenc, prefix_len,
+                                             max_length, dev)
+    runner.reset(model, encoder_out, decoder_prefix_embeds, valid_mask)
+    return runner.run(model, graphs)
 
 
 def initial_segmem_tokens(cfg: MT3Config, batch: int, max_length: int,
@@ -143,7 +217,8 @@ def segmem_greedy_decode(model: MT3, mel_segments: torch.Tensor,
                          chain_memory: bool = True,
                          memory_format: str = 'reference',
                          oracle_memory: Optional[torch.Tensor] = None,
-                         dp: Optional[DecodeParams] = None) -> torch.Tensor:
+                         dp: Optional[DecodeParams] = None,
+                         graphs: Optional[bool] = None) -> torch.Tensor:
     """Sequential segment-memory decode over one or more chains in
     lockstep.
 
@@ -158,7 +233,10 @@ def segmem_greedy_decode(model: MT3, mel_segments: torch.Tensor,
     to the encoder output and decodes through greedy_loop_fast in the
     quantize tier (any of greedy_decode's, 'int8' and 'int8_kv'
     included); 'decoder_prepend' (v1) prefills it as a decoder prefix
-    and decodes on the exact module path only."""
+    and decodes on the exact module path only. Each segment reuses the
+    step loop's runner (its graphs on the card; graphs=False runs it
+    eagerly, for comparison only); the next segment's memory is a copy of
+    its tokens buffer."""
     if memory_format not in ('reference', 'train_aligned'):
         raise ValueError(f'unknown memory_format: {memory_format!r}')
     check_quantize(quantize)
@@ -185,14 +263,14 @@ def segmem_greedy_decode(model: MT3, mel_segments: torch.Tensor,
             tokens = _greedy_loop(model, enc_i, max_length,
                                   decoder_prefix_embeds=model.compute_segmem(
                                       mem_in),
-                                  valid_mask=valid_mask)
+                                  valid_mask=valid_mask, graphs=graphs)
         else:
             if variant == 'encoder_append':
                 enc_i = torch.cat([enc_i, model.compute_segmem(mem_in)],
                                   dim=1)
             tokens = greedy_loop_fast(cfg, dp, enc_i, max_length,
                                       quantize=quantize,
-                                      valid_mask=valid_mask)
+                                      valid_mask=valid_mask, graphs=graphs)
         if chain_memory:
             mem = (tokens[:, 1:max_length + 1]
                    if memory_format == 'train_aligned'

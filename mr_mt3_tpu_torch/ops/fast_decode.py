@@ -3,7 +3,16 @@ mr_mt3_tpu/ops/fast_decode.py).
 
 Two loops:
   * greedy_loop_fast — a step-by-step KV-cache decode at the model's
-    activation dtype, one decode_step_fast per step:
+    activation dtype, one decode_step_fast per step, run as the JAX
+    package runs it on the device: the position is a 0-d int32 tensor on
+    the device, the steps go in the reference's phases (DEFAULT_PHASES:
+    the self-attention reads the cache up to the phase bound, the
+    positions past the current one masked), and a DecodeRunner holds the
+    loop's state in static buffers. On the card each block of
+    _EXIT_CHECK_EVERY steps is a CUDA graph, captured the first time a
+    decode reaches its phase and replayed after (graphs=False runs the
+    same blocks uncaptured, a switch kept for comparison only); on the
+    CPU the same blocks run eagerly. Tiers:
       'none'    the exact path, plain torch ops; it launches no kernel of
                 its own and is the yardstick the other tiers are held
                 against;
@@ -25,7 +34,8 @@ False (batch padding) start finished.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,9 +44,17 @@ from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
 from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul
 from mr_mt3_tpu_torch.ops.fused_decode import FUSED_TIERS
 
-# the exact loop reads the finished flags back to the host (a device sync)
-# once every this many steps to stop early
+# the step loops read the finished flags back to the host (a device sync)
+# once every this many steps to stop early: a block of steps, one CUDA
+# graph on the card
 _EXIT_CHECK_EVERY = 8
+# the JAX loop's phase bounds (mr_mt3_tpu/ops/fast_decode.py:283): the
+# self-attention of a step below bound b reads the cache's first b
+# positions
+DEFAULT_PHASES = tuple(range(64, 1024, 64))
+# greedy steps the step loops ran (eagerly or as replayed graphs), by tier
+# ('module': ops/decode.py::_greedy_loop)
+STEPS = {'none': 0, 'int8': 0, 'int8_kv': 0, 'module': 0}
 
 
 class DecodeParams(NamedTuple):
@@ -53,6 +71,10 @@ class DecodeParams(NamedTuple):
     lm_head_q: Any = None            # (D, vocab) int8 ('int8')
     lm_head_scale: Any = None        # (1, vocab) f32 ('int8')
     fused: Any = None                # FusedParams (the fused tiers)
+    # the step loop's DecodeRunners (static buffers and captured graphs)
+    # by decode shape, a dict on the card: dropped with the weights the
+    # graphs read
+    runners: Any = None
 
 
 @torch.no_grad()
@@ -118,7 +140,8 @@ def stack_decode_params(model: MT3, quantize: str = 'none') -> DecodeParams:
         pos_table=model.decoder.pos_table.to(dtype),
         lm_head_q=lm_head_q,
         lm_head_scale=lm_head_scale,
-        fused=fused)
+        fused=fused,
+        runners={} if lm_head.is_cuda else None)
 
 
 def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -185,29 +208,40 @@ def quantize_cross_kv(cross_kv: Tuple[torch.Tensor, torch.Tensor]
 
 
 def decode_step_fast(cfg: MT3Config, dp: DecodeParams, tokens: torch.Tensor,
-                     position: int, cache, cross_kv,
-                     quantize: str = 'none') -> torch.Tensor:
+                     position: torch.Tensor, cache, cross_kv, quantize: str,
+                     bound: int) -> torch.Tensor:
     """One greedy step; tokens (B,) -> logits (B, vocab).
 
-    Writes row `position` of the (L, B, H, Dk, P) caches in place and
-    attends over rows 0..position (the JAX body masks rows > position with
-    -1e9, which contributes exact zeros). quantize='int8' takes the
+    position: a 0-d int32 tensor on the device, below bound, the phase
+    bound (at most the cache length). Writes row `position` of the (L, B,
+    H, Dk, P) caches in place (index_copy_) and attends over the first
+    `bound` rows with the rows past `position` masked, as the JAX body
+    does: -1e9 added in the activation dtype
+    before the f32 softmax (exact zeros), or, in 'int8_kv', the kernel
+    reading the position from device memory. quantize='int8' takes the
     feed-forward and the lm_head through the int8 kernels (dp stacked for
     'int8'); 'int8_kv' keeps the self and cross K/V in int8 (cache:
     init_int8_cache_stacked; cross_kv: quantize_cross_kv) and attends
     through int8_decode_attention."""
     eps = cfg.layer_norm_epsilon
     lay = dp.layers
-    self_attention, cross_attention = (
-        (_int8_self_attention, _int8_cross_attention)
-        if quantize == 'int8_kv'
-        else (_float_self_attention, _float_cross_attention))
-    x = dp.token_embed[tokens][:, None, :]                    # (B, 1, D)
-    x = x + dp.pos_table[position:position + 1]
+    where = position.reshape(1)
+    x = dp.token_embed.index_select(0, tokens)[:, None, :]     # (B, 1, D)
+    x = x + dp.pos_table.index_select(0, where)
+    if quantize == 'int8_kv':
+        self_attention, cross_attention = (_int8_self_attention,
+                                           _int8_cross_attention)
+        mask = None
+    else:
+        self_attention, cross_attention = (_float_self_attention,
+                                           _float_cross_attention)
+        mask = torch.where(
+            torch.arange(bound, device=x.device) <= position, 0.0,
+            -1e9).to(x.dtype)
+    at = _Where(position, where.long(), bound, mask)
     for i in range(cfg.num_decoder_layers):
         h = _rms(x, lay['self_norm'][i], eps)
-        x = x + self_attention(cfg, lay, i, h, position, cache) \
-            @ lay['o'][i]
+        x = x + self_attention(cfg, lay, i, h, at, cache) @ lay['o'][i]
         h = _rms(x, lay['cross_norm'][i], eps)
         x = x + cross_attention(cfg, lay, i, h, cross_kv) @ lay['cross_o'][i]
         x = x + _feed_forward(lay, i, _rms(x, lay['ff_norm'][i], eps),
@@ -219,27 +253,42 @@ def decode_step_fast(cfg: MT3Config, dp: DecodeParams, tokens: torch.Tensor,
     return (x @ dp.lm_head)[:, 0]
 
 
+class _Where(NamedTuple):
+    """A step's position: the 0-d int32 tensor, its (1,) int64 index for
+    index_copy_, the phase bound and the float tiers' (bound,) mask."""
+    position: torch.Tensor
+    index: torch.Tensor
+    bound: int
+    mask: Optional[torch.Tensor]
+
+
 # Layer i's attention of h (B, 1, D) -> (B, 1, H * Dk), per K/V tier: the
 # self-attention also writes row `position` of the cache.
 
 def _attend(cfg: MT3Config, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor) -> torch.Tensor:
-    """q (B, 1, inner); k/v (B, H, Dk, K) -> (B, 1, inner)."""
+            v: torch.Tensor, mask: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """q (B, 1, inner); k/v (B, H, Dk, K); mask (K,) additive, in q's
+    dtype -> (B, 1, inner)."""
     batch = q.shape[0]
     q = q.reshape(batch, 1, cfg.num_heads, cfg.d_kv)
     scores = torch.einsum('bqhd,bhdk->bhqk', q, k)
+    if mask is not None:
+        scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum('bhqk,bhdk->bqhd', probs, v)
     return out.reshape(batch, 1, cfg.num_heads * cfg.d_kv)
 
 
-def _float_self_attention(cfg, lay, i, h, position, cache):
+def _float_self_attention(cfg, lay, i, h, at: _Where, cache):
     k_cache, v_cache = cache
-    shape = (h.shape[0], cfg.num_heads, cfg.d_kv)
-    k_cache[i, :, :, :, position] = (h[:, 0] @ lay['k'][i]).reshape(shape)
-    v_cache[i, :, :, :, position] = (h[:, 0] @ lay['v'][i]).reshape(shape)
-    return _attend(cfg, h @ lay['q'][i], k_cache[i, ..., :position + 1],
-                   v_cache[i, ..., :position + 1])
+    shape = (h.shape[0], cfg.num_heads, cfg.d_kv, 1)
+    k_cache[i].index_copy_(-1, at.index,
+                           (h[:, 0] @ lay['k'][i]).reshape(shape))
+    v_cache[i].index_copy_(-1, at.index,
+                           (h[:, 0] @ lay['v'][i]).reshape(shape))
+    return _attend(cfg, h @ lay['q'][i], k_cache[i, ..., :at.bound],
+                   v_cache[i, ..., :at.bound], at.mask)
 
 
 def _float_cross_attention(cfg, lay, i, h, cross_kv):
@@ -247,18 +296,19 @@ def _float_cross_attention(cfg, lay, i, h, cross_kv):
     return _attend(cfg, h @ lay['cross_q'][i], cross_k[i], cross_v[i])
 
 
-def _int8_self_attention(cfg, lay, i, h, position, cache):
+def _int8_self_attention(cfg, lay, i, h, at: _Where, cache):
     """The K/V row is quantized per position (quantize_kv_rows) as it is
     written."""
     shape = (h.shape[0], cfg.num_heads, cfg.d_kv)
     for name in ('k', 'v'):
         codes, scale = int8_attention.quantize_kv_rows(
             (h[:, 0] @ lay[name][i]).reshape(shape)[..., None])
-        cache[name + 'q'][i, ..., position] = codes[..., 0]
-        cache[name + 's'][i, ..., position] = scale[..., 0]
+        cache[name + 'q'][i].index_copy_(-1, at.index, codes)
+        cache[name + 's'][i].index_copy_(-1, at.index, scale)
     return int8_attention.int8_decode_attention(
         (h[:, 0] @ lay['q'][i]).reshape(shape), cache['kq'][i],
-        cache['ks'][i], cache['vq'][i], cache['vs'][i], position)[:, None]
+        cache['ks'][i], cache['vq'][i], cache['vs'][i], at.position,
+        at.bound)[:, None]
 
 
 def _int8_cross_attention(cfg, lay, i, h, cross):
@@ -292,20 +342,282 @@ def _start(cfg: MT3Config, batch: int, length: int, device,
     return tokens, finished
 
 
+def phase_bounds(max_length: int, phases=DEFAULT_PHASES) -> List[int]:
+    """The phases below max_length, then max_length (the JAX loops')."""
+    return [p for p in sorted(phases) if p < max_length] + [max_length]
+
+
+def run_phased_decode(bounds: List[int],
+                      run_block: Callable[[int, int], None],
+                      all_finished: Callable[[], bool],
+                      every: int = _EXIT_CHECK_EVERY) -> int:
+    """The JAX package's phase skeleton (mr_mt3_tpu/ops/fast_decode.py::
+    run_phased_decode) on the host: positions 0 .. bounds[-1] - 1 in
+    blocks of `every` steps (fewer only where a bound cuts one short),
+    none crossing a bound. run_block(bound, steps) runs `steps` greedy
+    steps of the phase that ends at `bound`; all_finished() is read before
+    each block (the early exit, one sync a block). Returns the steps
+    run."""
+    i = 0
+    for bound in bounds:
+        while i < bound:
+            if all_finished():
+                return i
+            steps = min(every, bound - i)
+            run_block(bound, steps)
+            i += steps
+    return i
+
+
+# the launch counters of the kernels a step runs, and the step counter:
+# a captured block's counts are recorded at capture and added at each
+# replay
+_COUNTERS = (int8_matmul.LAUNCHES, int8_attention.LAUNCHES, STEPS)
+
+
+class DecodeRunner:
+    """One greedy step loop's static buffers and captured blocks, for one
+    decode shape (tier, batch, encoder length, max_length, dtype).
+
+    The state the steps read and write lives in buffers allocated once:
+    the tokens (B, max_length + 1) int32, the finished flags, the step
+    index (a 0-d int32 tensor: the JAX loop's `i`), the caches and the
+    cross K/V; reset() loads a decode's inputs into them, so nothing of
+    one decode reaches the next. block(bound, steps) runs `steps` greedy
+    steps of the phase that ends at `bound`: on the card, when graphs is
+    on, as a CUDA graph captured the first time (after the same block run
+    eagerly on the runner's side stream, the warm-up capture needs, which
+    is also the decode's block) and replayed after; all graphs share one
+    memory pool. Subclasses give the step (step(owner, bound)) and the
+    phases; `owner` holds the weights (DecodeParams, or the model)."""
+
+    tier = 'none'
+
+    def __init__(self, cfg: MT3Config, batch: int, max_length: int,
+                 device: torch.device, phases):
+        self.cfg = cfg
+        self.max_length = max_length
+        self.device = torch.device(device)
+        self.bounds = phase_bounds(max_length, phases)
+        self.tokens = torch.empty((batch, max_length + 1), dtype=torch.int32,
+                                  device=device)
+        self.finished = torch.empty(batch, dtype=torch.bool, device=device)
+        self.step_index = torch.zeros((), dtype=torch.int32, device=device)
+        self.graphs: Dict[Tuple[int, int], Tuple[Any, list]] = {}
+        self.pool = None
+        self.stream = None
+        self.capture_seconds = 0.0
+        self.graph_allocated_bytes = 0
+        self.graph_reserved_bytes = 0
+
+    def step(self, owner, bound: int) -> None:
+        raise NotImplementedError
+
+    def reset_state(self, valid_mask: Optional[torch.Tensor]) -> None:
+        """Tokens to [start, pad...], finished to ~valid_mask, step 0."""
+        self.tokens.fill_(self.cfg.pad_token_id)
+        self.tokens[:, 0] = self.cfg.decoder_start_token_id
+        if valid_mask is None:
+            self.finished.zero_()
+        else:
+            self.finished.copy_(~valid_mask.to(device=self.device,
+                                               dtype=torch.bool))
+        self.step_index.zero_()
+
+    def current_tokens(self) -> torch.Tensor:
+        """tokens[:, i] (B,) int32, i the step index on the device."""
+        return self.tokens.index_select(1, self.step_index.reshape(1))[:, 0]
+
+    def advance(self, logits: torch.Tensor) -> None:
+        """The greedy choice of a step's logits: finished rows emit pad,
+        EOS finishes a row; tokens[:, i + 1] written, i advanced, all on
+        the device."""
+        cfg = self.cfg
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(self.finished, cfg.pad_token_id, nxt)
+        self.finished |= nxt == cfg.eos_token_id
+        self.tokens.index_copy_(1, (self.step_index + 1).reshape(1).long(),
+                                nxt[:, None])
+        self.step_index += 1
+
+    def _eager(self, owner, bound: int, steps: int) -> None:
+        for _ in range(steps):
+            self.step(owner, bound)
+        STEPS[self.tier] += steps
+
+    def block(self, owner, bound: int, steps: int, graphs: bool) -> None:
+        if not graphs:
+            self._eager(owner, bound, steps)
+            return
+        entry = self.graphs.get((bound, steps))
+        if entry is None:
+            self._warm_and_capture(owner, bound, steps)
+            return
+        graph, counts = entry
+        graph.replay()
+        for counter, recorded in zip(_COUNTERS, counts):
+            for key, n in recorded.items():
+                counter[key] += n
+
+    def _warm_and_capture(self, owner, bound: int, steps: int) -> None:
+        """The block eagerly on the side stream (the warm-up, a real
+        block), then its capture; the capture's counts are recorded for
+        the replays and taken back off the counters."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+        # the feed-forward kernel's grid barrier words of the capture
+        # stream, allocated (zeroed) before any capture
+        int8_matmul._barrier(self.device, self.stream.cuda_stream)
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self._eager(owner, bound, steps)
+        current.wait_stream(self.stream)
+        before = [dict(c) for c in _COUNTERS]
+        # the graph's memory: the allocator's before and after, from an
+        # empty cache (torch.cuda.graph empties it too)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        allocated = torch.cuda.memory_allocated(self.device)
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.monotonic()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            self._eager(owner, bound, steps)
+        self.capture_seconds += time.monotonic() - t0
+        self.graph_allocated_bytes += \
+            torch.cuda.memory_allocated(self.device) - allocated
+        self.graph_reserved_bytes += \
+            torch.cuda.memory_reserved(self.device) - reserved
+        recorded = []
+        for counter, was in zip(_COUNTERS, before):
+            recorded.append({k: counter[k] - was.get(k, 0) for k in counter})
+            counter.update(was)
+        self.graphs[(bound, steps)] = (graph, recorded)
+
+    def blocks(self) -> List[Tuple[int, int]]:
+        """Every (bound, steps) block a decode of max_length steps runs."""
+        out = []
+        run_phased_decode(self.bounds,
+                          lambda bound, steps: out.append((bound, steps)),
+                          lambda: False)
+        return sorted(set(out))
+
+    @torch.no_grad()
+    def capture_all(self, owner) -> int:
+        """Capture every block not captured yet (a server's prewarm, so
+        that no request pays a capture): each is warmed up first at the
+        last positions of its phase, on the buffers as the last decode
+        left them (the next decode resets them). Returns the greedy steps
+        the warm-ups ran."""
+        ran = 0
+        for bound, steps in self.blocks():
+            if (bound, steps) not in self.graphs:
+                self.step_index.fill_(bound - steps)
+                self._warm_and_capture(owner, bound, steps)
+                ran += steps
+        return ran
+
+    @torch.no_grad()
+    def run(self, owner, graphs: bool) -> torch.Tensor:
+        """The decode from the state reset() left: the phases' blocks up
+        to max_length or until every row is finished; a copy of the
+        tokens (the buffer is the next decode's)."""
+        run_phased_decode(
+            self.bounds,
+            lambda bound, steps: self.block(owner, bound, steps, graphs),
+            lambda: bool(self.finished.all()))
+        return self.tokens.clone()
+
+    def stats(self) -> Dict[str, Any]:
+        return {'graphs': len(self.graphs),
+                'capture_seconds': self.capture_seconds,
+                'graph_allocated_bytes': self.graph_allocated_bytes,
+                'graph_reserved_bytes': self.graph_reserved_bytes}
+
+
+class FastRunner(DecodeRunner):
+    """greedy_loop_fast's runner: decode_step_fast on the stacked
+    parameters, the caches of the tier (init_cache_stacked or
+    init_int8_cache_stacked) for max_length positions, the cross K/V (or
+    its int8 codes and scales) for `lenc` encoder rows."""
+
+    def __init__(self, cfg: MT3Config, quantize: str, batch: int, lenc: int,
+                 max_length: int, device, dtype: torch.dtype):
+        super().__init__(cfg, batch, max_length, device, DEFAULT_PHASES)
+        self.tier = quantize
+        shape = (cfg.num_decoder_layers, batch, cfg.num_heads, cfg.d_kv,
+                 lenc)
+        if quantize == 'int8_kv':
+            self.cache = init_int8_cache_stacked(cfg, batch, max_length,
+                                                 device)
+            pad = -lenc % int8_attention.POSITION_ALIGN
+            codes = shape[:-1] + (lenc + pad,)
+            scales = shape[:3] + (1, lenc + pad)
+            self.cross = {'last': lenc - 1}
+            for name in ('k', 'v'):
+                self.cross[name + 'q'] = torch.zeros(codes, dtype=torch.int8,
+                                                     device=device)
+                self.cross[name + 's'] = torch.zeros(
+                    scales, dtype=torch.float32, device=device)
+        else:
+            self.cache = init_cache_stacked(cfg, batch, max_length, device,
+                                            dtype)
+            self.cross = (torch.empty(shape, dtype=dtype, device=device),
+                          torch.empty(shape, dtype=dtype, device=device))
+
+    def reset(self, dp: DecodeParams, encoder_out: torch.Tensor,
+              valid_mask: Optional[torch.Tensor]) -> None:
+        cross_kv = precompute_cross_kv_stacked(dp, self.cfg, encoder_out)
+        if self.tier == 'int8_kv':
+            cross_kv = quantize_cross_kv(cross_kv)
+            for key, t in cross_kv.items():
+                if key != 'last':
+                    self.cross[key].copy_(t)
+            for t in self.cache.values():
+                t.zero_()
+        else:
+            for dst, src in zip(self.cross, cross_kv):
+                dst.copy_(src)
+            for t in self.cache:
+                t.zero_()
+        self.reset_state(valid_mask)
+
+    def step(self, dp: DecodeParams, bound: int) -> None:
+        self.advance(decode_step_fast(
+            self.cfg, dp, self.current_tokens(), self.step_index,
+            self.cache, self.cross, quantize=self.tier, bound=bound))
+
+
+def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
+    """Whether a step loop on `device` captures its blocks: on the card
+    unless graphs=False (the eager comparison switch), never on the CPU
+    (graphs=True there raises)."""
+    if device.type != 'cuda':
+        if graphs:
+            raise ValueError('CUDA graphs need a CUDA device')
+        return False
+    return graphs is None or bool(graphs)
+
+
 @torch.no_grad()
 def greedy_loop_fast(cfg: MT3Config, dp: DecodeParams,
                      encoder_out: torch.Tensor, max_length: int,
                      quantize: str = 'none',
-                     valid_mask: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     valid_mask: Optional[torch.Tensor] = None,
+                     graphs: Optional[bool] = None) -> torch.Tensor:
     """Greedy decode; returns tokens (B, max_length + 1). dp must be
-    stacked for the tier (stack_decode_params(model, quantize)). The
-    caches are allocated once for max_length positions; each step attends
-    over the positions decoded so far (the JAX loop grows its cache in
-    64-step phases, which gives the same attention: the positions past
-    the current one contribute exact zeros). For 'int8_kv' the cross K/V
-    is computed in the activation dtype first and then quantized, as JAX
-    does."""
+    stacked for the tier (stack_decode_params(model, quantize)). The step
+    loop runs in the JAX loop's phases through a FastRunner: the one
+    dp.runners keeps for this shape (on the card), else a new one. The
+    caches hold max_length positions from the start; a step of the phase
+    ending at b attends over the first b, the positions past the current
+    one contributing exact zeros, as in the JAX loop's cache grown phase
+    by phase. For 'int8_kv' the cross K/V is computed in the activation
+    dtype first and then quantized, as JAX does. graphs: None captures
+    and replays CUDA graphs on the card (the main path); False runs the
+    same blocks eagerly there, for comparison only."""
     if quantize in FUSED_TIERS:
         return greedy_loop_fused(cfg, dp, encoder_out, max_length,
                                  valid_mask=valid_mask)
@@ -314,25 +626,37 @@ def greedy_loop_fast(cfg: MT3Config, dp: DecodeParams,
     if (dp.lm_head_q is not None) != (quantize == 'int8'):
         raise ValueError(f'the decode parameters were not stacked for '
                          f'quantize={quantize!r}')
-    batch = encoder_out.shape[0]
+    batch, lenc = encoder_out.shape[:2]
     dev = encoder_out.device
-    cross_kv = precompute_cross_kv_stacked(dp, cfg, encoder_out)
-    if quantize == 'int8_kv':
-        cross_kv = quantize_cross_kv(cross_kv)
-        cache = init_int8_cache_stacked(cfg, batch, max_length, dev)
-    else:
-        cache = init_cache_stacked(cfg, batch, max_length, dev)
-    tokens, finished = _start(cfg, batch, max_length, dev, valid_mask)
-    for i in range(max_length):
-        if i % _EXIT_CHECK_EVERY == 0 and bool(finished.all()):
-            break
-        logits = decode_step_fast(cfg, dp, tokens[:, i], i, cache, cross_kv,
-                                  quantize=quantize)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(finished, cfg.pad_token_id, nxt)
-        finished = finished | (nxt == cfg.eos_token_id)
-        tokens[:, i + 1] = nxt
-    return tokens
+    graphs = use_graphs(dev, graphs)
+    dtype = dp.token_embed.dtype
+    key = (quantize, batch, lenc, max_length, dtype)
+    runner = dp.runners.get(key) if dp.runners is not None else None
+    if runner is None:
+        runner = FastRunner(cfg, quantize, batch, lenc, max_length, dev,
+                            dtype)
+        if dp.runners is not None:
+            dp.runners[key] = runner
+    runner.reset(dp, encoder_out, valid_mask)
+    return runner.run(dp, graphs)
+
+
+def capture_phases(dp: DecodeParams) -> Dict[str, Any]:
+    """Capture every block of every runner dp holds (prewarm); returns
+    the runners' summed stats and the warm-up steps it ran."""
+    runners = list((dp.runners or {}).values())
+    steps = sum(r.capture_all(dp) for r in runners)
+    return merge_stats(runners, steps)
+
+
+def merge_stats(runners, warmup_steps: int = 0) -> Dict[str, Any]:
+    out = {'runners': len(runners), 'graphs': 0, 'capture_seconds': 0.0,
+           'graph_allocated_bytes': 0, 'graph_reserved_bytes': 0,
+           'capture_warmup_steps': warmup_steps}
+    for r in runners:
+        for key, value in r.stats().items():
+            out[key] += value
+    return out
 
 
 @torch.no_grad()

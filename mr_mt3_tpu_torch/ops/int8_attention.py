@@ -16,6 +16,15 @@ max / 127, floor 1e-20); the int8 x int8 value sums times that scale. A
 masked position contributes exact zeros, so both versions stop at
 `position`, and a cache of any length past it gives the same result.
 
+`position` is a host int, or a 0-d int32 tensor on q's device with a host
+upper bound n_max (the decode loop's phase bound): the TPU kernel reads its
+position from SMEM, and the CUDA kernel then reads it from device memory,
+so that one launch captured into a CUDA graph serves every position below
+n_max. The launch is sized for n_max positions and attends over position +
+1 of them; a device position outside 0..n_max - 1 makes the outputs NaN
+(the host cannot see it without a sync), while a host-known one (an int,
+or a CPU tensor for the plain version) past n_max raises.
+
 The layout is the JAX package's: q (B, H, dk); codes (B, H, dk, K), the
 positions last; scales (B, H, 1, K). The CUDA kernel copies 16 positions
 at a time where K and the pointers allow it, else 8 or 4, so K must be a
@@ -26,7 +35,7 @@ multiple of POSITION_ALIGN there: the port's caches are allocated so
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,15 +64,26 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes.to(torch.int8), scale
 
 
+def _host_position(position, n_max: Optional[int], k_len: int) -> int:
+    """A host-known position checked against the cache and n_max."""
+    position = int(position)
+    limit = k_len if n_max is None else min(int(n_max), k_len)
+    if not 0 <= position < limit:
+        raise ValueError(f'position {position} outside 0..{limit - 1}')
+    return position
+
+
 def int8_decode_attention_reference(q: torch.Tensor,
                                     k_q: torch.Tensor, k_scale: torch.Tensor,
                                     v_q: torch.Tensor, v_scale: torch.Tensor,
-                                    position: int) -> torch.Tensor:
+                                    position, n_max: Optional[int] = None
+                                    ) -> torch.Tensor:
     """The plain version of int8_decode_attention. The integer dots run
     in float64, exact for any cache length (f32 holds them exactly only
-    while the value sums stay below 2^24, ~1040 positions)."""
+    while the value sums stay below 2^24, ~1040 positions). position is an
+    int or a 0-d tensor (read here: the plain version syncs)."""
     b, h, dk = q.shape
-    n = int(position) + 1
+    n = _host_position(position, n_max, k_q.shape[-1]) + 1
     qf = q.float()
     qs = torch.clamp(qf.abs().amax(-1, keepdim=True), min=1e-12) / 127
     qi = torch.clamp(torch.round(qf / qs), -127, 127)
@@ -86,6 +106,10 @@ def _library():
         lib.i8att_launch.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.i8att_launch.restype = ctypes.c_int
+        lib.i8att_launch_dev.argtypes = [ctypes.c_void_p] * 6 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+        lib.i8att_launch_dev.restype = ctypes.c_int
         lib.i8att_error_string.argtypes = [ctypes.c_int]
         lib.i8att_error_string.restype = ctypes.c_char_p
         lib.i8att_max_dk.restype = ctypes.c_int
@@ -98,8 +122,10 @@ def _library():
 def int8_decode_attention_cuda(q: torch.Tensor,
                                k_q: torch.Tensor, k_scale: torch.Tensor,
                                v_q: torch.Tensor, v_scale: torch.Tensor,
-                               position: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream."""
+                               position, n_max: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream: the host-int entry
+    for an int position, the device-position entry for a tensor one."""
     dev = q.device
     if q.dim() != 3 or k_q.dim() != 4:
         raise ValueError('int8_decode_attention takes q (B, H, dk) and '
@@ -117,17 +143,28 @@ def int8_decode_attention_cuda(q: torch.Tensor,
         raise ValueError(f'cache length {k_len} is not a multiple of '
                          f'{POSITION_ALIGN} (the kernel copies at least '
                          f'{POSITION_ALIGN} positions at a time)')
-    position = int(position)
-    if not 0 <= position < k_len:
-        raise ValueError(f'position {position} outside 0..{k_len - 1}')
+    on_device = isinstance(position, torch.Tensor)
+    if on_device:
+        check_operand('position', position, torch.int32, (), dev, align=4)
+        if n_max is None or not 1 <= int(n_max) <= k_len:
+            raise ValueError(f'a device position needs n_max in '
+                             f'1..{k_len} (got {n_max})')
+    else:
+        position = _host_position(position, n_max, k_len)
     out = torch.empty((b, h * dk), dtype=q.dtype, device=dev)
     lib = _library()
+    ptrs = (q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+            v_q.data_ptr(), v_scale.data_ptr(), out.data_ptr(), b, h, dk,
+            k_len)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.i8att_launch(q.data_ptr(), k_q.data_ptr(),
-                              k_scale.data_ptr(), v_q.data_ptr(),
-                              v_scale.data_ptr(), out.data_ptr(), b, h, dk,
-                              k_len, position, _DTYPE_ID[q.dtype], stream)
+        if on_device:
+            rc = lib.i8att_launch_dev(*ptrs, position.data_ptr(),
+                                      int(n_max), _DTYPE_ID[q.dtype],
+                                      stream)
+        else:
+            rc = lib.i8att_launch(*ptrs, position, _DTYPE_ID[q.dtype],
+                                  stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: '
                            + lib.i8att_error_string(rc).decode())
@@ -138,16 +175,18 @@ def int8_decode_attention_cuda(q: torch.Tensor,
 def int8_decode_attention(q: torch.Tensor,
                           k_q: torch.Tensor, k_scale: torch.Tensor,
                           v_q: torch.Tensor, v_scale: torch.Tensor,
-                          position: int) -> torch.Tensor:
+                          position, n_max: Optional[int] = None
+                          ) -> torch.Tensor:
     """Single-query attention over an int8 K/V cache.
 
     q (B, H, dk) float32 or bfloat16; k_q, v_q (B, H, dk, K) int8; k_scale,
     v_scale (B, H, 1, K) f32; only positions <= position take part.
-    Returns (B, H * dk) in q's dtype."""
+    position: an int, or a 0-d int32 tensor on q's device with n_max, the
+    bound it stays below. Returns (B, H * dk) in q's dtype."""
     if q.is_cuda:
         return int8_decode_attention_cuda(q, k_q, k_scale, v_q, v_scale,
-                                          position)
+                                          position, n_max)
     if q.device.type == 'cpu':
         return int8_decode_attention_reference(q, k_q, k_scale, v_q,
-                                               v_scale, position)
+                                               v_scale, position, n_max)
     raise ValueError(f'unsupported device {q.device}')

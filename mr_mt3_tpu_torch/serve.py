@@ -113,7 +113,10 @@ def prepare_handler(handler, probe: bool = True):
        (bucket list [1]); contiguous mode warms each lockstep song bucket
        up to MicroBatcher.MAX_COALESCE; an 'encoder_append' model warms
        each pow2 chain bucket up to handler.POW2_BUCKET_CAP. Counts that
-       give no new call size (handler._call_sizes) are skipped.
+       give no new call size (handler._call_sizes) are skipped. Then, on
+       the card, every phase of the step loop's decode shapes those calls
+       ran is captured as CUDA graphs (handler.capture_graphs; /healthz
+       reports their seconds and memory under 'graphs').
     A probe or prewarm failure demotes one tier (and re-runs the ladder)
     only where probe.demotes_on_error allows it, the CPU; on the card, and
     at 'none', it re-raises.
@@ -169,6 +172,9 @@ def prepare_handler(handler, probe: bool = True):
                 raise
             demote_tier(f'prewarm failed at full length ({e!r})')
             continue
+        graphs = handler.capture_graphs()
+        if graphs:              # the card's; the CPU keeps the JAX keys
+            info['graphs'] = graphs
         info['prewarm_seconds'] = round(
             prewarm_before + time.monotonic() - t0, 1)
         info['prewarmed'] = True

@@ -737,7 +737,8 @@ def test_int8_launch_failure_stops_the_server(cuda, tier, monkeypatch):
     monkeypatch.setattr(i8m, '_library', lambda: types.SimpleNamespace(
         i8mm_launch=refuse, i8ff_launch=refuse, i8mm_error_string=text))
     monkeypatch.setattr(i8a, '_library', lambda: types.SimpleNamespace(
-        i8att_launch=refuse, i8att_error_string=text))
+        i8att_launch=refuse, i8att_launch_dev=refuse,
+        i8att_error_string=text))
     cfg = SMALL.replace(mel_bins=512)
     model = init_params(MT3(cfg), seed=0)
     handler = InferenceHandler(model=model, max_length=8, batch_size=2,
@@ -1220,3 +1221,162 @@ def test_logmel_fft_ragged_segments(cuda, style, batch):
         readings = chip_smoke.logmel_readings(torch, got, want)
         assert chip_smoke.logmel_violations(chip_smoke.LOGMEL_BOUNDS[ref],
                                             readings) == [], (ref, readings)
+
+
+# ---- the step loops' CUDA graphs and the device-position attention -------
+
+# (batch, position): the chip_smoke kernel phase's positions, each launched
+# with n_max its phase bound (the step loop's), at full width over a 1024
+# cache
+DEVICE_POSITION_CASES = [(b, pos) for b in (8, 64)
+                         for pos in (0, 31, 63, 511, 1023)]
+
+
+def _phase_bound(pos, max_length=1024):
+    from mr_mt3_tpu_torch.ops.fast_decode import phase_bounds
+    return next(b for b in phase_bounds(max_length) if pos < b)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('b,pos', DEVICE_POSITION_CASES)
+def test_int8_attention_device_position(cuda, b, pos, dtype):
+    """The device-position entry (the position an int32 in device memory,
+    the launch sized for the phase bound n_max) within INT8_BOUNDS of its
+    plain version, the control caught past position 0; one launch. Against
+    the host-int launch at the same position it is within the same bounds
+    (the layout follows n_max, so the softmax sum's order may differ). A
+    device position at or past n_max gives NaN outputs; n_max past the
+    cache raises before any launch."""
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(b * 11 + pos)
+    q = _randn(gen, b, 6, 64, device=cuda, dtype=tdt)
+    (kq, ks), (vq, vs) = (i8a.quantize_kv_rows(
+        _randn(gen, b, 6, 64, 1024, device=cuda)) for _ in range(2))
+    args = (q, kq, ks, vq, vs, pos)
+    n_max = _phase_bound(pos)
+    where = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = i8a.LAUNCHES[i8a.KERNEL]
+    got = i8a.int8_decode_attention(q, kq, ks, vq, vs, where, n_max)
+    torch.cuda.synchronize()
+    assert i8a.LAUNCHES[i8a.KERNEL] == before + 1
+    assert not _int8_violations('int8_decode_attention', dtype, got, args,
+                                i8a.int8_decode_attention_reference, 64)
+    host = i8a.int8_decode_attention(*args)
+    readings = chip_smoke.output_readings(torch, got, host, 64)
+    assert not chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          readings), readings
+    if pos:
+        ctrl = chip_smoke.output_readings(
+            torch, got, chip_smoke.int8_attention_control(torch, *args), 64)
+        assert chip_smoke.int8_violations('int8_decode_attention', dtype,
+                                          ctrl)
+    where.fill_(n_max)
+    assert torch.isnan(i8a.int8_decode_attention(
+        q, kq, ks, vq, vs, where, n_max)).all()
+    with pytest.raises(ValueError, match='n_max'):
+        i8a.int8_decode_attention(q, kq, ks, vq, vs, where, 1025)
+
+
+def test_captured_gated_ff_replays(cuda):
+    """int8_gated_ff's cooperative launch captured into a CUDA graph (its
+    grid barrier words allocated before the capture) and replayed 120
+    times: each replay equals the eager launch, the barrier's count word
+    is zero after, and its generation word advanced once a launch (the
+    warm-up and the replays; the capture launches nothing)."""
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    gen = torch.Generator().manual_seed(3)
+    h = _randn(gen, 8, 512, device=cuda)
+    args = (h, *_quantized(gen, 512, 1024, cuda),
+            *_quantized(gen, 512, 1024, cuda),
+            *_quantized(gen, 1024, 512, cuda))
+    eager = i8m.int8_gated_ff(*args)
+    side = torch.cuda.Stream()
+    bar = i8m._barrier(h.device, side.cuda_stream)
+    generation = int(bar[1])
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        i8m.int8_gated_ff(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = i8m.LAUNCHES['int8_gated_ff']
+    with torch.cuda.graph(graph, stream=side):
+        out = i8m.int8_gated_ff(*args)
+    assert i8m.LAUNCHES['int8_gated_ff'] == launches + 1   # recorded
+    for _ in range(120):
+        out.zero_()
+        graph.replay()
+        assert torch.equal(out, eager)
+    torch.cuda.synchronize()
+    assert bar.tolist() == [0, generation + 121]
+
+
+def _no_eos_model(cuda):
+    """SMALL at seed 4 with the lm_head's EOS row zeroed: its logit is 0,
+    below the largest of 255 others, so every row decodes to the end."""
+    model = init_params(MT3(SMALL), seed=4)
+    with torch.no_grad():
+        model.lm_head.weight[SMALL.eos_token_id] = 0
+    return model.to(cuda).eval()
+
+
+def _loop_model(cuda, tier):
+    from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+    model = _no_eos_model(cuda)
+    return model, stack_decode_params(model, quantize=tier)
+
+
+@pytest.mark.parametrize('batch', [8, 64])
+@pytest.mark.parametrize('tier', ['none', 'int8', 'int8_kv'])
+def test_graphed_loop_equals_eager(cuda, tier, batch):
+    """greedy_loop_fast over 150 steps (phases 64, 128 and 150: a last
+    block of 6) replaying captured graphs gives the eager loop's tokens,
+    steps and kernel launches; a second decode on the same parameters
+    captures nothing more, and a decode of other encoder states between
+    them leaks nothing into it."""
+    from mr_mt3_tpu_torch.ops import fast_decode
+    from mr_mt3_tpu_torch.ops import int8_attention as i8a
+    from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+    model, dp = _loop_model(cuda, tier)
+    gen = torch.Generator().manual_seed(batch)
+    enc = _randn(gen, batch, 24, SMALL.d_model, device=cuda)
+    mask = torch.arange(batch, device=cuda) < batch - 1
+
+    def decode(graphs, states=enc):
+        counts = [dict(c) for c in (i8m.LAUNCHES, i8a.LAUNCHES,
+                                    fast_decode.STEPS)]
+        toks = fast_decode.greedy_loop_fast(SMALL, dp, states, 150, tier,
+                                            valid_mask=mask, graphs=graphs)
+        torch.cuda.synchronize()
+        return toks, [{k: c[k] - was[k] for k in c} for c, was in zip(
+            (i8m.LAUNCHES, i8a.LAUNCHES, fast_decode.STEPS), counts)]
+
+    eager, eager_counts = decode(False)
+    graphed, graphed_counts = decode(None)
+    runner = next(iter(dp.runners.values()))
+    captured = len(runner.graphs)
+    decode(None, states=enc.flip(0))
+    again, again_counts = decode(None)
+    assert torch.equal(graphed, eager) and torch.equal(again, eager)
+    assert graphed_counts == eager_counts == again_counts
+    assert eager_counts[2][tier] == 150
+    assert captured == len(runner.graphs) == 4     # 64, 128, 150 x (8, 6)
+    assert (eager[-1, 1:] == SMALL.pad_token_id).all()
+
+
+def test_graphed_module_loop_equals_eager(cuda):
+    """_greedy_loop (the module path) with a decoder prefix of 8
+    positions, 300 steps (phases 256 and 300): graphed tokens equal the
+    eager ones; capture_module_phases captures nothing more after a
+    decode that ran every block."""
+    from mr_mt3_tpu_torch.ops import decode
+    model = _no_eos_model(cuda)
+    gen = torch.Generator().manual_seed(9)
+    enc = _randn(gen, 8, 24, SMALL.d_model, device=cuda)
+    prefix = _randn(gen, 8, 8, SMALL.d_model, device=cuda)
+    eager = decode._greedy_loop(model, enc, 300, prefix, graphs=False)
+    graphed = decode._greedy_loop(model, enc, 300, prefix)
+    assert torch.equal(graphed, eager)
+    stats = decode.capture_module_phases(model)
+    assert stats['capture_warmup_steps'] == 0 and stats['graphs'] == 3
+
