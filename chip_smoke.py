@@ -12,6 +12,13 @@ Phases (any failure exits non-zero and prints no result line):
      the grouped int8 window), fused_decode_step, fused_attention_fwd,
      fused_attention_bwd, int8_matmul (int8_matmul and int8_gated_ff),
      int8_decode_attention and logmel;
+  2b. native (native_phase): the host C++ libraries of native/ (the FLAC
+     codec and the tokenizer core) built by g++ at first use, in parallel;
+     FLAC round trips at 16 kHz mono and 44.1 kHz stereo, 16- and 24-bit,
+     fixed, LPC and mid-side (NATIVE_FLAC_CASES, a minute of audio each),
+     the decoded integers equal to the input, encode and decode seconds
+     per minute of audio; truncated and mutated streams each refused with
+     ValueError; the host numbers printed beside the card line;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -33,9 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
      inputs, within INT8_BOUNDS, which must also catch a control (the
      attention without the requantization of p; the matmul on x rounded
      to bf16 in f32, on bf16-dequantized weights in bf16); CUDA-event
-     times of the wrappers and each kernel's own time from a profiler
-     trace (trace_ms) beside the bound, the plain version's and a library
-     yardstick (for the matmul also torch._weight_int8pack_mm, the same
+     times of the wrappers and of each call queued behind a spin kernel,
+     the host's cost hidden (queued_ms), beside the bound, the plain
+     version's and a library yardstick (for the matmul also torch._weight_int8pack_mm, the same
      function);
   3b'. int8_decode_attention's device-position entry (the step loop's
      self-attention: the position an int32 in device memory, the launch
@@ -101,8 +108,11 @@ Phases (any failure exits non-zero and prints no result line):
      random weights, default tier fused_int4, probe ladder and prewarm on)
      at eval.max_length 512 (MAIN_PATH_MAX_LENGTH; users' default 1024,
      cut for time), serving WAV clips over HTTP from two concurrent
-     clients; the ladder's walk is printed, and no demotion may come from
-     an exception;
+     clients, then from one client in turn the 4.0 s clip as 16-bit WAV
+     and as 16-bit FLAC at 16 kHz (decode_audio's samples bit-equal, the
+     MIDI replies equal), as 44.1 kHz stereo FLAC (200, MIDI) and a
+     truncated FLAC body (400); the ladder's walk is printed, and no
+     demotion may come from an exception;
   7. segment-memory main path: the same for `python -m
      mr_mt3_tpu_torch.serve model=MT3NetSegMemV2WithPrev
      trainer.precision=bf16` (the paper's model, chained decode), also at
@@ -117,13 +127,20 @@ Phases (any failure exits non-zero and prints no result line):
      weights saved as a port checkpoint, at +eval.quantize=auto (the
      ladder from fused_int4) and at none: a MIDI per song,
      evaluate_main's keys, the log-mel launches equal to the
-     _compute_mel calls, seconds per song and the tier served;
+     _compute_mel calls, seconds per song and the tier served; on the
+     auto leg's output the paper's instrument-leakage analysis
+     (scripts/instrument_leakage.py: programs per transcription, presence
+     P/R/F1; the ground truth's count equal to the stems written);
   7c. F1 on the card against the CPU: get_scores on the parity model over
      its corpus and notes, on the CPU and on the card held at none,
      fused_bf16, fused and fused_int4, every score within 0.001 (the JAX
      package's bar) of the CPU's;
   8. serving through each window tier held (fused_int4, fused, fused_bf16;
-     prepare_handler(probe=False)): the same clips, every answer MIDI;
+     prepare_handler(probe=False)): the same clips, every answer MIDI; at
+     fused_int4 the FLAC requests of phase 6 as well, on the window kernel
+     (the default server's ladder may demote at random weights; every
+     server that takes them must launch log-mel once a decoding request,
+     and the window kernel where it decodes on a window tier);
   8b. the int8 tiers as `serve +eval.quantize=int8|int8_kv` builds them:
      the ladder's walk from each (printed), a handler held at each
      serving the clips at eval.max_length 128 (cut for time), the int8 kernels' launches equal to the greedy
@@ -168,11 +185,17 @@ Phases (any failure exits non-zero and prints no result line):
      on the card against the CPU;
  12. training main path: `python -m mr_mt3_tpu_torch.train` with TRAIN_ARGS
      (the paper's recipe at bf16) through train.main(argv) on a fabricated
-     Slakh-format corpus: 2 epochs with validation, then a resume from
-     'last' for one more; finite losses, loadable checkpoints, the step
-     going on, and the attention kernels' launches equal to the long
-     attentions the steps ran (forward and backward); the eval hook
-     (TRAIN_EVAL_ARGS) logs val_f1_* after each validation.
+     corpus as Slakh publishes it (mix.flac at 44.1 kHz, MIDI stems,
+     metadata.yaml), prepared by the port's generate_inst_names,
+     merge_slakh_midi and resample_slakh (seconds printed) and its songs
+     tokenized by the native core and the Python path with equal arrays
+     (ms per song printed): 2 epochs with validation, then a resume from
+     'last' for one more; the native tokenizer counted on each leg, no
+     fallback; finite losses, loadable checkpoints, the step going on, and
+     the attention kernels' launches equal to the long attentions the
+     steps ran (forward and backward); the eval hook (TRAIN_EVAL_ARGS)
+     reads the validation songs' mix.flac and logs val_f1_* after each
+     validation.
 Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
 each leg of 8b, 9b and 9c and of 12 and read just after; the window launches must cover every
 window the decoded tokens needed. The step loops replay captured CUDA
@@ -194,6 +217,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -350,6 +374,125 @@ def build_kernels():
         for ln in regs:
             print(f'  ptxas: {ln}')
     print(f'build seconds: {time.monotonic() - t0:.1f}')
+
+
+# FLAC round trips of the native phase: (case, sample rate, channels, bits,
+# encoder mode: -1 auto (fixed order <= 2), 0-4 fixed order, 100 + o LPC
+# order o, mid-side), each over NATIVE_FLAC_SECONDS of a tone and noise
+NATIVE_FLAC_CASES = [
+    ('16k_mono_16bit_auto', 16000, 1, 16, -1, False),
+    ('16k_mono_24bit_lpc8', 16000, 1, 24, 108, False),
+    ('44k1_stereo_16bit_fixed4', 44100, 2, 16, 4, False),
+    ('44k1_stereo_16bit_mid_side', 44100, 2, 16, -1, True),
+    ('44k1_stereo_24bit_lpc4', 44100, 2, 24, 104, False)]
+NATIVE_FLAC_SECONDS = 60.0
+
+
+def flac_ints(seconds, sr, channels, bits, seed):
+    """A tone and noise as `bits`-bit integers, (n, channels) int32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    full = float(1 << (bits - 1)) - 1
+    x = np.stack([0.4 * np.sin(2 * np.pi * 330 * (1 + c) * t)
+                  + 0.05 * rng.normal(size=t.shape)
+                  for c in range(channels)], 1)
+    return np.round(x.clip(-1, 1) * full).astype(np.int32)
+
+
+def malformed_flac_streams():
+    """(name, bytes) that the decoder must refuse with ValueError:
+    truncations of a valid stream and mutations of its headers."""
+    from mr_mt3_tpu_torch.native import encode_flac_bytes
+    mono = encode_flac_bytes(flac_ints(0.4, 16000, 1, 16, 7), 16000)
+    stereo = encode_flac_bytes(flac_ints(0.4, 16000, 2, 16, 7), 16000,
+                               mid_side=True)
+    streams = [(f'truncated_{cut}', mono[:cut]) for cut in (
+        4, 8, 20, 41, 60, 100, len(mono) // 3, len(mono) // 2)]
+    frame = 42   # the first frame header, after 4 + 38 bytes of metadata
+
+    def mutated(name, data, **at):
+        out = bytearray(data)
+        for offset, value in at.items():
+            out[int(offset[1:])] = value(out[int(offset[1:])])
+        streams.append((name, bytes(out)))
+    # STREAMINFO: the 20-bit sample rate at bytes 18-20, the 36-bit total
+    # sample count from the low nibble of byte 21
+    mutated('bad_magic', stereo, b3=lambda b: ord('D'))
+    mutated('first_block_not_streaminfo', stereo, b4=lambda b: 5)
+    mutated('frame_sync_zeroed', stereo, **{f'b{frame}': lambda b: 0})
+    mutated('sample_rate_zero', stereo, b18=lambda b: 0, b19=lambda b: 0,
+            b20=lambda b: b & 0x0F)
+    mutated('total_samples_2_36', stereo, b21=lambda b: b | 0x0F)
+    mutated('mono_frame_claims_mid_side', mono,
+            **{f'b{frame + 3}': lambda b: (b & 0x0F) | (10 << 4)})
+    mutated('reserved_channel_code', stereo,
+            **{f'b{frame + 3}': lambda b: (b & 0x0F) | (12 << 4)})
+    return streams
+
+
+def native_phase(torch):
+    """The native host layer: tokenizer and FLAC libraries built by g++ at
+    first use (native/_loader.py), FLAC round trips whose decoded integers
+    must equal the input (decode seconds per minute of audio), malformed
+    streams that must each raise ValueError. Host numbers, printed beside
+    the card line."""
+    phase('native: g++ libraries, FLAC round trips, malformed streams')
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch.native import flac, tokenizer
+    card = card_line()
+    results = {'card': card}
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda lib: lib.load(),
+                      (flac.LIBRARY, tokenizer.LIBRARY)))
+    results['build_seconds'] = time.monotonic() - t0
+    results['libraries'] = {
+        lib.source: {'built': lib.built, 'seconds': lib.load_seconds,
+                     'path': os.path.relpath(lib.path(), REPO)}
+        for lib in (flac.LIBRARY, tokenizer.LIBRARY)}
+    print(f'[{card}] native libraries in {results["build_seconds"]:.2f} s '
+          f'(g++, in parallel): {json.dumps(results["libraries"])}')
+    rows = []
+    for i, (case, sr, channels, bits, mode, mid_side) in enumerate(
+            NATIVE_FLAC_CASES):
+        x = flac_ints(NATIVE_FLAC_SECONDS, sr, channels, bits, i)
+        t1 = time.monotonic()
+        data = flac.encode_flac_bytes(x, sr, bits=bits, force_mode=mode,
+                                      mid_side=mid_side)
+        t2 = time.monotonic()
+        y, got_sr = flac.decode_flac_bytes(data)
+        t3 = time.monotonic()
+        back = np.round(y.astype(np.float64) * (1 << (bits - 1))).astype(
+            np.int32)
+        if got_sr != sr or not np.array_equal(back, x):
+            fail(f'FLAC round trip {case}: rate {got_sr}, integers '
+                 f'{"equal" if np.array_equal(back, x) else "unequal"}')
+        minutes = NATIVE_FLAC_SECONDS / 60
+        rows.append({'case': case, 'bytes': len(data),
+                     'ratio': len(data) / x.nbytes * 32 / bits,
+                     'encode_s_per_min': (t2 - t1) / minutes,
+                     'decode_s_per_min': (t3 - t2) / minutes})
+        print(f'[{card}] FLAC {case}: {len(data)} bytes, encode '
+              f'{rows[-1]["encode_s_per_min"]:.3f} s and decode '
+              f'{rows[-1]["decode_s_per_min"]:.3f} s a minute of audio, '
+              f'integers equal')
+    results['flac'] = rows
+    refused = []
+    for name, data in malformed_flac_streams():
+        try:
+            flac.decode_flac_bytes(data)
+        except ValueError:
+            refused.append(name)
+            continue
+        fail(f'the malformed FLAC stream {name} decoded')
+    results['malformed_refused'] = refused
+    print(f'[{card}] {len(refused)} malformed FLAC streams refused with '
+          f'ValueError: {", ".join(refused)}')
+    return results
 
 
 def decoder_bytes(cfg, tier):
@@ -1256,10 +1399,11 @@ def windows_needed(tokens, batch, max_length, eos_id, fused_window):
     return calls, windows
 
 
-def serve_clips(torch, handler, info):
+def serve_clips(torch, handler, info, after=None):
     """Serve the 4 WAV clips from two concurrent clients through the
-    port's HTTP server around `handler`; every answer must be MIDI.
-    Returns the /healthz payload."""
+    port's HTTP server around `handler`; every answer must be MIDI. Then
+    after(url), where given, on the same server. Returns the /healthz
+    payload, read before after()."""
     from mr_mt3_tpu_torch import serve
     server = serve.make_server(handler, 0, info)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1289,6 +1433,8 @@ def serve_clips(torch, handler, info):
         wall = time.monotonic() - t1
         with urllib.request.urlopen(url + '/healthz', timeout=60) as resp:
             health = json.loads(resp.read())
+        if after is not None:
+            after(url)
     finally:
         server.shutdown()
         server.server_close()
@@ -1302,6 +1448,93 @@ def serve_clips(torch, handler, info):
         print(f'clip {seconds} s -> {len(body)} MIDI bytes in {secs:.2f} s')
     print(f'{len(clips)} requests in {wall:.2f} s wall')
     return health
+
+
+def post(url, body):
+    """POST body -> (HTTP status, reply bytes, seconds); an error status
+    is returned, not raised."""
+    req = urllib.request.Request(url, data=body, method='POST')
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read(), time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.monotonic() - t0
+
+
+def flac_requests(url, results):
+    """After serve_clips, from one client one after another: the 4.0 s
+    clip as 16-bit WAV and as 16-bit FLAC at 16 kHz (serve.decode_audio's
+    samples bit-equal; the two decodes' tokens and MIDI replies equal: at
+    random weights the MIDI may hold no note), the clip at 44.1 kHz stereo
+    as FLAC (200 and MIDI), and a truncated FLAC body (400). The three
+    decoding requests must launch the log-mel kernel (one _compute_mel
+    each) and, where the server decodes on a window tier, the window
+    kernel. Fills `results`."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.audio import resample
+    from mr_mt3_tpu_torch.native import encode_flac_bytes
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    samples = clip(4.0, 1)
+    wav = wav_bytes(samples)
+    flac16 = encode_flac_bytes(
+        (samples.clip(-1, 1) * 32767).astype(np.int32), 16000)
+    x44 = resample(samples, 16000, 44100)
+    flac44 = encode_flac_bytes(
+        (np.stack([x44, 0.8 * x44], 1).clip(-1, 1) * 32767).astype(np.int32),
+        44100, mid_side=True)
+    t0 = time.monotonic()
+    from_flac = serve.decode_audio(flac16)
+    results['decode_audio_flac16k_ms'] = (time.monotonic() - t0) * 1e3
+    from_wav = serve.decode_audio(wav)
+    if from_flac.dtype != from_wav.dtype or \
+            not np.array_equal(from_flac, from_wav):
+        fail('decode_audio: the FLAC body\'s samples differ from the WAV '
+             'body\'s')
+    replies = {}
+    windows0, mels0 = sum(fd.LAUNCHES[t] for t in TIERS), \
+        mk.LAUNCHES[mk.KERNEL]
+    decodes = TokenLog()
+    try:
+        for name, body in (('wav_16k', wav), ('flac_16k', flac16),
+                           ('flac_44k1_stereo', flac44),
+                           ('flac_truncated', flac16[:len(flac16) // 3])):
+            replies[name] = post(url + '/transcribe', body)
+            status, reply, secs = replies[name]
+            print(f'{name}: {len(body)} body bytes -> HTTP {status}, '
+                  f'{len(reply)} bytes in {secs:.2f} s')
+            results[name] = {'status': status, 'body_bytes': len(body),
+                             'reply_bytes': len(reply), 'seconds': secs}
+    finally:
+        decodes.close()
+    tokens = [call[1] for call in decodes.calls]
+    if len(tokens) != 3 or not np.array_equal(tokens[0], tokens[1]):
+        fail(f'{len(tokens)} decodes for 3 requests, or the WAV and FLAC '
+             f'bodies of one clip decoded to different tokens')
+    tiers = [call[0] for call in decodes.calls]
+    launches = {'window': sum(fd.LAUNCHES[t] for t in TIERS) - windows0,
+                mk.KERNEL: mk.LAUNCHES[mk.KERNEL] - mels0}
+    print(f'FLAC requests decoded at {tiers}: launches {launches}')
+    if launches[mk.KERNEL] != 3 or (
+            any(t in TIERS for t in tiers) and launches['window'] < 3):
+        fail(f'the FLAC requests at {tiers} launched {launches}')
+    results.update({'tokens_compared': int(tokens[0].size), 'tiers': tiers,
+                    'decodes': len(tokens), 'launches': launches})
+    for name in ('wav_16k', 'flac_16k', 'flac_44k1_stereo'):
+        status, reply, _ = replies[name]
+        if status != 200 or reply[:4] != b'MThd':
+            fail(f'{name}: HTTP {status}, body {reply[:60]!r}')
+    if replies['wav_16k'][1] != replies['flac_16k'][1]:
+        fail('the WAV and FLAC bodies of one clip gave different MIDI')
+    status, reply, _ = replies['flac_truncated']
+    if status != 400 or b'FLAC' not in reply:
+        fail(f'a truncated FLAC body: HTTP {status}, {reply[:80]!r}')
+    print(f'FLAC over HTTP: samples bit-equal to the WAV body\'s, '
+          f'{tokens[0].size} tokens and the MIDI equal, 44.1 kHz stereo '
+          f'served, the truncated body refused')
 
 
 class Patches:
@@ -1352,6 +1585,24 @@ class DecodeLog(Patches):
                     eos_id, fd.FUSED_WINDOW)
                 calls, windows = calls + c, windows + w
         return calls, windows
+
+
+class TokenLog(Patches):
+    """Records the tier and the decoded tokens of every song transcribed
+    until closed (InferenceHandler._postprocess, which every decode path
+    calls once a song)."""
+
+    def __init__(self):
+        import numpy as np
+
+        from mr_mt3_tpu_torch.infer import InferenceHandler
+        super().__init__()
+        self.calls = []
+
+        def recording(real, handler, tokens):
+            self.calls.append((handler.quantize, np.array(tokens)))
+            return real(handler, tokens)
+        self.patch(InferenceHandler, '_postprocess', recording)
 
 
 class MelLog(Patches):
@@ -1469,7 +1720,9 @@ def main_path(torch):
         print(f'handler built, probed and prewarmed in '
               f'{time.monotonic() - t0:.1f} s')
         walk.print()
-        health = serve_clips(torch, handler, info)
+        flac = {}
+        health = serve_clips(torch, handler, info,
+                             after=lambda url: flac_requests(url, flac))
     finally:
         walk.close()
         mels.close()
@@ -1484,13 +1737,14 @@ def main_path(torch):
     if launches['fused_int4'] < 1:
         fail('the int4 kernel was not launched on the main path')
     return {'tier': handler.quantize, 'walk': walk.steps,
-            'launches': launches,
+            'launches': launches, 'flac_requests': flac,
             'demotions': decode.get('demotions', [])}
 
 
 def held_tier_serving(torch):
     """Serve the clips through a handler held at each window tier (the
-    serve CLI with eval.quantize=<tier>, prepare_handler(probe=False))."""
+    serve CLI with eval.quantize=<tier>, prepare_handler(probe=False)),
+    and at fused_int4 the FLAC requests too (flac_requests)."""
     from mr_mt3_tpu_torch import serve
     from mr_mt3_tpu_torch.ops import fused_decode as fd
     launches = {}
@@ -1500,19 +1754,26 @@ def held_tier_serving(torch):
         for t in TIERS:
             fd.LAUNCHES[t] = 0
         log = DecodeLog()
+        flac = {}
         try:
             t0 = time.monotonic()
             info = serve.prepare_handler(handler, probe=False)
             print(f'prewarmed in {time.monotonic() - t0:.1f} s')
-            health = serve_clips(torch, handler, info)
+            # the default tier also serves the FLAC requests: the ladder
+            # of the default server may demote at random weights
+            health = serve_clips(
+                torch, handler, info,
+                after=(lambda url: flac_requests(url, flac))
+                if tier == 'fused_int4' else None)
         finally:
             log.close()
         if health['decode'].get('quantize') != tier:
             fail(f'/healthz decode info: {health["decode"]}')
         check_launches(fd.LAUNCHES, log, (tier,))
-        if len(log.calls) != health['batches'] + 1:
+        if len(log.calls) != health['batches'] + 1 + flac.get('decodes', 0):
             fail(f'{len(log.calls)} decodes recorded for '
-                 f'{health["batches"]} request batches and the prewarm')
+                 f'{health["batches"]} request batches, the prewarm and '
+                 f'{flac.get("decodes", 0)} FLAC requests')
         launches[tier] = fd.LAUNCHES[tier]
         del handler
         torch.cuda.empty_cache()
@@ -1799,7 +2060,7 @@ def device_time(torch, fn, by_name=False):
     return (total, kernels, names) if by_name else (total, kernels)
 
 
-# calls of a kernel in one trace_ms reading
+# calls of a kernel in one trace_ms or queued_ms reading
 TRACE_RUNS = 20
 
 
@@ -1811,38 +2072,72 @@ def kernel_trace_ms(torch, fn, symbol, runs=TRACE_RUNS, tries=3):
     takes a few microseconds. The profiler drops or cuts short an event
     now and then: the reading is the median of the events the trace
     holds, and a trace that holds fewer than half of them is taken again,
-    `tries` times. symbol may be a tuple of names, any of which counts."""
-    return kernel_traces_ms(torch, [(fn, symbol)], runs, tries)[0]
-
-
-def kernel_traces_ms(torch, calls, runs=TRACE_RUNS, tries=3):
-    """kernel_trace_ms of each (fn, symbol) of calls, all from one trace,
-    so that a yardstick adds no profiler session (a process that had
-    opened some 40 of them once recorded no kernel in the next: run DB,
-    PERF.md)."""
+    `tries` times. symbol may be a tuple of names, any of which counts.
+    Used by `versus` only: processes that had opened some 30-40 sessions
+    lost kernel events in the next (runs DB and DU), so the default run's
+    int8 phase reads queued_ms instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    calls = [(fn, (sym,) if isinstance(sym, str) else tuple(sym))
-             for fn, sym in calls]
-    for fn, _ in calls:
-        fn()
+    symbols = (symbol,) if isinstance(symbol, str) else tuple(symbol)
+    fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for fn, _ in calls:
-                for _ in range(runs):
-                    fn()
+            for _ in range(runs):
+                fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        ms = [[e.time_range.elapsed_us() / 1e3 for e in events
-               if any(sym in e.name for sym in symbols)]
-              for _, symbols in calls]
-        if all(2 * len(m) >= runs for m in ms):
-            return [statistics.median(m) for m in ms]
-    fail(f'{tries} traces of {runs} calls each hold '
-         f'{[len(m) for m in ms]} of the kernels '
-         f'{[symbols for _, symbols in calls]}')
+        ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and any(sym in e.name for sym in symbols)]
+        if 2 * len(ms) >= runs:
+            return statistics.median(ms)
+    fail(f'{tries} traces of {runs} calls each hold {len(ms)} of the '
+         f'kernels {symbols}')
+
+
+# cycles of the spin kernel that queued_ms puts first: ~10 ms at the
+# H100's 1.98 GHz, against the ~1 ms the host takes to queue 20 calls of
+# a wrapper (~50 us each, time_ms)
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def queued_ms(torch, calls, runs=TRACE_RUNS, tries=3):
+    """Each fn of calls' device time per call with the host's cost hidden
+    (ms): `runs` calls of each are queued behind a spin kernel
+    (torch.cuda._sleep), so that the card runs them back to back, and CUDA
+    events between the calls time each one (the median). time_ms's
+    intervals also hold the host's cost of each call (the wrapper's
+    checks, ctypes), which sets them once a kernel takes a few
+    microseconds. A reading counts only where the spin was still running
+    when the host had queued every call; else the spin is made 4x longer
+    and the calls are queued again, `tries` times. No profiler session
+    (see kernel_trace_ms)."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    cycles = QUEUE_SPIN_CYCLES
+    for _ in range(tries):
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        events = []
+        for fn in calls:
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(runs + 1)]
+            ev[0].record()
+            for i in range(runs):
+                fn()
+                ev[i + 1].record()
+            events.append(ev)
+        ahead = not spun.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return [statistics.median(ev[i].elapsed_time(ev[i + 1])
+                                      for i in range(runs))
+                    for ev in events]
+        cycles *= 4
+    fail(f'the host did not queue {runs} calls of each of {len(calls)} '
+         f'functions within a spin of {cycles // 4} cycles, {tries} times')
 
 
 def device_per_step(torch, decode, wall_ms_per_step):
@@ -3127,10 +3422,9 @@ def int8_attention_control(torch, q, k_q, k_scale, v_q, v_scale, position):
 # where this torch registers a CUDA kernel for it. On the card (run CO,
 # torch 2.11.0+cu128) its kernel (weight_int8pack_mm_kernel, f32
 # throughout) took f32 and bf16 x with f32 scales; bf16 x goes through two
-# more kernels, a conversion to f32 and of the output back, which the
-# kernel's trace leaves out.
+# more kernels, a conversion to f32 and of the output back, which its
+# queued_ms holds.
 INT8PACK_OP = 'aten::_weight_int8pack_mm'
-INT8PACK_KERNEL = 'weight_int8pack_mm_kernel'
 
 
 def int8_matmul_control(torch, x, w_q, scale):
@@ -3221,13 +3515,13 @@ def int8_kernel_cases(torch):
     plain versions on int8_case_inputs; the matmul and the attention also
     against their controls (int8_matmul_control, int8_attention_control).
     Then each kernel's time: its wrapper's, as the decode calls it
-    (time_ms), and the kernel's own from a trace (trace_ms); the plain
+    (time_ms), and with the host's cost hidden (queued_ms); the plain
     version's, the bound and a library yardstick that is not the same
     function: torch.matmul on weights dequantized once beforehand, and
     scaled_dot_product_attention (scale 1.0) over the dequantized
     positions <= position; none for the feed-forward. The matmul also
     against torch._weight_int8pack_mm, the same function, where the card's
-    torch has it: its call's time, its kernel's own (traced with the
+    torch has it: its call's time, its queued_ms (queued with the
     kernel's) and its output against the plain version's."""
     phase('int8 kernels vs plain (full width)')
     import torch.nn.functional as F
@@ -3331,12 +3625,12 @@ def int8_kernel_cases(torch):
                 b, heads, dk, n, elt)
             del kt, vt
         case['ms'] = time_ms(torch, lambda: cuda(*args))
-        traced = [(lambda: cuda(*args), INT8_KERNEL_NAMES[kernel])]
+        queued = [lambda: cuda(*args)]
         if library_call is not None:
-            traced.append((library_call, INT8PACK_KERNEL))
-        case['trace_ms'], *library_trace = kernel_traces_ms(torch, traced)
-        if library_trace:
-            case['int8pack_trace_ms'] = library_trace[0]
+            queued.append(library_call)
+        case['queued_ms'], *library_queued = queued_ms(torch, queued)
+        if library_queued:
+            case['int8pack_queued_ms'] = library_queued[0]
         case['plain_ms'] = time_ms(torch, lambda: plain(*args),
                                    runs=PLAIN_TIMED_RUNS, warmup=0)
         print(json.dumps(case), flush=True)
@@ -4102,9 +4396,39 @@ def eval_main_path(torch):
                 'seconds': secs, 'seconds_per_song': secs / len(files),
                 'songs': len(files), 'tier': served, 'scores': scores,
                 'launches': launches, 'compute_mel_calls': mels.calls}
+            if quantize == 'auto':
+                results['leakage'] = leakage(out, songs)
     finally:
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
     return results
+
+
+def leakage(out, truth):
+    """The paper's instrument-leakage analysis
+    (`python -m mr_mt3_tpu_torch.scripts.instrument_leakage`) of the
+    transcriptions in `out` against the ground truth `truth`: distinct
+    programs per transcription and instrument-presence P/R/F1. On `truth`
+    itself every song counts the one program eval_set wrote."""
+    import warnings
+
+    from mr_mt3_tpu_torch.scripts import instrument_leakage as il
+    songs = sorted(os.listdir(truth))
+    t0 = time.monotonic()
+    counts = il.count_num_instruments(out, truth)
+    with warnings.catch_warnings():
+        # random weights may transcribe no program: the means are then NaN
+        warnings.simplefilter('ignore', RuntimeWarning)
+        presence = il.instrument_presence_f1(out, truth)
+    truth_counts = il.count_num_instruments(truth, truth)
+    secs = time.monotonic() - t0
+    print(f'leakage: programs per transcription {counts}; presence '
+          f'{json.dumps(presence)}; ground truth {truth_counts} '
+          f'({secs:.2f} s)')
+    if sorted(counts) != songs or truth_counts != {s: 1 for s in songs}:
+        fail(f'leakage: counts {counts}, ground truth {truth_counts} for '
+             f'songs {songs}')
+    return {'programs_per_transcription': counts, 'presence': presence,
+            'ground_truth_programs': truth_counts, 'seconds': secs}
 
 
 def eval_f1_card_vs_cpu(torch):
@@ -4207,30 +4531,37 @@ TRAIN_F32_LOSS_RTOL = 1e-5
 TRAIN_TIMED_STEPS = 5
 
 
-def training_corpus(root, songs, seconds, dense, seed):
-    """A Slakh-format corpus: `songs` songs of `seconds` s noise audio
-    (WAV) and three stems (piano, bass, drums) written as MIDI by the
-    port's writer, one note every 0.05 s per stem where `dense` (so a
-    2.048 s segment's targets bucket to 768 or 1024 tokens and the
-    decoder's attentions take the kernels), every 0.4 s otherwise; and
-    the stems merged into all_src_v2.mid, the eval hook's ground truth."""
+# the training corpus's stems: (Slakh class, General MIDI program, drums)
+SLAKH_STEMS = [('Acoustic Piano', 0, False), ('Electric Bass', 33, False),
+               ('Drums', 0, True)]
+
+
+def slakh_corpus(root, songs, seconds, dense, seed):
+    """A corpus as slakh2100_flac_redux publishes it: per song a 44.1 kHz
+    16-bit mono mix.flac of noise (the port's encoder), three stems (piano,
+    bass, drums) as MIDI/S00.mid... (the port's writer), one note every
+    0.05 s per stem where `dense` (so a 2.048 s segment's targets bucket to
+    768 or 1024 tokens and the decoder's attentions take the kernels),
+    every 0.4 s otherwise, and metadata.yaml naming each stem's program.
+    mix_16k.wav, all_src_v2.mid and inst_names.json are left to the
+    preparation scripts."""
     import numpy as np
+    import yaml
 
     from mr_mt3_tpu_torch.codec import note_sequences as nsq
     from mr_mt3_tpu_torch.midi import note_sequence_to_midi_file
+    from mr_mt3_tpu_torch.native import encode_flac_bytes
     rng = np.random.default_rng(seed)
-    stems = [('Acoustic Piano', 0, False), ('Electric Bass', 33, False),
-             ('Drums', 0, True)]
     for si in range(songs):
         d = os.path.join(root, f'Track{seed:02d}{si:03d}')
         os.makedirs(os.path.join(d, 'MIDI'))
-        audio = rng.normal(size=int(16000 * seconds)).astype('float32')
-        with open(os.path.join(d, 'mix_16k.wav'), 'wb') as f:
-            f.write(wav_bytes(audio * 0.05))
+        audio = rng.normal(size=int(44100 * seconds)) * 0.05
+        with open(os.path.join(d, 'mix.flac'), 'wb') as f:
+            f.write(encode_flac_bytes(
+                (audio.clip(-1, 1) * 32767).astype(np.int32), 44100))
         gap = 0.05 if dense[si] else 0.4
-        names = {}
-        merged = nsq.NoteSequence()
-        for ti, (name, program, drum) in enumerate(stems):
+        stems = {}
+        for ti, (name, program, drum) in enumerate(SLAKH_STEMS):
             ns = nsq.NoteSequence()
             for i in range(int((seconds - 0.5) / gap)):
                 ns.add_note(start_time=i * gap, end_time=i * gap + 0.04,
@@ -4240,13 +4571,114 @@ def training_corpus(root, songs, seconds, dense, seed):
             ns.total_time = seconds
             note_sequence_to_midi_file(
                 ns, os.path.join(d, 'MIDI', f'S{ti:02d}.mid'))
-            names[f'S{ti:02d}'] = name
-            merged.notes.extend(ns.notes)
-        merged.total_time = seconds
-        note_sequence_to_midi_file(merged,
-                                   os.path.join(d, 'all_src_v2.mid'))
-        with open(os.path.join(d, 'inst_names.json'), 'w') as f:
-            json.dump(names, f)
+            stems[f'S{ti:02d}'] = {
+                'inst_class': name, 'program_num': program, 'is_drum': drum,
+                'audio_rendered': True, 'midi_saved': True,
+                'integrated_loudness': float(-20 - ti)}
+        with open(os.path.join(d, 'metadata.yaml'), 'w') as f:
+            yaml.safe_dump({'audio_dir': 'stems', 'midi_dir': 'MIDI',
+                            'stems': stems}, f)
+
+
+def prepare_slakh(root, splits):
+    """The Slakh preparation as users run it, through the port's scripts:
+    generate_inst_names and merge_slakh_midi on each split, then
+    resample_slakh on the root. Returns each script's seconds."""
+    from mr_mt3_tpu_torch.scripts import (
+        generate_inst_names,
+        merge_slakh_midi,
+        resample_slakh,
+    )
+    seconds = {}
+    for name, run in (
+            ('generate_inst_names',
+             lambda: [generate_inst_names.main(s) for s in splits]),
+            ('merge_slakh_midi',
+             lambda: [merge_slakh_midi.main(s) for s in splits]),
+            ('resample_slakh', lambda: resample_slakh.main(root))):
+        t0 = time.monotonic()
+        out = run()
+        seconds[name] = time.monotonic() - t0
+        if name == 'resample_slakh' and out:
+            fail(f'resample_slakh failed on {out}')
+    for split in splits:
+        for song in os.listdir(split):
+            d = os.path.join(split, song)
+            with open(os.path.join(d, 'inst_names.json')) as f:
+                names = json.load(f)
+            if names != {f'S{i:02d}': n for i, (n, _, _) in
+                         enumerate(SLAKH_STEMS)} or not all(
+                    os.path.exists(os.path.join(d, f)) for f in (
+                        'all_src_v2.mid', 'mix_16k.wav')):
+                fail(f'{d}: inst_names {names}, {sorted(os.listdir(d))}')
+    return seconds
+
+
+def tokenizer_check(splits):
+    """Each prepared song read as training reads it (SlakhDataset's
+    __getitem__: read_audio, its stems and inst_names.json,
+    transforms.tokenize_song), its one tokenizer call recorded: the native
+    core's five arrays equal those of the Python path
+    (rle.encode_and_index_events) on the same inputs. Returns ms per song
+    on each path."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.codec import note_sequences as nsq
+    from mr_mt3_tpu_torch.codec import rle
+    from mr_mt3_tpu_torch.data import transforms
+    from mr_mt3_tpu_torch.data.slakh import SlakhDataset
+    from mr_mt3_tpu_torch.native import tokenizer
+    recorded = []
+
+    def recording(real, times, values, codec, frame_times,
+                  include_ties=True):
+        t0 = time.monotonic()
+        out = real(times, values, codec, frame_times,
+                   include_ties=include_ties)
+        recorded.append((time.monotonic() - t0, times, values, codec,
+                         frame_times, include_ties, out))
+        return out
+
+    songs = []
+    patches = Patches()
+    patches.patch(transforms, 'encode_note_events', recording)
+    try:
+        for split in splits:
+            ds = SlakhDataset(split, shuffle=False, cache_songs=False)
+            for idx, row in enumerate(ds.df):
+                calls, before = tokenizer.CALLS, len(recorded)
+                if ds[idx] is None:
+                    fail(f'{row["audio_path"]}: the dataset skipped it')
+                if len(recorded) != before + 1 or \
+                        tokenizer.CALLS != calls + 1:
+                    fail(f'{row["audio_path"]}: not one native tokenizer '
+                         f'call ({transforms.NATIVE_FALLBACK})')
+                songs.append(row['audio_path'])
+    finally:
+        patches.close()
+    native_ms, python_ms, note_events = [], [], []
+    for path, (secs, times, values, codec, frame_times, include_ties,
+               native) in zip(songs, recorded):
+        t0 = time.monotonic()
+        python = rle.encode_and_index_events(
+            state=nsq.NoteEncodingState() if include_ties else None,
+            event_times=times, event_values=values,
+            encode_event_fn=nsq.note_event_data_to_events, codec=codec,
+            frame_times=frame_times,
+            encoding_state_to_events_fn=(
+                nsq.note_encoding_state_to_events if include_ties
+                else None))
+        python_ms.append((time.monotonic() - t0) * 1e3)
+        native_ms.append(secs * 1e3)
+        note_events.append(len(values))
+        for name, a, b in zip(('events', 'starts', 'ends', 'state_events',
+                               'state_idx'), native, python):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                fail(f'{path}: native {name} differ from the Python '
+                     f'path\'s')
+    return {'songs': len(native_ms), 'note_events': note_events,
+            'native_ms_per_song': statistics.mean(native_ms),
+            'python_ms_per_song': statistics.mean(python_ms)}
 
 
 class TrainLog(Patches):
@@ -4618,25 +5050,32 @@ def training_parity(torch):
 
 def training_main_path(torch):
     """`python -m mr_mt3_tpu_torch.train` as TRAIN_ARGS gives it, through
-    train.main(argv), on a fabricated corpus (4 train songs, 2 of them
-    dense, and 2 val songs, 30 s each): 2 epochs with validation, then a
-    resume from 'last' for one more. Every logged loss finite; the
-    checkpoints load; the step and the optimizer count go on from the
-    resumed ones; the kernels' launches equal the long attentions the
-    steps and validations ran; the eval hook (TRAIN_EVAL_ARGS) logs
-    val_f1_* after each validation, its decodes on the exact path, its
-    log-mel launches equal to its _compute_mel calls."""
+    train.main(argv), on a fabricated corpus in Slakh's published layout
+    (4 train songs, 2 of them dense, and 2 validation songs, 30 s each;
+    slakh_corpus) prepared by the port's scripts (prepare_slakh), its
+    songs tokenized by the native core and the Python path with equal
+    arrays (tokenizer_check): 2 epochs with validation, then a resume from
+    'last' for one more. The native tokenizer tokenized the first leg's
+    corpus, with no fallback; every logged loss finite; the checkpoints
+    load; the step and the optimizer count go on from the resumed ones;
+    the kernels' launches equal the long attentions the steps and
+    validations ran; the eval hook (TRAIN_EVAL_ARGS) reads the validation
+    songs' mix.flac and logs val_f1_* after each validation, its decodes
+    on the exact path, its log-mel launches equal to its _compute_mel
+    calls."""
     phase('training main path: python -m mr_mt3_tpu_torch.train '
           + ' '.join([a for a in TRAIN_ARGS[1:]
                       if not a.startswith('eval.audio_dir')]
-                     + ['eval.audio_dir=<val>/*/mix_16k.wav']
+                     + ['eval.audio_dir=<validation>/*/mix.flac']
                      + TRAIN_EVAL_ARGS))
     import shutil
 
     import numpy as np
 
     from mr_mt3_tpu_torch import train
+    from mr_mt3_tpu_torch.data import transforms
     from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.native import tokenizer
     from mr_mt3_tpu_torch.ops import mel_kernel as mk
     from mr_mt3_tpu_torch.ops import train_attention as ta
     from mr_mt3_tpu_torch.train.trainer import load_checkpoint
@@ -4645,22 +5084,29 @@ def training_main_path(torch):
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     corpus = {split: os.path.join(TRAIN_DIR, split)
-              for split in ('train', 'val')}
+              for split in ('train', 'validation')}
     t0 = time.monotonic()
-    training_corpus(corpus['train'], 4, 30.0, [True, False, True, False],
-                    seed=1)
-    training_corpus(corpus['val'], 2, 30.0, [True, False], seed=2)
-    print(f'corpus written in {time.monotonic() - t0:.1f} s')
+    slakh_corpus(corpus['train'], 4, 30.0, [True, False, True, False],
+                 seed=1)
+    slakh_corpus(corpus['validation'], 2, 30.0, [True, False], seed=2)
+    results = {'corpus_seconds': time.monotonic() - t0}
+    results['preparation_seconds'] = prepare_slakh(TRAIN_DIR,
+                                                   list(corpus.values()))
+    results['tokenizer'] = tokenizer_check(list(corpus.values()))
+    print(f'[{card_line()}] Slakh corpus (mix.flac, MIDI stems, '
+          f'metadata.yaml) written in {results["corpus_seconds"]:.2f} s; '
+          f'prepared by the port\'s scripts in seconds '
+          f'{json.dumps(results["preparation_seconds"])}; tokenizer '
+          f'{json.dumps(results["tokenizer"])}')
     out_dir = os.path.join(TRAIN_DIR, 'run')
     argv = TRAIN_ARGS + TRAIN_EVAL_ARGS + [
-        f'eval.audio_dir={corpus["val"]}/*/mix_16k.wav',
-        f'eval.midi_dir={corpus["val"]}',
+        f'eval.audio_dir={corpus["validation"]}/*/mix.flac',
+        f'eval.midi_dir={corpus["validation"]}',
         f'dataset.train.root_dir={corpus["train"]}',
-        f'dataset.val.root_dir={corpus["val"]}', f'out_dir={out_dir}',
+        f'dataset.val.root_dir={corpus["validation"]}', f'out_dir={out_dir}',
         'trainer.check_val_every_n_epoch=1', 'trainer.log_every_n_steps=1',
         'modelcheckpoint.every_n_epochs=1', 'modelcheckpoint.save_top_k=1',
         'optim.warmup_steps=4', 'optim.num_steps_per_epoch=4']
-    results = {}
     try:
         for leg, extra in (('first', ['trainer.max_epochs=2']),
                            ('resumed', ['trainer.max_epochs=3',
@@ -4668,6 +5114,7 @@ def training_main_path(torch):
             for k in ta.LAUNCHES:
                 ta.LAUNCHES[k] = 0
             mk.LAUNCHES[mk.KERNEL] = 0
+            tokenizer.CALLS = 0
             log = TrainLog(torch)
             mels, tiers = MelLog(), TierLog()
             t0 = time.monotonic()
@@ -4686,7 +5133,11 @@ def training_main_path(torch):
             timed = steps[1:] or steps   # the first step pays the warm-up
             ms = statistics.median(s for s, _, _ in timed) * 1e3
             tok_s = sum(n for _, n, _ in timed) / sum(s for s, _, _ in timed)
+            if tokenizer.CALLS < 1 or transforms.NATIVE_FALLBACK:
+                fail(f'{leg}: {tokenizer.CALLS} songs tokenized natively '
+                     f'(fallback: {transforms.NATIVE_FALLBACK})')
             results[leg] = {
+                'native_tokenizer_calls': tokenizer.CALLS,
                 'seconds': secs, 'steps': len(steps), 'state_step': state.step,
                 'optimizer_count': state.optimizer.count,
                 'target_lengths': [L for _, _, L in steps],
@@ -4697,8 +5148,8 @@ def training_main_path(torch):
                   f'tokenization and validation included), target lengths '
                   f'{[L for _, _, L in steps]}, median {ms:.2f} ms/step, '
                   f'{tok_s:.0f} target tokens/s; launches {launches} for '
-                  f'{log.fwd} long attentions forward, {log.bwd} backward',
-                  flush=True)
+                  f'{log.fwd} long attentions forward, {log.bwd} backward; '
+                  f'{tokenizer.CALLS} songs tokenized natively', flush=True)
             if launches[ta.KERNEL] != log.fwd or \
                     launches[ta.KERNEL_BWD] != log.bwd or log.bwd < 1 or \
                     tiers.tiers != ['none'] * len(tiers.tiers):
@@ -4772,6 +5223,7 @@ def main():
 
     environment(torch)
     build_kernels()
+    native = native_phase(torch)
     cases = kernel_cases(torch)
     stepped = step_cases(torch)
     grouped = grouped_cases(torch)
@@ -4911,8 +5363,8 @@ def main():
         library = {'library_ms': case['library_ms']}
         if kernel == 'int8_matmul':
             library = {'library_ms': case.get('int8pack_ms'),
-                       'library_trace_ms': case.get('int8pack_trace_ms'),
-                       'trace_ms': case['trace_ms'],
+                       'library_queued_ms': case.get('int8pack_queued_ms'),
+                       'queued_ms': case['queued_ms'],
                        'dequant_matmul_ms': case['library_ms']}
         kernels.append({
             'name': kernel, 'route': 'cuda',
@@ -4966,7 +5418,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke_kernels.json'), 'w') as f:
         json.dump({'card': card_line(), 'kernels': kernels,
-                   'parity': parity, 'main_path': main,
+                   'native': native, 'parity': parity, 'main_path': main,
                    'segmem_main_path': segmem, 'evaluation': evaluation,
                    'int8_serving': int8_serving,
                    'int8_segmem': int8_segmem,

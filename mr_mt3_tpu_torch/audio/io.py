@@ -4,7 +4,8 @@ mr_mt3_tpu/audio/io.py).
 
 The reference loads audio with librosa (reference: test.py:37,
 dataset/dataset_2_random.py:379); arbitrary-rate input is resampled with a
-polyphase filter. FLAC is not yet ported: read_audio raises for it.
+polyphase filter. FLAC (Slakh's mix.flac) decodes through the port's native
+codec, native/flac.cc.
 """
 
 from __future__ import annotations
@@ -55,10 +56,14 @@ def write_wav(path, samples: np.ndarray, sample_rate: int,
 
 
 def read_audio(path) -> Tuple[np.ndarray, int]:
-    """Read a wav -> (float32 mono samples, sample_rate). FLAC (the JAX
-    package's native decoder) is not yet ported and raises."""
+    """Read wav or flac -> (float32 mono samples, sample_rate).
+
+    FLAC uses the native codec in mr_mt3_tpu_torch/native (the reference
+    reads mix.flac via librosa/soundfile; the port carries its own codec).
+    """
     if str(path).lower().endswith('.flac'):
-        raise NotImplementedError(f'{path}: FLAC input is not yet ported')
+        from mr_mt3_tpu_torch.native.flac import read_flac
+        return read_flac(path)
     return read_wav(path)
 
 

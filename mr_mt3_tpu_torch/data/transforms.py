@@ -1,5 +1,6 @@
 """Pure per-song / per-segment transforms shared by the dataset pipelines
-(copy of mr_mt3_tpu/data/transforms.py, the tokenizer on its Python path).
+(copy of mr_mt3_tpu/data/transforms.py; the tokenizer prefers the native
+core, native/tokenizer.cc).
 
 These are standalone-function rebuilds of the reference's dataset methods
 (reference: dataset/dataset_2_random.py:81-344 and the segmem-prev overrides
@@ -14,6 +15,7 @@ dataloader CPU on torchaudio DSP instead (reference call stack SURVEY
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -21,7 +23,9 @@ import numpy as np
 from mr_mt3_tpu_torch.audio.frontend import SpectrogramConfig
 from mr_mt3_tpu_torch.codec import rle
 from mr_mt3_tpu_torch.codec import note_sequences as nsq
+from mr_mt3_tpu_torch.codec import vocabulary as vocab_lib
 from mr_mt3_tpu_torch.codec.events import Codec
+from mr_mt3_tpu_torch.native import tokenizer
 
 
 @dataclasses.dataclass
@@ -85,11 +89,45 @@ def tokenize_song(
         state_event_indices=state_event_indices)
 
 
+# the compiler's message where the native tokenizer could not be built and
+# the Python path was taken instead (warned once); None while it never was
+NATIVE_FALLBACK: Optional[str] = None
+
+
 def encode_note_events(times, values, codec: Codec, frame_times,
                        include_ties: bool = True):
-    """RLE-encode note events with the Python tokenizer core (the JAX
-    package prefers its native C++ core, mr_mt3_tpu/native, which its tests
-    hold equal to this path; it is not ported)."""
+    """RLE-encode note events, preferring the native C++ tokenizer core.
+
+    The native path (native/tokenizer.cc) is held equal to the Python
+    loop; the Python path is the reference and the fallback where the
+    library cannot be built (warned once, NATIVE_FALLBACK). Unlike the JAX
+    package, which falls back on any exception, an error inside a built
+    library's call propagates.
+    """
+    global NATIVE_FALLBACK
+    try:
+        tokenizer.LIBRARY.load()
+    except RuntimeError as e:
+        if NATIVE_FALLBACK is None:
+            NATIVE_FALLBACK = str(e)
+            warnings.warn(f'native tokenizer unavailable, taking the '
+                          f'Python path: {e}', RuntimeWarning)
+    else:
+        nbins = vocab_lib.num_velocity_bins_from_codec(codec)
+        n = len(values)
+        pitches = np.fromiter((v.pitch for v in values), np.int32, n)
+        vbins = np.fromiter(
+            (-1 if v.velocity is None else
+             vocab_lib.velocity_to_bin(v.velocity, nbins)
+             for v in values), np.int32, n)
+        programs = np.fromiter(
+            (-1 if v.program is None else v.program
+             for v in values), np.int32, n)
+        drums = np.fromiter(
+            (1 if v.is_drum else 0 for v in values), np.uint8, n)
+        return tokenizer.encode_and_index_events_native(
+            times, pitches, vbins, programs, drums, codec,
+            frame_times, include_ties=include_ties)
     return rle.encode_and_index_events(
         state=nsq.NoteEncodingState() if include_ties else None,
         event_times=times,

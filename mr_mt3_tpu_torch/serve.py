@@ -3,12 +3,14 @@
 A long-lived process with the model resident on the card, on the standard
 library only:
 
-  POST /transcribe       body: WAV bytes -> Standard MIDI File bytes
-  POST /transcribe.json  body: WAV bytes -> JSON note list
+  POST /transcribe       body: WAV or FLAC bytes -> Standard MIDI File bytes
+  POST /transcribe.json  body: WAV or FLAC bytes -> JSON note list
   GET  /healthz          -> {"status": "ok", ...}
 
 Requests queue through one device worker that coalesces concurrent songs
-into one transcribe_many call. FLAC input is not yet ported (400).
+into one transcribe_many call. FLAC bodies decode through the port's native
+codec (native/flac.cc, built by g++ at first use); a malformed one is a
+400.
 
 Usage:
   python -m mr_mt3_tpu_torch.serve --port 8742 [path=<checkpoint>]
@@ -291,19 +293,24 @@ class MicroBatcher:
 
 
 def decode_audio(body: bytes):
-    """Request body -> float32 16 kHz mono samples; ValueError -> 400."""
+    """Request body (WAV or FLAC) -> float32 16 kHz mono samples;
+    ValueError -> 400. A FLAC codec that cannot be built raises
+    RuntimeError, as in the JAX server."""
     import struct
     from math import gcd
 
     import numpy as np
 
     from mr_mt3_tpu_torch.audio import read_wav_bytes, resample
-    if body[:4] == b'fLaC':
-        raise ValueError('FLAC input not yet ported')
-    if body[:4] != b'RIFF':
-        raise ValueError('body must be WAV or FLAC bytes')
     try:
-        samples, sr = read_wav_bytes(body)
+        if body[:4] == b'fLaC':
+            from mr_mt3_tpu_torch.native.flac import decode_flac_bytes
+            samples, sr = decode_flac_bytes(body)
+            samples = samples.mean(axis=1)
+        elif body[:4] == b'RIFF':
+            samples, sr = read_wav_bytes(body)
+        else:
+            raise ValueError('body must be WAV or FLAC bytes')
     except (struct.error, IndexError, KeyError) as e:
         raise ValueError(f'malformed audio container: {e!r}')
     # bound the resampler's filter design (a corrupt header's rate)

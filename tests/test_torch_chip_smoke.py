@@ -5,7 +5,10 @@ plain version passes its own bounds, and the f32-attention control
 probabilities) breaks them, as chip_smoke requires on the card.
 
 Small shapes (d_model 64, 2 layers, B=8, a window of 8 at pos0 64); the
-readings are printed (-s)."""
+readings are printed (-s). At the end, the Slakh and FLAC helpers of
+its native phase, serving and training main paths."""
+
+import os
 
 import pytest
 import torch
@@ -258,3 +261,49 @@ def test_grouped_decode_on_the_cpu():
 def test_first_eos_cut():
     t = torch.tensor([[5, 1, 7, 0], [4, 6, 8, 9]])
     assert chip_smoke.first_eos_cut(torch, t, 1) == [[5, 1], [4, 6, 8, 9]]
+
+
+def test_malformed_flac_streams_are_refused(monkeypatch, tmp_path):
+    """Every stream chip_smoke's native phase requires to be refused raises
+    ValueError in the port's decoder and in the JAX package's."""
+    from test_torch_native_flac import jax_codec
+
+    from mr_mt3_tpu_torch.native import flac
+    decoders = [flac.decode_flac_bytes,
+                jax_codec(monkeypatch, tmp_path).decode_flac_bytes]
+    streams = chip_smoke.malformed_flac_streams()
+    assert len(streams) == 15
+    for name, data in streams:
+        for decode in decoders:
+            with pytest.raises(ValueError):
+                decode(data)
+
+
+def test_slakh_corpus_is_prepared_and_tokenized(tmp_path):
+    """The training main path's corpus at a small size: Slakh's published
+    layout, prepared by the port's scripts, its songs' native tokens equal
+    to the Python path's."""
+    splits = [str(tmp_path / 'train'), str(tmp_path / 'validation')]
+    chip_smoke.slakh_corpus(splits[0], 2, 4.0, [True, False], seed=1)
+    chip_smoke.slakh_corpus(splits[1], 1, 4.0, [True], seed=2)
+    assert sorted(os.listdir(os.path.join(splits[0], 'Track01000'))) == [
+        'MIDI', 'metadata.yaml', 'mix.flac']
+    seconds = chip_smoke.prepare_slakh(str(tmp_path), splits)
+    assert set(seconds) == {'generate_inst_names', 'merge_slakh_midi',
+                            'resample_slakh'}
+    tokens = chip_smoke.tokenizer_check(splits)
+    assert tokens['songs'] == 3 and min(tokens['note_events']) > 0
+
+
+def test_leakage_counts_the_ground_truth(tmp_path):
+    songs, out = str(tmp_path / 'songs'), str(tmp_path / 'out')
+    files = chip_smoke.eval_set(songs, *chip_smoke.tone_songs((2.0, 3.0),
+                                                              seed=3))
+    for i, f in enumerate(files):
+        d = os.path.join(out, os.path.basename(os.path.dirname(f)))
+        os.makedirs(d)
+        chip_smoke.write_song(os.path.join(d, 'mix.mid'), [(0.1, 0.5, 60)],
+                              program=33 * i)
+    got = chip_smoke.leakage(out, songs)
+    assert got['ground_truth_programs'] == {'Track00000': 1, 'Track00001': 1}
+    assert got['presence']['precision'] == 0.5

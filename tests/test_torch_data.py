@@ -173,8 +173,15 @@ def test_read_audio_wav_and_flac(slakh_root, tmp_path):
     (a, sr), (b, jsr) = read_audio(wav), jax_read_audio(wav)
     assert sr == jsr == 16000
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match='FLAC'):
-        read_audio(str(tmp_path / 'mix.flac'))
+    # the same song's 16-bit samples as FLAC, through each package's codec
+    from mr_mt3_tpu_torch.native import encode_flac_bytes
+    flac = tmp_path / 'mix.flac'
+    flac.write_bytes(encode_flac_bytes(
+        np.round(a * 32768.0).astype(np.int32), sr))
+    (c, sr), (d, jsr) = read_audio(str(flac)), jax_read_audio(str(flac))
+    assert sr == jsr == 16000
+    np.testing.assert_array_equal(c, a)
+    np.testing.assert_array_equal(c, d)
 
 
 def test_disk_cache_round_trip(slakh_root, tmp_path):

@@ -58,6 +58,15 @@ EVAL_MODULES = ('eval/__init__.py', 'eval/__main__.py', 'eval/evaluate.py',
 STEP_MODULES = ('ops/fused_decode.py', 'ops/group_axis_kernel.py')
 
 
+# the native host layer (the FLAC codec, the tokenizer core, their g++
+# loader) and the Slakh preparation and leakage scripts
+NATIVE_AND_SCRIPT_MODULES = (
+    'native/__init__.py', 'native/_loader.py', 'native/flac.py',
+    'native/tokenizer.py', 'scripts/__init__.py',
+    'scripts/generate_inst_names.py', 'scripts/merge_slakh_midi.py',
+    'scripts/resample_slakh.py', 'scripts/instrument_leakage.py')
+
+
 def _covered():
     return {p.relative_to(PORT).as_posix() for p in _port_sources()
             if PORT in p.parents}
@@ -77,6 +86,10 @@ def test_sources_cover_the_eval_modules():
 
 def test_sources_cover_the_step_and_grouped_modules():
     assert set(STEP_MODULES) <= _covered()
+
+
+def test_sources_cover_the_native_and_script_modules():
+    assert set(NATIVE_AND_SCRIPT_MODULES) <= _covered()
 
 
 @pytest.mark.parametrize('path', _port_sources(),
@@ -107,6 +120,60 @@ def test_importing_the_port_builds_nothing():
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_importing_native_builds_nothing():
+    """Importing the native package and the modules that use it runs no
+    compiler and loads no library."""
+    code = ('import subprocess, numpy, scipy.signal, torch, yaml\n'
+            'def refuse(*a, **k):\n'
+            '    raise AssertionError(f"ran {a} at import")\n'
+            'subprocess.run = subprocess.Popen = refuse\n'
+            'import mr_mt3_tpu_torch.native as n\n'
+            'import mr_mt3_tpu_torch.data.transforms, mr_mt3_tpu_torch.serve\n'
+            'import mr_mt3_tpu_torch.scripts.resample_slakh\n'
+            'assert n.flac.LIBRARY._lib is None\n'
+            'assert n.tokenizer.LIBRARY._lib is None\n'
+            'assert n.tokenizer.CALLS == 0\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_loader_compiles_only_port_sources_into_build(monkeypatch):
+    """Every g++ command the loader gives reads sources of
+    mr_mt3_tpu_torch/native/ and writes into mr_mt3_tpu_torch/_build/."""
+    from mr_mt3_tpu_torch.native import _loader, flac, tokenizer
+    assert _loader.NATIVE_DIR == PORT / 'native'
+    assert _loader.BUILD_DIR == PORT / '_build'
+    for lib in (flac.LIBRARY, tokenizer.LIBRARY):
+        assert lib.path().parent == PORT / '_build'
+        assert (PORT / 'native' / lib.source).is_file()
+    ran = []
+
+    def recording(cmd, **kw):
+        ran.append(cmd)
+        Path(cmd[cmd.index('-o') + 1]).write_bytes(b'')
+        return subprocess.CompletedProcess(cmd, 0, '', '')
+    monkeypatch.setattr(_loader.subprocess, 'run', recording)
+    out = _loader.compile_cxx('isolation_check', ['flac_fuzz.cc', 'flac.cc'],
+                              ('-fsyntax-only',), suffix='.probe')
+    try:
+        assert out.parent == PORT / '_build' and out.exists()
+    finally:
+        out.unlink()
+    (cmd,) = ran
+    target = Path(cmd[cmd.index('-o') + 1])
+    sources = [Path(a) for a in cmd if a.endswith('.cc')]
+    assert target.parent == PORT / '_build'
+    assert sources == [PORT / 'native' / 'flac_fuzz.cc',
+                       PORT / 'native' / 'flac.cc']
+    with pytest.raises(ValueError, match='not a source'):
+        _loader.command([REPO / 'mr_mt3_tpu' / 'native' / 'flac.cc'],
+                        _loader.CXX_FLAGS, out)
+    with pytest.raises(ValueError, match='not in'):
+        _loader.command([PORT / 'native' / 'flac.cc'], _loader.CXX_FLAGS,
+                        REPO / 'mr_mt3_tpu' / 'native' / 'libmt3flac.so')
 
 
 @pytest.fixture

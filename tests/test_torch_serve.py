@@ -79,7 +79,7 @@ class TestServer:
     def test_bad_bodies_400(self, server):
         _, url = server
         status, body, _ = post(url + '/transcribe', b'fLaC' + bytes(64))
-        assert status == 400 and b'FLAC input not yet ported' in body
+        assert status == 400 and b'invalid or unsupported FLAC stream' in body
         status, body, _ = post(url + '/transcribe', b'not audio')
         assert status == 400 and b'WAV or FLAC' in body
         status, _, _ = post(url + '/transcribe', b'RIFF\x10\x00\x00\x00WAVE')
