@@ -195,9 +195,33 @@ Phases (any failure exits non-zero and prints no result line):
      the attention kernels' launches equal to the long attentions the
      steps ran (forward and backward); the eval hook (TRAIN_EVAL_ARGS)
      reads the validation songs' mix.flac and logs val_f1_* after each
-     validation.
+     validation;
+ 13. multi_card, the data axis on the one card (parallel/mesh.py): (a) in
+     this process, the handler on a mesh of cuda:0 twice (two model
+     replicas, each decoding half of a call's rows on a host thread of its
+     own) at fused_int4 and none, the vanilla model (MT3Config(), seed 0,
+     24 segments of the kernel's log-mel, 8 rows a replica) and the bf16
+     segment-memory model chained (two songs of 8 chains, one a replica),
+     max_length 64 (cut for time): tokens equal to the one-replica
+     handler's on calls of the same rows, the window kernel's launches
+     counted by replica thread; (b) meanwhile three children
+     (multi_card_rank): a one-rank NCCL group, whose fp32 DDP steps equal
+     the plain steps bit for bit (metrics and parameters) and which scores
+     the parity model in one process; two gloo ranks sharing the card (NCCL
+     refuses two ranks on one device): DDP steps of the full-width bf16
+     segment-memory model (fused attention forward and backward launches
+     equal to the long attentions each rank ran, the same reduced metrics
+     and parameters on both), an fp32 leg against the one-process run on
+     the whole batch (a partial batch of 3 rows whose slices hold unequal
+     counts of real tokens): the first step within the card's fp32
+     sum-order bounds, and after 3 AdamW steps at most 1e-3 of the
+     parameters further than the CPU tests' 1e-5 apart, each of them an
+     element whose gradient the sum orders' noise can turn
+     (fp32_readings), and get_scores on two ranks equal to one process's, each
+     rank's log-mel launches equal to its _compute_mel calls. A child's
+     failure, or its running past MULTI_RANK_TIMEOUT_S, fails the phase.
 Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
-each leg of 8b, 9b and 9c and of 12 and read just after; the window launches must cover every
+each leg of 8b, 9b and 9c, of 12 and of 13 and read just after; the window launches must cover every
 window the decoded tokens needed. The step loops replay captured CUDA
 graphs, which call no Python: their runners add each replayed block's
 launches (recorded at its capture, and taken back off the counts then)
@@ -3034,7 +3058,7 @@ def segmem_parity_on_card(torch):
 
 
 class SegmemLog(Patches):
-    """Records every memory-chain decode (InferenceHandler._segmem_decode)
+    """Records every memory-chain decode (InferenceHandler._segmem_on)
     with its tier, length, tokens and valid rows, every memory-encoder
     call (MT3.compute_segmem) and every teacher-forced forward, to work out
     the window launches the chains needed and the fused_attention launches
@@ -3056,8 +3080,8 @@ class SegmemLog(Patches):
                 mt3.resolve_attention_kernel(
                     model.cfg, model.proj.weight.device) == 'fused'
 
-        def segmem_decode(real, handler, mel_segments, valid_mask):
-            tokens = real(handler, mel_segments, valid_mask)
+        def segmem_decode(real, handler, replica, mel_segments, valid_mask):
+            tokens = real(handler, replica, mel_segments, valid_mask)
             log.decodes.append((handler.quantize, handler.max_length,
                                 handler.cfg.eos_token_id, tokens,
                                 valid_mask.cpu().numpy()))
@@ -3075,7 +3099,7 @@ class SegmemLog(Patches):
                 # each decoder layer: causal self- and cross-attention
                 log.attention_calls += 2 * model.cfg.num_decoder_layers
             return real(model, mel, decoder_input_ids, targets_prev)
-        self.patch(InferenceHandler, '_segmem_decode', segmem_decode)
+        self.patch(InferenceHandler, '_segmem_on', segmem_decode)
         self.patch(MT3, 'compute_segmem', compute_segmem)
         self.patch(MT3, 'forward', forward)
 
@@ -4686,9 +4710,10 @@ class TrainLog(Patches):
     memory encoder until closed: times each train step (synchronized),
     counts its real target tokens, and counts the long attentions the
     model runs (models/mt3.py's rule: Lq >= 512, Lq % 8 == 0, a bf16
-    model on the card) forward, and backward where gradients flow."""
+    model on the card) forward, and backward where gradients flow.
+    time_steps=False counts the attentions alone (no synchronize)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, time_steps=True):
         from mr_mt3_tpu_torch.models import MT3
         from mr_mt3_tpu_torch.models import mt3
         from mr_mt3_tpu_torch.train import trainer
@@ -4734,7 +4759,8 @@ class TrainLog(Patches):
             if fused(model, prev_ids.shape[1]):
                 count(model.cfg.segmem_num_layers)
             return real(model, prev_ids)
-        self.patch(trainer, 'make_train_step', make_train_step)
+        if time_steps:
+            self.patch(trainer, 'make_train_step', make_train_step)
         self.patch(MT3, 'forward', forward)
         self.patch(MT3, 'compute_segmem', compute_segmem)
 
@@ -5208,6 +5234,540 @@ def training_main_path(torch):
 
 
 
+# ---- the data axis on the one card (multi_card) ----
+
+MULTI_DIR = os.path.join(REPO, '.chip_smoke_multi')
+# the replicas' decodes: max_length cut to 64 (users' 1024) for time; the
+# vanilla leg decodes 24 segments (calls of 16 rows, 8 a replica), the
+# chained leg two songs of 8 chains of 8 segments (one a replica)
+MULTI_MAX_LENGTH = 64
+MULTI_VANILLA_SEGMENTS = 24
+MULTI_CHAINS = 8
+MULTI_TIERS = ('fused_int4', 'none')
+# the rank legs: train steps per leg, the global batch (rows, target
+# length, real tokens of each row: the two gloo ranks' slices hold
+# unequal counts), and each child's time limit
+MULTI_TRAIN_STEPS = 3
+MULTI_BF16_STEPS = 2
+MULTI_TRAIN_ROWS = (700, 520, 60)
+MULTI_TRAIN_LENGTH = 1024
+MULTI_RANK_TIMEOUT_S = 300
+# the fp32 leg, two ranks against one process on the whole batch
+# (fp32_readings): the first step's loss terms and reduced gradients
+# within the card's fp32 sum-order bounds (TRAIN_PARITY_BOUNDS's
+# f32_plain_vs_einsum, run T), grad_norm every step within the CPU tests'
+# 1e-4 (tests/test_torch_train.py). The parameters after
+# MULTI_TRAIN_STEPS steps: at most MULTI_APART_SHARE of them further apart
+# than the CPU tests' 1e-5 (PARAM_ATOL), every one of those explained by
+# its gradients (MULTI_NOISE_RATIO), and the parameters' difference at
+# most MULTI_UPDATE_REL of the update. Run DX read 1.06e-4 of 48.3M (5095)
+# apart, up to 1.08e-3 (about one step of the learning rate), and
+# update_rel 7.2e-4, where the CPU tests' tiny model reads none; the first
+# step's gradients read 1.1e-4 of their leaves' largest |value|, the CPU
+# tests' 1e-4 set on a model of 145K parameters. MULTI_APART_SHARE and
+# MULTI_UPDATE_REL are set from that one reading, about 10x and 7x above.
+MULTI_PARAM_ATOL = 1e-5
+MULTI_APART_SHARE = 1e-3
+MULTI_UPDATE_REL = 5e-3
+# AdamW is elementwise. At steps t >= 2, sqrt(v_hat) >= 0.577 |g1| (g1's
+# weight in v_hat_3 is 1/3), and m_hat and v_hat are convex combinations
+# of the steps' g and g^2, so a change dg (each step's largest) in an
+# element's gradients moves its update by at most 2 dg / sqrt(v_hat) <=
+# 3.46 dg / |g1|, and its parameter, over the learning rates 0 + 5e-4 +
+# 1e-3 (MULTI_OPTIMIZER), by at most 5.2e-3 dg / |g1|. An element apart by
+# more than MULTI_PARAM_ATOL therefore has |g1| < 520 dg; the ratio
+# allows 2x for the clip's per-step scale (derived, not read).
+MULTI_NOISE_RATIO = 1e3
+MULTI_FP32_BOUNDS = {
+    'loss_rel_first': TRAIN_PARITY_BOUNDS['f32_plain_vs_einsum']['loss_rel'],
+    'loss_other_rel_first':
+        TRAIN_PARITY_BOUNDS['f32_plain_vs_einsum']['loss_rel'],
+    'grad_rel': TRAIN_PARITY_BOUNDS['f32_plain_vs_einsum']['grad_rel'],
+    'grad_norm_rel':
+        TRAIN_PARITY_BOUNDS['f32_plain_vs_einsum']['grad_norm_rel'],
+    'grad_norm_rel_max': 1e-4,
+    'params_apart_share': MULTI_APART_SHARE,
+    'apart_unexplained': 0,
+    'update_rel': MULTI_UPDATE_REL}
+MULTI_OPTIMIZER = dict(lr=1e-3, warmup_steps=2, total_steps=10,
+                       clip_norm=1.0)
+
+
+class ReplicaLog(Patches):
+    """Counts the window kernel's launches by the host thread that made
+    them (a mesh's replicas decode on threads 'replica-<i>')."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.ops import fused_decode as fd
+        super().__init__()
+        self.by_thread = {}
+        lock = threading.Lock()
+
+        def counting(real, *args, **kw):
+            out = real(*args, **kw)
+            name = threading.current_thread().name
+            with lock:
+                self.by_thread[name] = self.by_thread.get(name, 0) + 1
+            return out
+        self.patch(fd, 'fused_decode_window_cuda', counting)
+
+
+def multi_train_batch(seed):
+    """The rank legs' global batch: MULTI_TRAIN_ROWS real tokens a row
+    (three rows: on two ranks, slices of 2 and 1 + a padding row), the
+    previous segment's targets beside them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows = len(MULTI_TRAIN_ROWS)
+    targets = np.full((rows, MULTI_TRAIN_LENGTH), -100, np.int64)
+    for i, real in enumerate(MULTI_TRAIN_ROWS):
+        targets[i, :real] = rng.integers(3, 1391, real)
+        targets[i, real] = 1
+    targets[0, 5] = 1140          # an instrument token
+    return {'audio': (rng.normal(size=(rows, 256 * 128)) * 0.1
+                      ).astype(np.float32),
+            'valid_frames': np.full((rows,), 256, np.int32),
+            'targets': targets,
+            'targets_prev': np.roll(targets, 1, axis=0)}
+
+
+def multi_card_rank(leg, rank, world, store, backend=None, kind='cuda'):
+    """One child of the multi_card phase (`python -c "import chip_smoke;
+    chip_smoke.multi_card_rank(...)"`), its rank's results to
+    MULTI_DIR/<leg>_rank<rank>.json (parameters beside them, .pt).
+
+    leg 'nccl' (one rank): an fp32 DDP step on a one-rank NCCL group and
+    the plain step, MULTI_TRAIN_STEPS each from the same weights: loss,
+    grad_norm and every parameter equal bit for bit; the plain run's
+    parameters kept for the gloo fp32 leg; get_scores on the parity model
+    in one process. leg 'gloo' (two ranks sharing the card): the bf16
+    segment-memory model's DDP steps (fused attention launches counted),
+    the fp32 leg's parameters after MULTI_TRAIN_STEPS, get_scores on two
+    ranks (log-mel launches counted against _compute_mel calls).
+    backend and kind ('cpu') serve a rehearsal of the legs on the CPU
+    with training_model and training_configs replaced."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    from mr_mt3_tpu_torch import parallel
+    from mr_mt3_tpu_torch.infer.scores import get_scores
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.train import optim, trainer
+
+    parallel.init_multihost(backend=backend or leg,
+                            init_method=f'file://{store}')
+    out = {'rank': parallel.rank(), 'world': parallel.world(),
+           'device': str(parallel.rank_device(kind))}
+    cfg, f32 = training_configs()
+    batches = [multi_train_batch(50 + i) for i in range(MULTI_TRAIN_STEPS)]
+
+    def run(config, kernel, steps, ddp, loss_type='weighted', keep=None):
+        """steps train steps (DDP on this rank's slices, or plain on the
+        whole batch); keep: a path for every step's gradients (the reduced
+        ones under DDP), as the optimizer receives them."""
+        model = training_model(torch, config, kernel, seed=1)
+        opt = optim.make_optimizer(**MULTI_OPTIMIZER)
+        if ddp:
+            state = trainer.create_train_state(model, opt)
+        else:
+            opt.init(list(model.parameters()))
+            state = trainer.TrainState(model=model, optimizer=opt)
+        kept = []
+        if keep:
+            real_step = opt.step
+            names = [n for n, _ in model.named_parameters()]
+
+            def keeping(grads):
+                kept.append({n: g.detach().clone()
+                             for n, g in zip(names, grads)})
+                return real_step(grads)
+            opt.step = keeping
+        step = trainer.make_train_step(loss_type)
+        metrics = []
+        for batch in batches[:steps]:
+            part = parallel.shard_batch(batch, world, rank) if ddp \
+                else batch
+            m = step(state, part, None)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if keep:
+            torch.save(kept, keep)
+        return model, metrics
+
+    t0 = time.monotonic()
+    if leg == 'nccl':
+        plain, plain_m = run(f32, 'auto', MULTI_TRAIN_STEPS, ddp=False,
+                             keep=os.path.join(MULTI_DIR,
+                                               'fp32_plain_grads.pt'))
+        ddp, ddp_m = run(f32, 'auto', MULTI_TRAIN_STEPS, ddp=True)
+        unequal = [k for k, v in plain.state_dict().items()
+                   if not torch.equal(v, ddp.state_dict()[k])]
+        out['fp32'] = {'plain': plain_m, 'ddp': ddp_m,
+                       'metrics_equal': plain_m == ddp_m,
+                       'params_unequal': unequal}
+        torch.save(plain.state_dict(),
+                   os.path.join(MULTI_DIR, 'fp32_plain.pt'))
+        del plain, ddp
+    else:
+        ta.LAUNCHES[ta.KERNEL] = ta.LAUNCHES[ta.KERNEL_BWD] = 0
+        log = TrainLog(torch, time_steps=False)
+        try:
+            model, bf16_m = run(cfg, 'auto', MULTI_BF16_STEPS, ddp=True,
+                                loss_type='ce')
+        finally:
+            log.close()
+        out['bf16'] = {'metrics': bf16_m,
+                       'launches': {k: ta.LAUNCHES[k] for k in
+                                    (ta.KERNEL, ta.KERNEL_BWD)},
+                       'long_attentions': {'forward': log.fwd,
+                                           'backward': log.bwd},
+                       'param_sum': float(sum(
+                           p.detach().double().sum()
+                           for p in model.parameters()))}
+        del model
+        model, f32_m = run(f32, 'auto', MULTI_TRAIN_STEPS, ddp=True,
+                           keep=os.path.join(MULTI_DIR, 'fp32_ddp_grads.pt')
+                           if rank == 0 else None)
+        out['fp32'] = {'ddp': f32_m}
+        if rank == 0:
+            torch.save(model.state_dict(),
+                       os.path.join(MULTI_DIR, 'fp32_ddp.pt'))
+        del model
+    out['train_seconds'] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    model, _, max_length, _ = parity_model(torch, 'parity_vanilla.npz')
+    gt = os.path.join(MULTI_DIR, 'parity')
+    mk.LAUNCHES[mk.KERNEL] = 0
+    mels = MelLog()
+    try:
+        scores = get_scores(
+            model=model, eval_audio_dir=sorted(
+                os.path.join(gt, d, 'mix_16k.wav') for d in os.listdir(gt)),
+            exp_tag_name=os.path.join(MULTI_DIR, f'midis_{leg}'),
+            ground_truth_midi_dir=gt, max_length=max_length,
+            quantize='none', device=kind, verbose=False)
+    finally:
+        mels.close()
+    out['eval'] = {'scores': scores, 'logmel': mk.LAUNCHES[mk.KERNEL],
+                   'compute_mel_calls': mels.calls,
+                   'seconds': time.monotonic() - t0}
+    with open(os.path.join(MULTI_DIR, f'{leg}_rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    parallel.shutdown()
+
+
+def fp32_readings(torch, ddp_metrics, one_metrics):
+    """The fp32 leg: two gloo ranks against one process on the whole
+    batch, from the same weights. The first step computes one function in
+    other sum orders (the loss split over the ranks, the gradients
+    averaged), so its loss and its reduced gradients are held to the
+    card's fp32 sum-order bounds (TRAIN_PARITY_BOUNDS['f32_plain_vs_
+    einsum']); grad_norm every step to the CPU tests' 1e-4. After
+    MULTI_TRAIN_STEPS AdamW steps the parameters are read against the CPU
+    tests' 1e-5: AdamW divides each gradient by its own magnitude, so an
+    element whose gradient lies within the sum orders' noise may step
+    either way (up to the learning rate). The share of such elements is
+    bounded, and every element apart must be one whose first-step |grad|
+    lies below MULTI_NOISE_RATIO times the largest difference between its
+    two runs' gradients over the steps (apart_unexplained counts the
+    others); apart_noise_share is the share of all elements that meet that
+    test, apart_ratio_max the largest first-step |grad| over that
+    difference among those apart, apart_below_noise the share of those
+    apart whose first-step gradient is below that difference itself (its
+    sign may flip)."""
+    read = {}
+    for key in ddp_metrics[0]:
+        rel = [abs(a[key] - b[key]) / abs(b[key])
+               for a, b in zip(ddp_metrics, one_metrics)]
+        read[f'{key}_rel_first'] = rel[0]
+        read[f'{key}_rel_max'] = max(rel)
+    one_g, two_g = (torch.load(os.path.join(MULTI_DIR, f'fp32_{w}_grads.pt'),
+                               map_location='cuda') for w in ('plain', 'ddp'))
+    first, noise = {}, {}
+    for k, g in one_g[0].items():
+        d = two_g[0][k] - g
+        first[k] = (float(d.abs().max() / g.abs().max().clamp(min=1e-30)),
+                    float(d.norm() / g.norm().clamp(min=1e-30)))
+        noise[k] = (two_g[0][k] - g).abs()
+        for a, b in zip(one_g[1:], two_g[1:]):
+            noise[k] = noise[k].maximum((b[k] - a[k]).abs())
+    g1 = {k: g.abs() for k, g in one_g[0].items()}
+    del one_g, two_g
+    read['grad_rel'] = max(v[0] for v in first.values())
+    read['grad_rel_leaf'] = max(first, key=lambda k: first[k][0])
+    read['grad_rel_median'] = statistics.median(v[0]
+                                                for v in first.values())
+    read['grad_norm_rel'] = max(v[1] for v in first.values())
+    one, two = (torch.load(os.path.join(MULTI_DIR, f'fp32_{w}.pt'),
+                           map_location='cuda') for w in ('plain', 'ddp'))
+    start = training_model(torch, training_configs()[1], 'auto',
+                           seed=1).state_dict()
+    read['param_max_apart'] = max(float((one[k] - two[k]).abs().max())
+                                  for k in one)
+    apart = unexplained = below = noisy = 0
+    ratio = 0.0
+    for k in one:
+        far = (one[k] - two[k]).abs() > MULTI_PARAM_ATOL
+        explained = g1[k] < MULTI_NOISE_RATIO * noise[k]
+        apart += int(far.sum())
+        unexplained += int((far & ~explained).sum())
+        below += int((far & (g1[k] < noise[k])).sum())
+        noisy += int(explained.sum())
+        if far.any():
+            ratio = max(ratio, float((g1[k][far] / noise[k][far].clamp(
+                min=1e-30)).max()))
+    read['params'] = sum(v.numel() for v in one.values())
+    read['params_apart'] = apart
+    read['params_apart_share'] = apart / read['params']
+    read['apart_unexplained'] = unexplained
+    read['apart_below_noise'] = below / max(apart, 1)
+    read['apart_noise_share'] = noisy / read['params']
+    read['apart_ratio_max'] = ratio
+    read['update_rel'] = math.sqrt(
+        sum(float(((one[k] - two[k]).double() ** 2).sum()) for k in one)
+        / sum(float(((one[k] - start[k]).double() ** 2).sum())
+              for k in one))
+    del one, two, start, g1, noise
+    print(f'fp32, two gloo ranks vs one process: {json.dumps(read)}',
+          flush=True)
+    for key, bound in MULTI_FP32_BOUNDS.items():
+        if read[key] > bound:
+            fail(f'fp32 DDP against one process: {key} {read[key]} > '
+                 f'{bound}')
+    return read
+
+
+def start_rank(leg, rank, world, store):
+    code = (f'import chip_smoke; chip_smoke.multi_card_rank({leg!r}, '
+            f'{rank}, {world}, {store!r})')
+    return subprocess.Popen([sys.executable, '-c', code], cwd=REPO,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def decode_replicas(torch):
+    """The handler on a mesh of the card twice against the one-replica
+    handler, at each of MULTI_TIERS: the vanilla model (MT3Config(), seed
+    0) on MULTI_VANILLA_SEGMENTS segments of log-mel from the kernel, calls
+    of 8 rows a replica; the segment-memory model (bf16, seed 0) on two
+    songs of MULTI_CHAINS chains, chained, one song a replica, the
+    one-replica handler decoding each song alone. Tokens equal; the window
+    kernel's launches counted per replica thread. multi_card runs this
+    while its rank children train and evaluate on the same card, so the
+    seconds read here are the decodes' under that load, not a reading of
+    two replicas' overlap."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.parallel import Mesh
+    from mr_mt3_tpu_torch.utils import builders
+    dev = torch.device('cuda', 0)
+    mesh = Mesh((dev, dev))
+    vanilla = builders.init_params(MT3(MT3Config()), seed=0).to(dev).eval()
+    segmem = serve.build_handler(SEGMEM_ARGS).model
+    rng = np.random.default_rng(7)
+    probe = InferenceHandler(model=vanilla, device=dev)
+    audio = (rng.normal(size=MULTI_VANILLA_SEGMENTS * 256 * 128) * 0.1
+             ).astype(np.float32)
+    segments, _, valid = probe._audio_to_segments(audio)
+    mel = probe._compute_mel(segments[:MULTI_VANILLA_SEGMENTS],
+                             valid[:MULTI_VANILLA_SEGMENTS])
+    songs = [torch.as_tensor((rng.normal(size=(
+        MULTI_CHAINS * 8, 256, 512)) * 0.5).astype(np.float32), device=dev)
+        for _ in range(2)]
+    results = {}
+    for tier in MULTI_TIERS:
+        kw = dict(quantize=tier, max_length=MULTI_MAX_LENGTH, batch_size=8)
+        for name, model in (('vanilla', vanilla), ('segmem', segmem)):
+            one = InferenceHandler(model=model, device=dev, **kw)
+            two = InferenceHandler(model=model, mesh=mesh, **kw)
+
+            def decode_one():
+                if name == 'vanilla':
+                    return one._decode_all(mel)
+                return [one._decode_segmem_chained([m])[0] for m in songs]
+
+            def decode_two():
+                if name == 'vanilla':
+                    return two._decode_all(mel)
+                return two._decode_segmem_chained(songs)
+            # the first decodes pack the weights and capture the graphs;
+            # the second ones are timed and counted
+            t0 = time.monotonic()
+            decode_one()
+            one_cold_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            decode_two()
+            two_cold_s = time.monotonic() - t0
+            for t in TIERS:
+                fd.LAUNCHES[t] = 0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            want = decode_one()
+            one_s = time.monotonic() - t0
+            one_launches = sum(fd.LAUNCHES.values())
+            for t in TIERS:
+                fd.LAUNCHES[t] = 0
+            log = ReplicaLog()
+            try:
+                t0 = time.monotonic()
+                got = decode_two()
+                two_s = time.monotonic() - t0
+            finally:
+                log.close()
+            equal = (np.array_equal(got, want) if name == 'vanilla'
+                     else all(np.array_equal(g, w)
+                              for g, w in zip(got, want)))
+            per_replica = {k: v for k, v in sorted(log.by_thread.items())}
+            launches = sum(fd.LAUNCHES.values())
+            row = {'tokens_equal': bool(equal), 'one_replica_s': one_s,
+                   'two_replicas_s': two_s, 'one_replica_cold_s': one_cold_s,
+                   'two_replicas_cold_s': two_cold_s,
+                   'one_replica_launches': one_launches,
+                   'launches': launches,
+                   'launches_by_replica': per_replica,
+                   'tokens': int(sum(np.size(g) for g in got)
+                                 if name == 'segmem' else got.size)}
+            results[f'{name}_{tier}'] = row
+            print(f'replicas {name} {tier}: tokens equal {equal}, one '
+                  f'replica {one_s:.3f} s, two {two_s:.3f} s (first '
+                  f'decodes {one_cold_s:.2f} / {two_cold_s:.2f} s; the card '
+                  f'shared with the rank children), window launches '
+                  f'{per_replica} (one replica {one_launches})', flush=True)
+            if not equal:
+                fail(f'{name} {tier}: two replicas\' tokens differ from '
+                     f'the one-replica handler\'s')
+            # every launch on a replica's thread, each replica launching;
+            # a part of padding rows alone still runs its first window
+            if tier.startswith('fused') and (
+                    set(per_replica) != {'replica-0', 'replica-1'}
+                    or min(per_replica.values()) < 1
+                    or sum(per_replica.values()) != launches
+                    or launches < one_launches):
+                fail(f'{name} {tier}: window launches by replica '
+                     f'{per_replica} ({launches} counted), one replica '
+                     f'{one_launches}')
+            if not tier.startswith('fused') and per_replica:
+                fail(f'{name} {tier}: window launches {per_replica}')
+            del one, two
+    torch.cuda.empty_cache()
+    return results
+
+
+def multi_card(torch):
+    """The data axis on the one card: decode replicas (decode_replicas)
+    in this process while three children (multi_card_rank) run a one-rank
+    NCCL group and two gloo ranks sharing the card; every child's failure
+    or timeout fails the phase."""
+    phase('multi-card: replicas, DDP ranks, multi-process eval')
+    import shutil
+
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    eval_set(os.path.join(MULTI_DIR, 'parity'), *parity_corpus(),
+             subtype='FLOAT')
+    procs = {('nccl', 0): start_rank('nccl', 0, 1,
+                                     os.path.join(MULTI_DIR, 'nccl.store')),
+             **{('gloo', r): start_rank('gloo', r, 2,
+                                        os.path.join(MULTI_DIR,
+                                                     'gloo.store'))
+                for r in range(2)}}
+    t0 = time.monotonic()
+    try:
+        replicas = decode_replicas(torch)
+        replicas_s = time.monotonic() - t0
+        logs = {}
+        for key, proc in procs.items():
+            left = MULTI_RANK_TIMEOUT_S - (time.monotonic() - t0)
+            try:
+                logs[key] = proc.communicate(timeout=max(left, 1))[0]
+            except subprocess.TimeoutExpired:
+                fail(f'multi_card child {key} ran past '
+                     f'{MULTI_RANK_TIMEOUT_S} s')
+        for key, proc in procs.items():
+            print(f'--- child {key} (rc {proc.returncode}):\n'
+                  + logs[key][-3000:], flush=True)
+            if proc.returncode != 0:
+                fail(f'multi_card child {key} exited {proc.returncode}')
+        ranks_s = time.monotonic() - t0
+        nccl = json.load(open(os.path.join(MULTI_DIR, 'nccl_rank0.json')))
+        gloo = [json.load(open(os.path.join(MULTI_DIR,
+                                            f'gloo_rank{r}.json')))
+                for r in range(2)]
+        # one-rank NCCL: the DDP step is the plain step bit for bit
+        if not nccl['fp32']['metrics_equal'] or \
+                nccl['fp32']['params_unequal']:
+            fail(f'one-rank NCCL DDP vs plain: {nccl["fp32"]}')
+        # two gloo ranks: the same reduced metrics and parameters on both
+        for key in ('bf16', 'fp32'):
+            a, b = (g[key]['metrics'] if key == 'bf16'
+                    else g[key]['ddp'] for g in gloo)
+            if a != b:
+                fail(f'{key}: the two ranks\' metrics differ: {a} {b}')
+        if gloo[0]['bf16']['param_sum'] != gloo[1]['bf16']['param_sum']:
+            fail('bf16: the two ranks\' parameters differ')
+        for g in gloo:
+            launches = g['bf16']['launches']
+            long = g['bf16']['long_attentions']
+            losses = [m['loss'] for m in g['bf16']['metrics']]
+            print(f'gloo rank {g["rank"]} on {g["device"]}: bf16 losses '
+                  f'{losses}, fused attention launches {launches} for '
+                  f'{long["forward"]} forward and {long["backward"]} '
+                  f'backward long attentions')
+            if launches[ta.KERNEL] != long['forward'] or \
+                    launches[ta.KERNEL_BWD] != long['backward'] or \
+                    long['backward'] < 1 or \
+                    not all(math.isfinite(x) for x in losses):
+                fail(f'bf16 DDP on rank {g["rank"]}: {g["bf16"]}')
+        fp32 = fp32_readings(torch, gloo[0]['fp32']['ddp'],
+                             nccl['fp32']['plain'])
+        # evaluation: two ranks' scores equal one process's
+        one = nccl['eval']['scores']
+        for g in gloo:
+            ev = g['eval']
+            print(f'eval rank {g["rank"]}: Onset F1 '
+                  f'{ev["scores"].get("Onset F1")}, logmel launches '
+                  f'{ev["logmel"]} for {ev["compute_mel_calls"]} '
+                  f'_compute_mel calls ({ev["seconds"]:.1f} s)')
+            if ev['scores'] != one:
+                fail(f'rank {g["rank"]} scores {ev["scores"]} against one '
+                     f'process\'s {one}')
+            if ev['logmel'] != ev['compute_mel_calls'] or ev['logmel'] < 1:
+                fail(f'rank {g["rank"]}: logmel launches {ev["logmel"]} for '
+                     f'{ev["compute_mel_calls"]} _compute_mel calls')
+        if set(one) != SCORE_KEYS or one['Onset F1'] < 0.5:
+            fail(f'the parity model scores {one} in one process')
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    return {'replicas': replicas, 'replicas_seconds': replicas_s,
+            'ranks_seconds': ranks_s,
+            'nccl_one_rank': {'bit_equal': True,
+                              'train_seconds': nccl['train_seconds'],
+                              'metrics': nccl['fp32']['ddp']},
+            'gloo_two_ranks': [{k: g[k] for k in ('rank', 'device', 'bf16',
+                                                   'train_seconds')}
+                               for g in gloo],
+            'fp32': fp32,
+            'eval': {'scores': one,
+                     'ranks': [{k: g['eval'][k] for k in
+                                ('logmel', 'compute_mel_calls', 'seconds')}
+                               for g in gloo],
+                     'one_process_seconds': nccl['eval']['seconds']}}
+
+
 def main():
     try:
         import torch
@@ -5248,6 +5808,8 @@ def main():
     grouped_main = grouped_path(torch)
     training = {'parity': training_parity(torch),
                 'main_path': training_main_path(torch)}
+    multi = multi_card(torch)
+    ranks = multi['gloo_two_ranks']
     train_launches = {
         k: sum(leg['launches'][k]
                for leg in (training['main_path']['first'],
@@ -5273,6 +5835,10 @@ def main():
             'library_ms': None, **notes,
             'main_path_launches': main['launches'][tier],
             'segmem_path_launches': segmem['launches'][tier],
+            **({'multi_card_launches_by_replica': {
+                leg: multi['replicas'][f'{leg}_{tier}']['launches_by_replica']
+                for leg in ('vanilla', 'segmem')}}
+               if tier in MULTI_TIERS else {}),
             'cases': cases[tier]})
     for tier in TIERS:
         main_case = next(c for c in stepped[tier] if c['batch'] == 8
@@ -5322,6 +5888,8 @@ def main():
         'library_note': 'torch.nn.functional.scaled_dot_product_attention, '
                         'scale 1.0, timed only',
         'training_path_launches': train_launches['fused_attention_fwd'],
+        'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_fwd']
+                                 for r in ranks],
         'cases': attn_cases})
     enc = next(c for c in bwd_cases if c['case'] == 'memory_encoder_b12')
     kernels.append({
@@ -5336,6 +5904,8 @@ def main():
         'tflops': enc['tflops'], 'library_ms': enc['library_ms'],
         'library_note': 'torch.autograd.grad through torch.nn.functional.'
                         'scaled_dot_product_attention, scale 1.0, timed only',
+        'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_bwd']
+                                 for r in ranks],
         'cases': bwd_cases})
     notes = {
         'int8_matmul': 'torch._weight_int8pack_mm (x, W (N, K) int8 '
@@ -5412,6 +5982,8 @@ def main():
             evaluation['main_path']['none']['launches']['logmel'],
         'serving_main_path_launches': main['launches']['logmel'],
         'segmem_path_launches': segmem['launches']['logmel'],
+        'multi_process_eval_launches_by_rank': [
+            r['logmel'] for r in multi['eval']['ranks']],
         'cases': mel_cases})
     phase(None)
     print(f'phase seconds: {json.dumps(PHASE_SECONDS)}')
@@ -5425,6 +5997,7 @@ def main():
                    'worst_case': worst, 'training': training,
                    'capture_survival': survival,
                    'step_path': step_main, 'grouped_path': grouped_main,
+                   'multi_card': multi,
                    'phase_seconds': PHASE_SECONDS}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())

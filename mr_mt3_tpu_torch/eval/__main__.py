@@ -13,10 +13,17 @@ The CLI mirrors the reference (reference: test.py, test.sh):
 `path` is a checkpoint of the port's trainer or a reference torch
 .pth/.pt file (Orbax directories are not yet ported, ROADMAP A5). mel_norm
 is off for the official checkpoint (reference: test.py:123). It runs on the
-card unless device=cpu is given (and raises without a card); multihost and
-more than one device are not yet ported (ROADMAP A9) and raise.
+card unless device=cpu is given (and raises without a card).
 eval.quantize=auto serves the decode through the probe-guarded window
 kernel on the card and the exact path on the CPU (infer/scores.py).
+
+More than one card, as test.py spans its chips: `devices` (null: every
+visible card; an int or a list of ids: how many) puts a model replica on
+each and shards the decode batches over them (parallel.Mesh). multihost=true
+joins the process group of a launcher (`torchrun --nnodes=N
+--nproc_per_node=G -m mr_mt3_tpu_torch.eval multihost=true ...`): each
+rank transcribes its stride of the songs on its own card, and rank 0
+scores the shared output directory for all.
 """
 
 from __future__ import annotations
@@ -28,31 +35,38 @@ import sys
 
 def main(argv=None):
     """Run the CLI on `argv` (default sys.argv[1:]); returns the scores."""
+    from mr_mt3_tpu_torch import parallel
     from mr_mt3_tpu_torch.infer.scores import get_scores
     from mr_mt3_tpu_torch.train import REPO_CONFIGS
     from mr_mt3_tpu_torch.utils import builders
     from mr_mt3_tpu_torch.utils.config import load_config, parse_cli
-    from mr_mt3_tpu_torch.utils.device import (
-        requested_device_count,
-        resolve_device,
-    )
+    from mr_mt3_tpu_torch.utils.device import resolve_device
 
     config_name, config_dir, overrides = parse_cli(
         sys.argv[1:] if argv is None else argv)
     default_dir = os.environ.get('MR_MT3_CONFIGS') or REPO_CONFIGS
     cfg = load_config(config_dir or default_dir, config_name, overrides)
-    if bool(cfg.get('multihost')) or \
-            requested_device_count(cfg.get('devices')) > 1:
-        raise NotImplementedError(
-            f'multihost={cfg.get("multihost")} devices={cfg.get("devices")}: '
-            f'evaluation on more than one device is not yet ported '
-            f'(ROADMAP A9)')
     for key, value in (('path', cfg.get('path')),
                        ('eval.exp_tag_name', cfg.eval.get('exp_tag_name')),
                        ('eval.audio_dir', cfg.eval.get('audio_dir'))):
         if not value:
             raise ValueError(f'{key}=... is required')
     device = resolve_device(cfg.get('device'))
+    # the data axis (test.py:75-92): under multihost each rank decodes on
+    # its own card (local_mesh: None for one); otherwise a replica on each
+    # of `devices` cards
+    if bool(cfg.get('multihost')):
+        parallel.init_multihost(backend=parallel.backend_for(device))
+        mesh = parallel.local_mesh(device.type)
+        print(f'multihost eval: rank {parallel.rank()}/{parallel.world()}, '
+              f'node {parallel.node_rank()}/{parallel.node_count()}')
+    else:
+        n_dev = parallel.data_devices(cfg.get('devices'), device)
+        mesh = (parallel.make_mesh(
+            data=n_dev, devices=parallel.visible_devices(device.type))
+            if n_dev > 1 else None)
+    if mesh is not None:
+        print(f'eval mesh: {mesh.n_data} devices on the data axis')
 
     model = builders.build_model(cfg)
     # reference defaults to a NON-strict torch load when
@@ -86,7 +100,8 @@ def main(argv=None):
         max_length=int(cfg.eval.get('max_length') or 1024),
         songs_per_batch=int(cfg.eval.get('songs_per_batch') or 4),
         quantize=str(cfg.eval.get('quantize') or 'none'),
-        device=device,
+        mesh=mesh,
+        device=device if mesh is None else None,
     )
 
 

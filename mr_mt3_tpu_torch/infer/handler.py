@@ -10,13 +10,22 @@ of every batch_size-long run, as the reference's generate() does. The
 frontend, encoder and decode run on the handler's device ('cuda' unless
 device='cpu' is passed); framing, postprocess, NoteSequence assembly and
 MIDI writing are host numpy code, identical to the JAX package's.
+
+With a mesh (parallel/mesh.py) the decode batch shards over the data axis
+as the JAX handler's shard_map does: each mesh device holds a replica of
+the model and its decode parameters, each device call's rows split into
+n_data equal contiguous parts, part i decodes on replica i on a host
+thread of its own, and the tokens are gathered back in row order.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
+import threading
 import traceback
+from contextlib import nullcontext
 from typing import List, Optional
 
 import numpy as np
@@ -66,6 +75,23 @@ def _pow2_bucket(n: int, cap: int = POW2_BUCKET_CAP) -> int:
     return 1 << int(n - 1).bit_length()
 
 
+class Replica:
+    """One data-axis device's model and the decode parameters stacked for
+    the handler's tier (and with them the step loop's runners and CUDA
+    graphs)."""
+
+    def __init__(self, model: MT3, device: torch.device):
+        self.model = model
+        self.device = device
+        self.dp = None
+
+    def decode_params(self, quantize: str):
+        if self.dp is None:
+            from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
+            self.dp = stack_decode_params(self.model, quantize=quantize)
+        return self.dp
+
+
 class InferenceHandler:
     """Audio -> MIDI transcription.
 
@@ -92,7 +118,11 @@ class InferenceHandler:
         ablation of ops/decode.py::segmem_greedy_decode).
       segmem_memory_format: 'reference' keeps the start id in the carried
         memory, 'train_aligned' drops it.
-    A mesh is not yet ported.
+      mesh: a parallel.Mesh: the decode batch (segments, memory chains,
+        lockstep songs) shards over its data axis, one model replica a
+        device (the handler's device is the mesh's first). batch_size is
+        then per device and never rounded, as in the JAX handler: for the
+        segment-memory models it is the chain length.
     """
 
     SAMPLE_RATE = 16000
@@ -111,9 +141,13 @@ class InferenceHandler:
                  device=None,
                  segmem_chain: bool = True,
                  segmem_memory_format: str = 'reference'):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError('multi-device mesh not yet ported')
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f'device {device} is not the mesh\'s '
+                                 f'first device {self.device}')
         check_quantize(quantize)
         if model is None:
             if weight_path is None:
@@ -123,6 +157,10 @@ class InferenceHandler:
             model = load_weights(weight_path, MT3(MT3Config()))
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
+        self.n_data = 1 if mesh is None else mesh.n_data
+        self.replicas = [Replica(self.model, self.device)] + [
+            Replica(copy.deepcopy(self.model).to(d).eval(), d)
+            for d in (mesh.devices[1:] if mesh is not None else ())]
         self.mel_norm = mel_norm
         self.contiguous_inference = contiguous_inference
         self.segmem_chain = segmem_chain
@@ -136,31 +174,35 @@ class InferenceHandler:
         self.codec = build_codec(VocabularyConfig(num_velocity_bins=1))
         self.vocab = vocabulary_from_codec(self.codec)
         self.mel_length = 256
-        self._dp = None
 
     def _invalidate_compiled(self):
-        """Drop the decode parameters stacked and packed for the current
-        tier, and with them the step loop's runners and CUDA graphs.
-        Called whenever the tier changes (the probe ladder, serve's
+        """Drop every replica's decode parameters stacked and packed for
+        the current tier, and with them the step loop's runners and CUDA
+        graphs. Called whenever the tier changes (the probe ladder, serve's
         prewarm demotion), so a demoted handler never decodes with the
         previous tier's packed weights."""
-        self._dp = None
+        for replica in self.replicas:
+            replica.dp = None
 
     def capture_graphs(self) -> dict:
         """Capture every phase of every step-loop decode shape this
         handler has run (serve's prewarm, after its decodes): a request
         then replays graphs only, even where the prewarm's audio stopped
-        early. On the card only. Returns the graphs' numbers for /healthz:
-        the captures' seconds in all, the device memory
-        (torch.cuda.memory_allocated and memory_reserved, before and
-        after each capture) and the greedy steps the warm-ups ran."""
+        early. On the card only; the replicas one after another, from this
+        thread. Returns the graphs' numbers for /healthz: the captures'
+        seconds in all, the device memory (torch.cuda.memory_allocated and
+        memory_reserved, before and after each capture) and the greedy
+        steps the warm-ups ran."""
         from mr_mt3_tpu_torch.ops.decode import capture_module_phases
         from mr_mt3_tpu_torch.ops.fast_decode import capture_phases
         if self.device.type != 'cuda':
             return {}
-        parts = [capture_module_phases(self.model)]
-        if self._dp is not None:
-            parts.append(capture_phases(self._dp))
+        parts = []
+        for replica in self.replicas:
+            with torch.cuda.device(replica.device):
+                parts.append(capture_module_phases(replica.model))
+                if replica.dp is not None:
+                    parts.append(capture_phases(replica.dp))
         out = {k: sum(p[k] for p in parts) for k in parts[0]}
         out['capture_seconds'] = round(out['capture_seconds'], 3)
         return out
@@ -217,63 +259,116 @@ class InferenceHandler:
     # ---- device-side decode ----
 
     def _decode_params(self):
-        if self._dp is None:
-            from mr_mt3_tpu_torch.ops.fast_decode import stack_decode_params
-            self._dp = stack_decode_params(self.model, quantize=self.quantize)
-        return self._dp
+        return self.replicas[0].decode_params(self.quantize)
 
     def _call_sizes(self, n_real: int, floor: int, capped: bool) -> list:
         """Device-call sizes for a leading axis of n_real chains or songs:
         one pow2-bucketed call; on a window tier (capped) at most
-        FUSED_MAX_BATCH rows per call, full-cap calls plus a pow2-bucketed
-        remainder. Rows are independent, so the split changes no token."""
+        FUSED_MAX_BATCH rows per device per call, full-cap calls plus a
+        pow2-bucketed remainder. Every size is a multiple of the data axis
+        (JAX handler: mr_mt3_tpu/infer/handler.py:314-351). Rows are
+        independent, so the split changes no token."""
         def bucket(n):
-            return max(floor, _pow2_bucket(n))
+            return _round_up(max(floor, _pow2_bucket(n)), self.n_data)
         if not capped:
             return [bucket(n_real)]
-        from mr_mt3_tpu_torch.ops.fused_decode import \
-            FUSED_MAX_BATCH as cap
+        from mr_mt3_tpu_torch.ops.fused_decode import FUSED_MAX_BATCH
+        cap = FUSED_MAX_BATCH * self.n_data
         if bucket(n_real) <= cap:
             return [bucket(n_real)]
         sizes = [cap] * (n_real // cap)
         rem = n_real % cap
         if rem:
+            # pow2-bucketing then rounding up to n_data can pass the cap on
+            # a non-pow2 mesh (rem 40, n_data 6: 66 > 48): one full-cap
+            # call then
             sizes.append(min(bucket(rem), cap))
         return sizes
 
-    def _segmem_decode(self, mel_segments: torch.Tensor,
-                       valid_mask: torch.Tensor) -> np.ndarray:
+    def _on_replicas(self, decode, rows: torch.Tensor,
+                     valid_mask: torch.Tensor) -> np.ndarray:
+        """decode(replica, rows, mask) -> tokens, over the data axis: the
+        leading axis (a multiple of n_data) in n_data equal contiguous
+        parts, part i on replica i, each on a host thread of its own (a
+        step loop's exit check waits on its device; from one thread the
+        devices would take turns); the tokens gathered in row order."""
+        if self.n_data == 1:
+            return decode(self.replicas[0], rows, valid_mask)
+        part = rows.shape[0] // self.n_data
+        outs = [None] * self.n_data
+        errors = []
+
+        def run(i):
+            replica = self.replicas[i]
+            cuda = replica.device.type == 'cuda'
+            try:
+                with torch.no_grad(), (torch.cuda.device(replica.device)
+                                       if cuda else nullcontext()):
+                    if cuda:    # the thread's context, made current
+                        torch.cuda.synchronize(replica.device)
+                    rows_i = rows[i * part:(i + 1) * part]
+                    mask_i = valid_mask[i * part:(i + 1) * part]
+                    outs[i] = decode(replica, rows_i.to(replica.device),
+                                     mask_i.to(replica.device))
+            except BaseException as e:  # re-raised by the caller
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(i,),
+                                    name=f'replica-{i}')
+                   for i in range(self.n_data)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return np.concatenate(outs)
+
+    def _segmem_on(self, replica: Replica, mel_segments: torch.Tensor,
+                   valid_mask: torch.Tensor) -> np.ndarray:
         """(B, S, frames, mel_bins) chains -> tokens (B, S, max_length +
-        1) through segmem_greedy_decode in the handler's tier."""
+        1) through segmem_greedy_decode on `replica` in the handler's
+        tier."""
         dp = None if self.cfg.segmem_variant == 'decoder_prepend' \
-            else self._decode_params()
+            else replica.decode_params(self.quantize)
         tokens = segmem_greedy_decode(
-            self.model, mel_segments, self.max_length, codec=self.codec,
+            replica.model, mel_segments, self.max_length, codec=self.codec,
             vocab=self.vocab, quantize=self.quantize, valid_mask=valid_mask,
             chain_memory=self.segmem_chain,
             memory_format=self.segmem_memory_format, dp=dp)
         return tokens.cpu().numpy()
 
+    def _greedy_on(self, replica: Replica, mel: torch.Tensor,
+                   valid_mask: torch.Tensor) -> np.ndarray:
+        tokens = greedy_decode(replica.model, mel, self.max_length,
+                               quantize=self.quantize, valid_mask=valid_mask,
+                               dp=replica.decode_params(self.quantize))
+        return tokens.cpu().numpy()
+
     def _call_in_sizes(self, stacked: torch.Tensor, sizes: list,
                        n_real: int) -> np.ndarray:
-        """_segmem_decode over consecutive slices of `sizes` rows (rows
-        beyond n_real are padding and start finished)."""
+        """The segment-memory decode over consecutive slices of `sizes`
+        rows, each sharded over the data axis (rows beyond n_real are
+        padding and start finished)."""
         parts, off = [], 0
         for size in sizes:
             real = max(0, min(size, n_real - off))
             mask = torch.arange(size, device=self.device) < real
-            parts.append(self._segmem_decode(stacked[off:off + size], mask))
+            parts.append(self._on_replicas(
+                self._segmem_on, stacked[off:off + size], mask))
             off += size
         return np.concatenate(parts)
 
     def _decode_all(self, mel) -> np.ndarray:
         """mel (N, 256, mel_bins) -> model-space tokens (N, max_length + 1).
 
-        Contiguous mode decodes the N segments as one memory chain;
-        'encoder_append' models chain batch_size segments at a time;
-        vanilla segments decode in fixed batches of batch_size rows
-        (capped at the window kernel's per-launch limit), the padding rows
-        of the last batch starting finished."""
+        Contiguous mode decodes the N segments as one memory chain, on
+        the first device alone (a lone song's chain is sequential: the
+        data axis has nothing to share); 'encoder_append' models chain
+        batch_size segments at a time; vanilla segments decode in fixed
+        batches of batch_size rows per device (capped at the window
+        kernel's per-launch limit), the padding rows of the last batch
+        starting finished."""
         mel = torch.as_tensor(mel, device=self.device)
         n = mel.shape[0]
         if self.contiguous_inference:
@@ -281,14 +376,13 @@ class InferenceHandler:
             mel_p = torch.nn.functional.pad(
                 mel, (0, 0, 0, 0, 0, padded - n))[None]
             mask = torch.ones(1, dtype=torch.bool, device=self.device)
-            return self._segmem_decode(mel_p, mask)[0][:n]
+            return self._segmem_on(self.replicas[0], mel_p, mask)[0][:n]
         if self.cfg.segmem_variant == 'encoder_append':
             return self._decode_segmem_chained([mel])[0]
-        b = self.batch_size
+        b = self.batch_size * self.n_data
         if self.quantize.startswith('fused'):
             from mr_mt3_tpu_torch.ops.fused_decode import FUSED_MAX_BATCH
-            b = min(b, FUSED_MAX_BATCH)
-        dp = self._decode_params()
+            b = min(b, FUSED_MAX_BATCH * self.n_data)
         outs = []
         for start in range(0, n, b):
             chunk = mel[start:start + b]
@@ -297,10 +391,7 @@ class InferenceHandler:
                 chunk = torch.nn.functional.pad(chunk,
                                                 (0, 0, 0, 0, 0, b - real))
             mask = torch.arange(b, device=self.device) < real
-            tokens = greedy_decode(self.model, chunk, self.max_length,
-                                   quantize=self.quantize, valid_mask=mask,
-                                   dp=dp)
-            outs.append(tokens.cpu().numpy())
+            outs.append(self._on_replicas(self._greedy_on, chunk, mask))
         return np.concatenate(outs)[:n]
 
     def _decode_segmem_chained(self, mels: List[torch.Tensor]

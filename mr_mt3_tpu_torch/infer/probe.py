@@ -70,7 +70,7 @@ def _probe_twin(handler, quantize: str, max_length: int):
     twin.spectrogram_config = handler.spectrogram_config
     if quantize == handler.quantize and \
             handler.cfg.segmem_variant != 'decoder_prepend':
-        twin._dp = handler._decode_params()
+        twin.replicas[0].dp = handler._decode_params()
     return twin
 
 

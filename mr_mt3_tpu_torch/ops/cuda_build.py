@@ -39,6 +39,15 @@ PARTS = {'fused_decode_step': ('fused_decode_step_tiles',),
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the wrappers' launch counts are read-modify-writes from every thread that
+# decodes (a mesh's replicas each run on a host thread of their own)
+_count_lock = threading.Lock()
+
+
+def count_launch(counter: Dict[str, int], key: str, n: int = 1) -> None:
+    """counter[key] += n, safe across threads."""
+    with _count_lock:
+        counter[key] += n
 
 
 def nvcc_path() -> str:

@@ -34,6 +34,7 @@ False (batch padding) start finished.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -42,6 +43,7 @@ import torch
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
 from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul
+from mr_mt3_tpu_torch.ops.cuda_build import count_launch
 from mr_mt3_tpu_torch.ops.fused_decode import FUSED_TIERS
 
 # the step loops read the finished flags back to the host (a device sync)
@@ -373,6 +375,11 @@ def run_phased_decode(bounds: List[int],
 # a captured block's counts are recorded at capture and added at each
 # replay
 _COUNTERS = (int8_matmul.LAUNCHES, int8_attention.LAUNCHES, STEPS)
+# one block of any runner at a time, across the host threads of a mesh's
+# replicas (infer/handler.py): a capture then runs alone, so the launches
+# it records are its own, and no other thread's block lands in it. The
+# blocks' launches are asynchronous and the exit checks lie outside it.
+_BLOCK_LOCK = threading.Lock()
 
 
 class DecodeRunner:
@@ -443,21 +450,22 @@ class DecodeRunner:
     def _eager(self, owner, bound: int, steps: int) -> None:
         for _ in range(steps):
             self.step(owner, bound)
-        STEPS[self.tier] += steps
+        count_launch(STEPS, self.tier, steps)
 
     def block(self, owner, bound: int, steps: int, graphs: bool) -> None:
-        if not graphs:
-            self._eager(owner, bound, steps)
-            return
-        entry = self.graphs.get((bound, steps))
-        if entry is None:
-            self._warm_and_capture(owner, bound, steps)
-            return
-        graph, counts = entry
-        graph.replay()
-        for counter, recorded in zip(_COUNTERS, counts):
-            for key, n in recorded.items():
-                counter[key] += n
+        with _BLOCK_LOCK:
+            if not graphs:
+                self._eager(owner, bound, steps)
+                return
+            entry = self.graphs.get((bound, steps))
+            if entry is None:
+                self._warm_and_capture(owner, bound, steps)
+                return
+            graph, counts = entry
+            graph.replay()
+            for counter, recorded in zip(_COUNTERS, counts):
+                for key, n in recorded.items():
+                    count_launch(counter, key, n)
 
     def _warm_and_capture(self, owner, bound: int, steps: int) -> None:
         """The block eagerly on the side stream (the warm-up, a real
@@ -483,7 +491,10 @@ class DecodeRunner:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.monotonic()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        # thread_local: other replicas' threads may allocate and wait on
+        # their own streams meanwhile (the global mode forbids it)
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode='thread_local'):
             self._eager(owner, bound, steps)
         self.capture_seconds += time.monotonic() - t0
         self.graph_allocated_bytes += \
@@ -513,10 +524,11 @@ class DecodeRunner:
         the warm-ups ran."""
         ran = 0
         for bound, steps in self.blocks():
-            if (bound, steps) not in self.graphs:
-                self.step_index.fill_(bound - steps)
-                self._warm_and_capture(owner, bound, steps)
-                ran += steps
+            with _BLOCK_LOCK:
+                if (bound, steps) not in self.graphs:
+                    self.step_index.fill_(bound - steps)
+                    self._warm_and_capture(owner, bound, steps)
+                    ran += steps
         return ran
 
     @torch.no_grad()

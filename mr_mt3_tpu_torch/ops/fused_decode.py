@@ -46,7 +46,7 @@ import torch
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
-from mr_mt3_tpu_torch.ops.cuda_build import check_operand
+from mr_mt3_tpu_torch.ops.cuda_build import check_operand, count_launch
 from mr_mt3_tpu_torch.ops.int8_matmul import (
     pack_int4,
     quantize_columns,
@@ -774,7 +774,7 @@ def fused_decode_window_cuda(cfg: MT3Config, fp: FusedParams,
     logits_out (B, vocab) f32 receives the last step's logits."""
     out = window_launch(cfg, fp, pos_rows, tokens, finished, position, cache,
                         cross, t_window, logits_out)
-    LAUNCHES[fused_tier(fp)] += 1
+    count_launch(LAUNCHES, fused_tier(fp))
     return out
 
 
@@ -873,7 +873,7 @@ def fused_decode_step_cuda(cfg: MT3Config, fp: FusedParams, x: torch.Tensor,
             cfg.eos_token_id, _MODE_ID[tier], chunk]
     _launch('fused_decode_step', 'fds_launch', 'fused_decode_step', tensors,
             dims, cfg.layer_norm_epsilon, dev)
-    STEP_LAUNCHES[tier] += 1
+    count_launch(STEP_LAUNCHES, tier)
     return logits_out, {key: r[0] for key, r in rows.items()}
 
 

@@ -27,6 +27,7 @@ import torch
 
 from mr_mt3_tpu_torch.models.config import MT3Config
 from mr_mt3_tpu_torch.ops import fused_decode as fd
+from mr_mt3_tpu_torch.ops.cuda_build import count_launch
 
 GROUP_ROWS = 8       # rows per group (csrc: GROUP_ROWS)
 
@@ -126,7 +127,7 @@ def fused_decode_window_grouped_cuda(
     out = fd.window_launch(cfg, fp, pos_rows, tokens, finished, position,
                            cache, cross, t_window, logits_out, chunk=chunk,
                            groups=n_groups)
-    LAUNCHES['fused'] += 1
+    count_launch(LAUNCHES, 'fused')
     return out
 
 

@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mr_mt3_tpu_torch.ops.cuda_build import check_operand
+from mr_mt3_tpu_torch.ops.cuda_build import check_operand, count_launch
 
 _MAX_DK = 128     # the kernel's head width limit (csrc: MAX_DK)
 # the kernel's narrowest copy is 4 positions: cache lengths are multiples
@@ -168,7 +168,7 @@ def int8_decode_attention_cuda(q: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: '
                            + lib.i8att_error_string(rc).decode())
-    LAUNCHES[KERNEL] += 1
+    count_launch(LAUNCHES, KERNEL)
     return out
 
 

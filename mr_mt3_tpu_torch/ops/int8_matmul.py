@@ -29,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from mr_mt3_tpu_torch.ops.cuda_build import check_operand
+from mr_mt3_tpu_torch.ops.cuda_build import check_operand, count_launch
 
 from mr_mt3_tpu_torch.models.mt3 import gelu_new
 
@@ -148,7 +148,7 @@ def int8_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
                              out.data_ptr(), b, k, n, _DTYPE_ID[x.dtype],
                              stream)
     _raise_on(lib, rc, 'int8_matmul')
-    LAUNCHES['int8_matmul'] += 1
+    count_launch(LAUNCHES, 'int8_matmul')
     return out
 
 
@@ -181,7 +181,7 @@ def int8_gated_ff_cuda(h: torch.Tensor,
                              _DTYPE_ID[h.dtype], stream, g.data_ptr(),
                              _barrier(dev, stream).data_ptr())
     _raise_on(lib, rc, 'int8_gated_ff')
-    LAUNCHES['int8_gated_ff'] += 1
+    count_launch(LAUNCHES, 'int8_gated_ff')
     return out
 
 

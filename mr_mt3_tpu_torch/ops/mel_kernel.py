@@ -29,7 +29,7 @@ from mr_mt3_tpu_torch.audio.frontend import (
     _hann_periodic,
     mel_filterbank,
 )
-from mr_mt3_tpu_torch.ops.cuda_build import check_operand
+from mr_mt3_tpu_torch.ops.cuda_build import check_operand, count_launch
 
 _K_TILE = 128
 EPS = 1e-5
@@ -148,5 +148,5 @@ def logmel(samples: torch.Tensor,
         raise RuntimeError(f'{KERNEL} launch failed for hop {hop}, fft_size '
                            f'{fft}, {mel} mel bins: '
                            + lib.logmel_error_string(rc).decode())
-    LAUNCHES[KERNEL] += 1
+    count_launch(LAUNCHES, KERNEL)
     return out

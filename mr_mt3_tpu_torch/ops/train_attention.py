@@ -32,6 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mr_mt3_tpu_torch.ops.cuda_build import count_launch
+
 _LANE = 128       # K/V rows are padded to a multiple of this (TPU lane)
 _ROWS = 64        # query rows per block, forward and dq (csrc: ROWS)
 _KT = 64          # rows per streamed K/V (or Q/dO) tile (csrc: TILE)
@@ -198,7 +200,7 @@ def fused_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError('fused_attention_fwd launch failed: '
                            + lib.faf_error_string(rc).decode())
-    LAUNCHES[KERNEL] += 1
+    count_launch(LAUNCHES, KERNEL)
     return out
 
 
@@ -265,7 +267,7 @@ def fused_attention_backward_cuda(q: torch.Tensor, k: torch.Tensor,
     if rc != 0:
         raise RuntimeError('fused_attention_bwd launch failed: '
                            + lib.fab_error_string(rc).decode())
-    LAUNCHES[KERNEL_BWD] += 1
+    count_launch(LAUNCHES, KERNEL_BWD)
     return dq, dk, dv
 
 

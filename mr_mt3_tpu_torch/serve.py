@@ -30,6 +30,11 @@ bf16 -> exact, and 'int8' or 'int8_kv' -> exact, demoting on a material
 token flip) and prewarms the
 surviving tier; on the card a failing kernel stops the server instead of
 demoting. /healthz reports the walk under "decode".
+
+`devices` (null: every visible card; an int or a list of ids: how many)
+serves from a model replica on each card, the decode batches sharded over
+them (parallel.Mesh), as the JAX server spans its chips; /healthz names
+the devices under "devices".
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ REPO_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
 
 def build_handler(argv):
     """CLI-style args (test.py grammar) -> InferenceHandler."""
+    from mr_mt3_tpu_torch import parallel
     from mr_mt3_tpu_torch.infer import InferenceHandler
     from mr_mt3_tpu_torch.utils import builders
     from mr_mt3_tpu_torch.utils.config import load_config, parse_cli
@@ -70,12 +76,18 @@ def build_handler(argv):
     if quantize == 'auto':
         # the serving default, guarded by prepare_handler's probe
         quantize = default_quantize(device)
+    # the data axis: a replica on each of `devices` cards
+    n_dev = parallel.data_devices(cfg.get('devices'), device)
+    mesh = (parallel.make_mesh(data=n_dev,
+                               devices=parallel.visible_devices(device.type))
+            if n_dev > 1 else None)
     return InferenceHandler(
         model=model, mel_norm=mel_norm,
         contiguous_inference=bool(cfg.eval.get('contiguous_inference')),
         batch_size=int(cfg.eval.get('batch_size') or 8),
         max_length=int(cfg.eval.get('max_length') or 1024),
-        quantize=quantize, device=device)
+        quantize=quantize, mesh=mesh,
+        device=device if mesh is None else None)
 
 
 def default_quantize(device) -> str:
@@ -331,7 +343,8 @@ def make_server(handler, port: int, info=None):
     from mr_mt3_tpu_torch.midi import note_sequence_to_midi_bytes
 
     batcher = MicroBatcher(handler)
-    stats = {'requests': 0, 'audio_seconds': 0.0, 'batches': 0}
+    stats = {'requests': 0, 'audio_seconds': 0.0, 'batches': 0,
+             'devices': [str(r.device) for r in handler.replicas]}
     if info is None:
         info = {'quantize': handler.quantize, 'prewarmed': False}
     stats['decode'] = info

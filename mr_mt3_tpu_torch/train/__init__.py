@@ -15,16 +15,32 @@ from its weights. With eval.audio_dir set, the eval hook transcribes and
 scores that set (infer/scores.py::get_scores, exact decode) after
 validation from epoch eval.eval_after_num_epoch on, every
 eval.eval_per_epoch epochs, and logs val_f1_flat, val_f1_midi_class and
-val_f1_full, which modelcheckpoint.monitor may rank by. Not ported, and
-raising rather than skipped: multihost and more than one device (A9).
+val_f1_full, which modelcheckpoint.monitor may rank by.
 trainer.fast_rng, the JAX package's TPU hardware-RNG switch,
 is accepted and has no effect.
+
+More than one card (train.py spans its chips with a data-axis mesh; the
+reference trains under Lightning DDP): `devices` (null: every visible
+card; an int or a list of ids: how many) starts one rank a card on this
+node (torch.multiprocessing, a file store for the rendezvous), each
+training on its slice of every loader batch under DistributedDataParallel,
+so dataloader.train.batch_size stays one node's global batch, as in the
+JAX trainer; the ranks' final state is in the checkpoints, and main then
+returns None. Under a launcher (`torchrun --nproc_per_node=G -m
+mr_mt3_tpu_torch.train ...`, its environment's WORLD_SIZE and RANK) the
+process joins its group; multihost=true asks for one (several nodes:
+`torchrun --nnodes=N`), and the loader then strides its batches by node
+(shard_rank = node rank, shard_count = nodes). Rank 0 alone logs and
+writes. model_devices > 1 (tensor parallelism) is not ported and raises.
+device=cpu trains the ranks on the CPU over gloo.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import sys
+import tempfile
 
 from mr_mt3_tpu_torch.train.losses import (
     cross_entropy_loss,
@@ -50,34 +66,36 @@ REPO_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
 
 def main(argv=None) -> TrainState:
     """Run the CLI on `argv` (default sys.argv[1:]); returns the final
-    state."""
+    state (None where it started ranks of its own)."""
     import numpy as np
     import torch
 
+    from mr_mt3_tpu_torch import parallel
     from mr_mt3_tpu_torch.data import DataLoader
+    from mr_mt3_tpu_torch.parallel.mesh import TENSOR_PARALLEL
     from mr_mt3_tpu_torch.utils import builders
     from mr_mt3_tpu_torch.utils.config import load_config, parse_cli
-    from mr_mt3_tpu_torch.utils.device import (
-        requested_device_count,
-        resolve_device,
-    )
+    from mr_mt3_tpu_torch.utils.device import resolve_device
 
-    config_name, config_dir, overrides = parse_cli(
-        sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    config_name, config_dir, overrides = parse_cli(argv)
     default_dir = os.environ.get('MR_MT3_CONFIGS') or REPO_CONFIGS
     cfg = load_config(config_dir or default_dir, config_name, overrides)
-    if bool(cfg.get('multihost')):
-        raise NotImplementedError('multihost training is not yet ported '
-                                  '(ROADMAP A9): the port trains on one '
-                                  'card')
-    if requested_device_count(cfg.get('devices')) > 1 or \
-            int(cfg.get('model_devices') or 1) > 1:
+    if int(cfg.get('model_devices') or 1) > 1:
         raise NotImplementedError(
-            f'devices={cfg.get("devices")} model_devices='
-            f'{cfg.get("model_devices")}: training on more than one device '
-            f'is not yet ported (ROADMAP A9)')
+            f'model_devices={cfg.get("model_devices")}: {TENSOR_PARALLEL}')
     device = resolve_device(cfg.get('device'))
-    if 'fast_rng' in (cfg.get('trainer') or {}):
+    if not torch.distributed.is_initialized():
+        if bool(cfg.get('multihost')) or 'WORLD_SIZE' in os.environ:
+            parallel.init_multihost(backend=parallel.backend_for(device))
+        else:
+            ranks = parallel.data_devices(cfg.get('devices'), device)
+            if ranks > 1:
+                return _spawn(argv, ranks, device)
+    if torch.distributed.is_initialized():
+        device = parallel.rank_device(device.type)
+    lead = parallel.rank() == 0
+    if 'fast_rng' in (cfg.get('trainer') or {}) and lead:
         print('note: trainer.fast_rng (the TPU hardware RNG) has no effect '
               'in the port')
 
@@ -88,18 +106,25 @@ def main(argv=None) -> TrainState:
     builders.init_params(model, seed)
     optimizer, schedule = builders.build_optimizer(cfg)
     train_ds, val_ds = builders.build_datasets(cfg)
+    # each node loads a disjoint stride of the (identically shuffled)
+    # batch list, the DDP-equivalent per-node sampler; the node's ranks
+    # split each batch's rows (Trainer)
+    shard = dict(shard_rank=parallel.node_rank(),
+                 shard_count=parallel.node_count())
     train_loader = DataLoader(
         train_ds, batch_size=int(cfg.dataloader.train.batch_size),
         num_workers=int(cfg.dataloader.train.num_workers) or 1,
-        shuffle=True, seed=seed)
+        shuffle=True, seed=seed, **shard)
     val_loader = DataLoader(
         val_ds, batch_size=int(cfg.dataloader.val.batch_size),
         num_workers=max(1, int(cfg.dataloader.val.num_workers)),
-        shuffle=False, seed=seed)
+        shuffle=False, seed=seed, **shard)
     out_dir = cfg.get('out_dir') or 'runs/default'
-    print(f'train: {type(train_ds).__name__}, {len(train_ds)} songs, '
-          f'{len(train_loader)} batches an epoch; device {device}; '
-          f'dtype {model.cfg.dtype}; out_dir {out_dir}')
+    if lead:
+        print(f'train: {type(train_ds).__name__}, {len(train_ds)} songs, '
+              f'{len(train_loader)} batches an epoch; device {device}; '
+              f'ranks {parallel.world()}; dtype {model.cfg.dtype}; '
+              f'out_dir {out_dir}')
 
     eval_hook = None
     if cfg.eval.get('audio_dir'):
@@ -172,16 +197,51 @@ def main(argv=None) -> TrainState:
             # step (reference .ckpt semantics: train.py:62-76)
             state = trainer.restore_state(os.path.abspath(path), state)
             start_epoch = state.step // max(1, len(train_loader))
-            print(f'resumed full state from {path} (step {state.step}, '
-                  f'epoch {start_epoch})')
+            if lead:
+                print(f'resumed full state from {path} (step {state.step}, '
+                      f'epoch {start_epoch})')
         else:
             # warm start from a reference file's weights (.pth/.pt/.ckpt)
             builders.load_weights(path, model)
-            print(f'loaded weights from {path}')
+            if lead:
+                print(f'loaded weights from {path}')
 
     num_epochs = int(cfg.trainer.max_epochs)
     state = trainer.fit(state, train_loader, val_loader,
                         num_epochs=num_epochs, start_epoch=start_epoch)
     trainer.save_checkpoint(state, 'final')
-    print(f'saved final checkpoint under {trainer._ckpt_dir}/final')
+    if lead:
+        print(f'saved final checkpoint under {trainer._ckpt_dir}/final')
     return state
+
+
+def _spawn(argv, ranks: int, device) -> None:
+    """Train on `ranks` ranks of this node, one process each (the card
+    LOCAL_RANK, or the CPU), meeting through a file store in a temporary
+    directory; a rank's failure ends the others and raises here."""
+    import torch
+    import torch.multiprocessing as mp
+    if device.type == 'cuda' and ranks > torch.cuda.device_count():
+        raise ValueError(f'devices={ranks} exceeds the '
+                         f'{torch.cuda.device_count()} visible cards')
+    from mr_mt3_tpu_torch.parallel import backend_for
+    store = tempfile.mkdtemp(prefix='mr_mt3_train_ranks_')
+    try:
+        mp.start_processes(_rank_main, nprocs=ranks, start_method='spawn',
+                           args=(argv, ranks, f'file://{store}/store',
+                                 backend_for(device)))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _rank_main(index: int, argv, ranks: int, init_method: str,
+               backend: str) -> None:
+    """One spawned rank: the launcher's environment, the group, main()."""
+    from mr_mt3_tpu_torch import parallel
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index),
+                      WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks))
+    parallel.init_multihost(backend=backend, init_method=init_method)
+    try:
+        main(argv)
+    finally:
+        parallel.shutdown()

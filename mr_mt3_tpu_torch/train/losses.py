@@ -27,13 +27,55 @@ def _per_token_ce(logits: torch.Tensor,
     return -log_probs.gather(-1, safe[..., None])[..., 0]
 
 
+def loss_terms(logits: torch.Tensor, targets: torch.Tensor,
+               loss_type: str = 'ce') -> Dict[str, torch.Tensor]:
+    """The sums and counts the loss is made of, over these rows: 'ce' the
+    masked CE sum and its count of real tokens; 'weighted' the sums over
+    real and over instrument tokens and their counts. Under data
+    parallelism every rank reduces them (parallel.all_reduce_sum) so that
+    the loss is the global batch's sum over its global count, as in the
+    JAX package's one program over the global batch."""
+    ce = _per_token_ce(logits, targets)
+    pad_mask = targets != IGNORE_INDEX
+    if loss_type != 'weighted':
+        return {'sum': (ce * pad_mask).sum(), 'count': pad_mask.sum()}
+    inst_mask = ((targets >= INSTRUMENT_TOKEN_LO) &
+                 (targets <= INSTRUMENT_TOKEN_HI))
+    return {'sum_other': (ce * pad_mask).sum(),
+            'sum_inst': (ce * inst_mask).sum(),
+            'n_other': pad_mask.sum(), 'n_inst': inst_mask.sum()}
+
+
+def loss_from_terms(terms: Dict[str, torch.Tensor],
+                    counts: Dict[str, torch.Tensor] = None,
+                    scale: float = 1.0
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, logs) from loss_terms: the sums over the counts given (the
+    terms' own by default; the global counts under data parallelism),
+    times scale. cross_entropy_loss and weighted_instrument_loss are
+    this on one batch."""
+    counts = terms if counts is None else counts
+    if 'sum' in terms:
+        return terms['sum'] / counts['count'].clamp(min=1) * scale, {}
+    n_other, n_inst = counts['n_other'], counts['n_inst']
+    loss = ((terms['sum_other'] + 2.0 * terms['sum_inst'])
+            / (n_inst + n_other).clamp(min=1) * scale)
+    logs = {
+        # despite the name, 'loss_other' averages over ALL non-pad tokens
+        # (instrument positions included) — bug-compatible with the
+        # reference's train_loss_other, which divides loss_masked (the
+        # full pad-masked CE) by its own count (tasks/mt3_net.py:109)
+        'loss_other': terms['sum_other'] / n_other.clamp(min=1) * scale,
+        'loss_inst': terms['sum_inst'] / n_inst.clamp(min=1) * scale,
+    }
+    return loss, logs
+
+
 def cross_entropy_loss(logits: torch.Tensor,
                        targets: torch.Tensor) -> torch.Tensor:
     """Mean CE over non-ignored positions (torch CrossEntropyLoss
     semantics)."""
-    ce = _per_token_ce(logits, targets)
-    mask = targets != IGNORE_INDEX
-    return (ce * mask).sum() / mask.sum().clamp(min=1)
+    return loss_from_terms(loss_terms(logits, targets, 'ce'))[0]
 
 
 def weighted_instrument_loss(
@@ -45,21 +87,4 @@ def weighted_instrument_loss(
     (reference: tasks/mt3_net.py:97-107). Returns (loss, logs) where logs
     holds the split means the reference logs.
     """
-    ce = _per_token_ce(logits, targets)
-    pad_mask = targets != IGNORE_INDEX
-    inst_mask = ((targets >= INSTRUMENT_TOKEN_LO) &
-                 (targets <= INSTRUMENT_TOKEN_HI))
-    n_other = pad_mask.sum()
-    n_inst = inst_mask.sum()
-    sum_other = (ce * pad_mask).sum()
-    sum_inst = (ce * inst_mask).sum()
-    loss = (sum_other + 2.0 * sum_inst) / (n_inst + n_other).clamp(min=1)
-    logs = {
-        # despite the name, 'loss_other' averages over ALL non-pad tokens
-        # (instrument positions included) — bug-compatible with the
-        # reference's train_loss_other, which divides loss_masked (the
-        # full pad-masked CE) by its own count (tasks/mt3_net.py:109)
-        'loss_other': sum_other / n_other.clamp(min=1),
-        'loss_inst': sum_inst / n_inst.clamp(min=1),
-    }
-    return loss, logs
+    return loss_from_terms(loss_terms(logits, targets, 'weighted'))

@@ -22,6 +22,24 @@ On one card, as the JAX package runs on one TPU mesh:
     and step (the JAX package writes Orbax directories: not ported);
   * metrics are JSONL (the JAX writer adds TensorBoard when TensorFlow is
     installed; the port does not use it).
+
+On more than one card, where the JAX package runs one SPMD program over
+its mesh, the port runs one process a card under a torch.distributed
+process group (parallel.init_multihost) and wraps the model in
+DistributedDataParallel:
+  * every rank of a node reads the node's loader batch, buckets it, and
+    takes its contiguous slice of the rows (parallel.shard_batch, padded
+    as the JAX shard_batch pads);
+  * the loss is the global batch's sum over its global count of real
+    tokens, as in JAX's one program: the counts are all-reduced first,
+    each rank's term is its local sum / the global count x world, and
+    DDP's mean of the gradients is then the global loss's gradient;
+    grad_norm is read from the reduced gradients; the logged loss and the
+    validation sums are all-reduced;
+  * each rank's dropout masks come from (seed, step, rank) (rank 0's are
+    the single-process run's);
+  * rank 0 writes the metrics and the checkpoints (a barrier after each
+    write); every rank restores.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from mr_mt3_tpu_torch import parallel
 from mr_mt3_tpu_torch.audio.frontend import (
     SpectrogramConfig,
     compute_logmel,
@@ -46,6 +65,8 @@ from mr_mt3_tpu_torch.train.losses import (
     INSTRUMENT_TOKEN_HI,
     INSTRUMENT_TOKEN_LO,
     cross_entropy_loss,
+    loss_from_terms,
+    loss_terms,
     weighted_instrument_loss,
 )
 from mr_mt3_tpu_torch.train.optim import global_norm
@@ -55,17 +76,27 @@ from mr_mt3_tpu_torch.train.optim import global_norm
 class TrainState:
     """The model (its f32 parameters), the optimizer bound to them, and the
     number of train steps taken (micro-steps under gradient
-    accumulation, as the JAX state counts them)."""
+    accumulation, as the JAX state counts them). Under a process group,
+    ddp is the model wrapped in DistributedDataParallel, which the train
+    step's forward goes through."""
     model: MT3
     optimizer: Any
     step: int = 0
+    ddp: Any = None
 
 
 def create_train_state(model: MT3, optimizer) -> TrainState:
     """Bind `optimizer` to the model's parameters (on their device) with
-    zeroed moments."""
+    zeroed moments; under a process group wrap the model in
+    DistributedDataParallel (rank 0's parameters broadcast to every rank).
+    Every parameter of every model variant receives a gradient
+    (tests/test_torch_ddp.py), so DDP looks for no unused ones."""
+    ddp = None
+    if torch.distributed.is_initialized():
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, find_unused_parameters=False, broadcast_buffers=False)
     optimizer.init(list(model.parameters()))
-    return TrainState(model=model, optimizer=optimizer, step=0)
+    return TrainState(model=model, optimizer=optimizer, step=0, ddp=ddp)
 
 
 def bucket_targets(batch: Dict[str, Any], multiple: int = 128,
@@ -125,11 +156,13 @@ def _loss(logits, targets, loss_type):
     return cross_entropy_loss(logits, targets), {}
 
 
-def step_generator(seed: int, step: int,
-                   device: torch.device) -> torch.Generator:
-    """The dropout masks' generator of train step `step`: seeded with
-    (seed, step) mixed, the counterpart of jax.random.fold_in(rng, step)."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+def step_generator(seed: int, step: int, device: torch.device,
+                   rank: int = 0) -> torch.Generator:
+    """The dropout masks' generator of train step `step` on data-parallel
+    rank `rank`: seeded with (seed, step[, rank]) mixed, the counterpart of
+    jax.random.fold_in(rng, step); rank 0's is the single-process one."""
+    entropy = [seed, step] + ([rank] if rank else [])
+    mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(mixed[0]))
 
 
@@ -137,10 +170,14 @@ def make_train_step(loss_type: str = 'ce',
                     spectrogram_config: SpectrogramConfig =
                     SpectrogramConfig()) -> Callable:
     """Returns (state, batch, seed) -> metrics: one forward in train mode
-    (dropout from step_generator(seed, state.step); none when seed is
+    (dropout from step_generator(seed, state.step, rank); none when seed is
     None), the gradients of the loss, one optimizer call, state.step + 1.
-    The metrics are device tensors: loss, grad_norm (pre-clip) and the
-    weighted loss's logs."""
+    Under a process group `batch` is this rank's slice and the forward
+    goes through state.ddp: the loss's counts are all-reduced first, this
+    rank's term is its sum over the global counts x world, and DDP's
+    gradient mean is the global loss's gradient. The metrics are device
+    tensors, the same on every rank: loss, grad_norm (pre-clip, of the
+    reduced gradients) and the weighted loss's logs."""
 
     def train_step(state: TrainState, batch: Dict[str, np.ndarray],
                    seed: Optional[int]) -> Dict:
@@ -148,19 +185,34 @@ def make_train_step(loss_type: str = 'ce',
         dev = params[0].device
         b = batch_to_device(batch, dev)
         state.model.train()
+        world = parallel.world() if state.ddp is not None else 1
         generator = (None if seed is None
-                     else step_generator(seed, state.step, dev))
+                     else step_generator(seed, state.step, dev,
+                                         parallel.rank()))
         mel = batch_to_mel(b['audio'], b['valid_frames'], spectrogram_config)
         targets = b['targets']
-        logits = state.model(mel, labels=targets,
-                             targets_prev=b.get('targets_prev'),
-                             generator=generator)
-        loss, logs = _loss(logits, targets, loss_type)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        logits = (state.ddp or state.model)(
+            mel, labels=targets, targets_prev=b.get('targets_prev'),
+            generator=generator)
+        terms = loss_terms(logits, targets, loss_type)
+        counts = terms
+        if state.ddp is not None:
+            counts = {k: parallel.all_reduce_sum(v) for k, v in terms.items()
+                      if k.startswith(('n_', 'count'))}
+        loss, logs = loss_from_terms(terms, counts, float(world))
+        for p in params:
+            p.grad = None
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        for p in params:
+            p.grad = None
         metrics = {'loss': loss.detach(), 'grad_norm': global_norm(grads),
                    **{k: v.detach() for k, v in logs.items()}}
+        if world > 1:
+            metrics = {k: v if k == 'grad_norm'
+                       else parallel.all_reduce_sum(v) / world
+                       for k, v in metrics.items()}
         state.optimizer.step(grads)
         state.step += 1
         return metrics
@@ -244,7 +296,9 @@ class Trainer:
     of each epoch >= eval_after_num_epoch with epoch % eval_per_epoch ==
     0, after that epoch's validation; its scores are logged as
     'val_<name>' before the checkpoints are ranked, so a policy can
-    monitor them."""
+    monitor them. Under a process group it runs on every rank (get_scores
+    strides the songs over the ranks), and only rank 0 writes metrics and
+    checkpoints."""
 
     def __init__(
         self,
@@ -283,17 +337,35 @@ class Trainer:
                                           spectrogram_config=sc)
         self.eval_step = make_eval_step(loss_type=loss_type,
                                         spectrogram_config=sc)
+        self.writes = parallel.rank() == 0
         os.makedirs(out_dir, exist_ok=True)
-        self.writer = MetricsWriter(os.path.join(out_dir, 'logs'))
+        self.writer = (MetricsWriter(os.path.join(out_dir, 'logs'))
+                       if self.writes else None)
         self._ckpt_dir = os.path.join(os.path.abspath(out_dir), 'checkpoints')
         self._ckpt_scores = []  # (score, name)
         self._topk_created: set = set()  # top-k files THIS run wrote
 
     def _can_bucket(self, batch) -> bool:
         """Trimming is loss-identical only when the memory ids do not
-        derive from the trimmed targets (see bucket_targets docstring)."""
+        derive from the trimmed targets (see bucket_targets docstring).
+        Several nodes never bucket: each would trim its own batch to
+        another length (mr_mt3_tpu/train/trainer.py:300-310)."""
+        if parallel.node_count() > 1:
+            return False
         return self.bucket_targets and (
             not self.model.cfg.has_segmem or 'targets_prev' in batch)
+
+    def _slice(self, batch):
+        """This rank's rows of its node's batch (the whole batch without a
+        process group)."""
+        if not torch.distributed.is_initialized():
+            return batch
+        return parallel.shard_batch(batch, parallel.local_world(),
+                                    parallel.local_rank())
+
+    def _log(self, step: int, scalars: Dict[str, float]):
+        if self.writer is not None:
+            self.writer.log(step, scalars)
 
     # ---- checkpointing (torch.save files) ----
 
@@ -305,15 +377,17 @@ class Trainer:
     def save_checkpoint(self, state: TrainState, name: str):
         """Save params, optimizer state and step (an exact resume, as the
         reference's .ckpt files give); written to a temporary file and
-        renamed into place."""
-        os.makedirs(self._ckpt_dir, exist_ok=True)
-        payload = {'params': state.model.state_dict(),
-                   'step': int(state.step),
-                   'opt_state': state.optimizer.state_dict()}
-        path = self._path(name)
-        tmp = f'{path}.{os.getpid()}.tmp'
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        renamed into place, by rank 0 alone, every rank waiting for it."""
+        if self.writes:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+            payload = {'params': state.model.state_dict(),
+                       'step': int(state.step),
+                       'opt_state': state.optimizer.state_dict()}
+            path = self._path(name)
+            tmp = f'{path}.{os.getpid()}.tmp'
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        parallel.barrier()
 
     def restore_state(self, name_or_path: str,
                       state: TrainState) -> TrainState:
@@ -360,10 +434,12 @@ class Trainer:
         # checkpoints (and 'final') on the first post-resume validation
         keep_names = {n for _, n in keep} | {'last'}
         for entry in self._topk_created - keep_names:
-            try:
-                os.remove(os.path.join(self._ckpt_dir, entry))
-            except FileNotFoundError:
-                pass
+            if self.writes:
+                try:
+                    os.remove(os.path.join(self._ckpt_dir, entry))
+                except FileNotFoundError:
+                    pass
+        parallel.barrier()
         self._topk_created &= keep_names
         self._ckpt_scores = keep
 
@@ -376,23 +452,24 @@ class Trainer:
             for batch in train_loader:
                 if self._can_bucket(batch):
                     batch = bucket_targets(batch)
-                metrics = self.train_step(state, batch, self.seed)
+                metrics = self.train_step(state, self._slice(batch),
+                                          self.seed)
                 step = state.step
-                if step % self.log_every_n_steps == 0:
+                if step % self.log_every_n_steps == 0 and self.writes:
                     scalars = {f'train_{k}': float(v)
                                for k, v in metrics.items()}
                     if self.lr_schedule is not None:
                         # the update that produced `step` read the
                         # schedule at count step-1 — log the LR applied
                         scalars['lr'] = float(self.lr_schedule(step - 1))
-                    self.writer.log(step, scalars)
+                    self._log(step, scalars)
             epoch_time = time.time() - t0
 
             run_val = (val_loader is not None and
                        (epoch + 1) % self.check_val_every_n_epoch == 0)
             if run_val:
                 val_loss = self.validate(state, val_loader)
-                self.writer.log(state.step,
+                self._log(state.step,
                                 {'val_loss': val_loss,
                                  'epoch': epoch,
                                  'epoch_time_s': epoch_time})
@@ -417,7 +494,7 @@ class Trainer:
                     scores = None
                 if scores:
                     eval_scores = {f'val_{k}': v for k, v in scores.items()}
-                    self.writer.log(state.step, eval_scores)
+                    self._log(state.step, eval_scores)
 
             if run_val:
                 self._maybe_save_topk(
@@ -429,13 +506,26 @@ class Trainer:
     def validate(self, state: TrainState, val_loader) -> float:
         """Token-weighted mean val loss: each batch's loss is a mean over
         its real target tokens, so weighting by that count gives the exact
-        corpus-level mean, unbiased by partial batches."""
+        corpus-level mean, unbiased by partial batches. Under a process
+        group each rank takes its slice of each batch, and the two sums
+        are all-reduced."""
+        loss_sum, token_sum = self.validation_sums(state, val_loader)
+        return loss_sum / token_sum if token_sum else float('nan')
+
+    def validation_sums(self, state: TrainState, val_loader):
+        """(sum of loss x num_tokens, sum of num_tokens) over the loader,
+        over every rank."""
         loss_sum, token_sum = 0.0, 0.0
         for batch in val_loader:
             if self._can_bucket(batch):
                 batch = bucket_targets(batch)
-            metrics = self.eval_step(state.model, batch)
+            metrics = self.eval_step(state.model, self._slice(batch))
             n = float(metrics['num_tokens'])
             loss_sum += float(metrics['loss']) * n
             token_sum += n
-        return loss_sum / token_sum if token_sum else float('nan')
+        if torch.distributed.is_initialized():
+            dev = state.optimizer.params[0].device
+            sums = parallel.all_reduce_sum(torch.tensor(
+                [loss_sum, token_sum], dtype=torch.float64, device=dev))
+            loss_sum, token_sum = (float(x) for x in sums.cpu())
+        return loss_sum, token_sum

@@ -16,12 +16,3 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f'unsupported device {device!r}')
     return dev
 
-
-def requested_device_count(devices) -> int:
-    """How many devices a `devices=` config value asks for: null -> 1 (the
-    port's one card), an int, or a list of ids."""
-    if devices is None:
-        return 1
-    if isinstance(devices, (list, tuple)):
-        return len(devices)
-    return int(devices)

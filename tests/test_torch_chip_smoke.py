@@ -307,3 +307,91 @@ def test_leakage_counts_the_ground_truth(tmp_path):
     got = chip_smoke.leakage(out, songs)
     assert got['ground_truth_programs'] == {'Track00000': 1, 'Track00001': 1}
     assert got['presence']['precision'] == 0.5
+
+
+
+# multi_card's rank legs at a tiny width on the CPU: training_configs and
+# training_model swapped for these, the CPU for the card
+MULTI_TINY = ['model.config.d_model=32', 'model.config.d_kv=8',
+              'model.config.d_ff=48', 'model.config.num_heads=4',
+              'model.config.num_layers=1', 'model.config.num_decoder_layers=1',
+              'model.config.dropout_rate=0.0']
+
+
+def tiny_training_configs():
+    from mr_mt3_tpu_torch.utils.config import load_config
+
+    def load(extra):
+        return load_config(os.path.join(chip_smoke.REPO, 'configs'),
+                           'config_slakh_segmem', extra + MULTI_TINY)
+    return load(chip_smoke.TRAIN_ARGS[1:]), load(chip_smoke.TRAIN_ARGS[1:4])
+
+
+def tiny_training_model(torch, config, kernel, seed):
+    from mr_mt3_tpu_torch.utils import builders
+    model = MT3(builders.build_model(config).cfg.replace(
+        attention_kernel=kernel))
+    return builders.init_params(model, seed=seed)
+
+
+MULTI_PRELUDE = """
+import sys, torch
+sys.path.insert(0, {repo!r})
+import chip_smoke
+from tests.test_torch_chip_smoke import (tiny_training_configs,
+                                         tiny_training_model)
+chip_smoke.MULTI_DIR = {out!r}
+chip_smoke.training_configs = tiny_training_configs
+chip_smoke.training_model = tiny_training_model
+torch.set_num_threads(1)
+"""
+
+
+def test_multi_card_rank_legs_on_the_cpu(tmp_path, monkeypatch):
+    """multi_card_rank's three children (a one-rank group, two ranks) on
+    gloo on the CPU: the one-rank DDP steps equal the plain ones bit for
+    bit, the two ranks agree, fp32_readings holds its bounds, and the two
+    ranks' scores equal one process's."""
+    import json
+    import subprocess
+    import sys
+    import types
+    out = str(tmp_path)
+    chip_smoke.eval_set(os.path.join(out, 'parity'),
+                        *chip_smoke.parity_corpus(), subtype='FLOAT')
+    prelude = MULTI_PRELUDE.format(repo=chip_smoke.REPO, out=out)
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', prelude + (
+            f'chip_smoke.multi_card_rank({leg!r}, {r}, {w}, '
+            f'{os.path.join(out, leg + ".store")!r}, backend="gloo", '
+            f'kind="cpu")')],
+        cwd=chip_smoke.REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for leg, r, w in (('nccl', 0, 1), ('gloo', 0, 2), ('gloo', 1, 2))]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    nccl = json.load(open(os.path.join(out, 'nccl_rank0.json')))
+    gloo = [json.load(open(os.path.join(out, f'gloo_rank{r}.json')))
+            for r in range(2)]
+    assert nccl['fp32']['metrics_equal'] and not nccl['fp32'][
+        'params_unequal']
+    assert gloo[0]['bf16'] == gloo[1]['bf16']
+    assert gloo[0]['fp32'] == gloo[1]['fp32']
+    assert gloo[0]['eval']['scores'] == gloo[1]['eval']['scores'] == \
+        nccl['eval']['scores']
+    monkeypatch.setattr(chip_smoke, 'MULTI_DIR', out)
+    monkeypatch.setattr(chip_smoke, 'training_configs', tiny_training_configs)
+    monkeypatch.setattr(chip_smoke, 'training_model', tiny_training_model)
+    on_cpu = types.SimpleNamespace(
+        load=lambda path, map_location=None: torch.load(path))
+    read = chip_smoke.fp32_readings(on_cpu, gloo[0]['fp32']['ddp'],
+                                    nccl['fp32']['plain'])
+    assert read['params_apart_share'] == 0.0

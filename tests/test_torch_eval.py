@@ -392,14 +392,18 @@ class TestEvalCli:
         assert seen['device'].type == 'cpu'
 
     @pytest.mark.parametrize('extra,error', [
-        (['multihost=true'], NotImplementedError),
-        (['devices=2'], NotImplementedError),
+        # no launcher environment to join a process group from
+        (['multihost=true'], ValueError),
+        # two devices of the CPU's one (a mesh exceeding its devices)
+        (['devices=2'], ValueError),
         (['path=null'], ValueError),
         (['eval.audio_dir=null'], ValueError),
         (['eval.exp_tag_name=null'], ValueError)])
     def test_what_it_does_not_take_raises(self, eval_set, tmp_path, extra,
-                                          error):
+                                          error, monkeypatch):
         from mr_mt3_tpu_torch.eval.__main__ import main
+        for name in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK'):
+            monkeypatch.delenv(name, raising=False)
         with pytest.raises(error):
             main([*_cli_args(eval_set, tmp_path / 'out', 'device=cpu'),
                   *extra])
@@ -427,9 +431,13 @@ class TestGetScores:
         assert not (tmp_path / 'out' / 'bad.mid').exists()
 
     def test_mesh_is_not_ported(self):
+        """The data axis of a mesh is ported (tests/test_torch_ddp.py,
+        tests/test_torch_mesh_decode.py); its model axis (tensor
+        parallelism) is not and raises, naming ROADMAP A9."""
+        from mr_mt3_tpu_torch.parallel import Mesh
         with pytest.raises(NotImplementedError, match='A9'):
             port_scores.get_scores(model=_tiny_model(), eval_audio_dir=[],
-                                   mesh=object(), device='cpu')
+                                   mesh=Mesh(('cpu',) * 2, model=2))
 
     def test_load_eval_audio_pads_nsynth_and_resamples(self, tmp_path):
         x = np.linspace(-0.5, 0.5, 8000).astype(np.float32)

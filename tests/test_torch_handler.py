@@ -120,12 +120,16 @@ def test_transcribe_many_equals_per_song(golden, tmp_path):
 
 
 def test_unported_paths_raise(golden):
-    """A mesh is not yet ported; unknown tiers and segment-memory variants
-    raise. (Contiguous inference and the segmem models are ported:
-    tests/test_torch_segmem.py.)"""
+    """A mesh's model axis (tensor parallelism, ROADMAP A9's second part)
+    is not ported; unknown tiers and segment-memory variants raise. (The
+    data axis is ported: tests/test_torch_mesh_decode.py; contiguous
+    inference and the segmem models: tests/test_torch_segmem.py.)"""
+    from mr_mt3_tpu_torch.parallel import Mesh, make_mesh
     _, _, model = golden
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        _handler(model, mesh=object())
+    with pytest.raises(NotImplementedError, match='A9'):
+        _handler(model, mesh=Mesh(('cpu', 'cpu'), model=2))
+    with pytest.raises(NotImplementedError, match='A9'):
+        make_mesh(data=1, model=2, devices=['cpu'] * 2)
     with pytest.raises(ValueError, match='unknown segmem_variant'):
         MT3(MT3Config(segmem_variant='encoder_prepend'))
     with pytest.raises(ValueError, match='unknown quantize'):

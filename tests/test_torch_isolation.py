@@ -67,6 +67,10 @@ NATIVE_AND_SCRIPT_MODULES = (
     'scripts/resample_slakh.py', 'scripts/instrument_leakage.py')
 
 
+# the data-parallel axis: meshes of per-card replicas, process groups
+PARALLEL_MODULES = ('parallel/__init__.py', 'parallel/mesh.py')
+
+
 def _covered():
     return {p.relative_to(PORT).as_posix() for p in _port_sources()
             if PORT in p.parents}
@@ -90,6 +94,10 @@ def test_sources_cover_the_step_and_grouped_modules():
 
 def test_sources_cover_the_native_and_script_modules():
     assert set(NATIVE_AND_SCRIPT_MODULES) <= _covered()
+
+
+def test_sources_cover_the_parallel_modules():
+    assert set(PARALLEL_MODULES) <= _covered()
 
 
 @pytest.mark.parametrize('path', _port_sources(),
@@ -193,6 +201,28 @@ def test_handler_raises_without_a_card(no_card):
     assert InferenceHandler(model=model, device='cpu').device.type == 'cpu'
 
 
+def test_a_mesh_of_cards_raises_without_a_card(no_card):
+    """A mesh of cuda devices, made or given, raises as the handler does;
+    so do the entry points asked for several cards."""
+    from mr_mt3_tpu_torch import parallel, serve
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.Mesh(('cuda:0', 'cuda:0'))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.local_mesh()
+    model = MT3(MT3Config(d_model=32, d_kv=8, d_ff=48, num_heads=4,
+                          num_encoder_layers=1, num_decoder_layers=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceHandler(model=model,
+                         mesh=parallel.make_mesh(devices=['cuda'] * 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build_handler(['devices=2'])
+    assert parallel.Mesh(('cpu', 'cpu')).n_data == 2
+
+
 def test_build_handler_raises_without_a_card(no_card):
     from mr_mt3_tpu_torch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -221,7 +251,8 @@ def test_eval_cli_raises_without_a_card(no_card, tmp_path):
 
 def test_train_cli_raises_without_a_card(no_card):
     from mr_mt3_tpu_torch import train
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train.main(['--config-name=config_slakh_segmem',
-                    'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',
-                    'eval.audio_dir=null'])
+    for extra in ([], ['devices=2'], ['multihost=true']):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(['--config-name=config_slakh_segmem',
+                        'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',
+                        'eval.audio_dir=null', *extra])

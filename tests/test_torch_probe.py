@@ -93,7 +93,7 @@ class TestLadder:
         monkeypatch.setattr(probe_mod, 'quantize_probe', lambda h: (0, 50))
         info = probe_mod.resolve_auto_quantize(handler, verbose=False)
         assert handler.quantize == 'fused_int4'
-        assert handler._dp is not None       # nothing invalidated
+        assert handler.replicas[0].dp is not None       # nothing invalidated
         assert 'demotions' not in info
 
     def test_exception_demotes_and_drops_stale_counts(self, weights,
@@ -121,7 +121,7 @@ class TestLadder:
             probe_mod, 'quantize_probe',
             lambda h: (0, 50) if h.quantize == 'fused' else (2, 50))
         probe_mod.resolve_auto_quantize(handler, verbose=False)
-        assert handler.quantize == 'fused' and handler._dp is None
+        assert handler.quantize == 'fused' and handler.replicas[0].dp is None
         assert handler._decode_params().fused.wqkv.dtype == torch.int8
 
     def test_probe_caches_exact_tokens_across_ladder(self, weights):
@@ -226,7 +226,7 @@ class TestPrepareHandler:
         monkeypatch.setattr(serve, 'quantize_probe', lambda h: (3, 100))
         info = serve.prepare_handler(handler)
         # the int4 weights were dropped; the prewarm stacked the exact ones
-        assert handler.quantize == 'none' and handler._dp.fused is None
+        assert handler.quantize == 'none' and handler.replicas[0].dp.fused is None
         assert info['quantize'] == 'none' and info['probe_flips'] == 3
         assert info['prewarmed'] is True
 

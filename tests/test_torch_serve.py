@@ -112,7 +112,8 @@ class TestServer:
 
     def test_healthz_has_the_jax_servers_keys(self, server):
         """The JAX server's /healthz, built around the same handler, has
-        the same top-level keys; the decode block has the keys the JAX
+        the same top-level keys, and the port's names the devices its
+        replicas decode on; the decode block has the keys the JAX
         prepare_handler reports for a vanilla handler without the probe."""
         handler, url = server
         mine = get_json(url + '/healthz')
@@ -125,7 +126,8 @@ class TestServer:
         finally:
             jax_srv.shutdown()
             jax_srv.server_close()
-        assert set(mine) == set(theirs)
+        assert set(mine) == set(theirs) | {'devices'}
+        assert mine['devices'] == ['cpu']
         assert set(mine['decode']) == {'quantize', 'prewarmed',
                                        'prewarm_seconds', 'prewarm_buckets'}
 

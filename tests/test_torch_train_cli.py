@@ -167,9 +167,44 @@ class TestRaises:
     @pytest.mark.parametrize('extra', ['multihost=true', 'devices=2',
                                        'devices=[0,1]', 'model_devices=2'])
     def test_more_than_one_device_is_not_ported(self, corpus, tmp_path,
-                                                extra):
-        with pytest.raises(NotImplementedError, match='A9'):
-            main(_argv(corpus, tmp_path, 'device=cpu', extra))
+                                                extra, monkeypatch):
+        """The data axis is ported: devices=2 (or two ids) with device=cpu
+        trains two gloo ranks, one process each, for the epoch's 2 steps,
+        rank 0 alone logging and writing; multihost=true without a
+        launcher's environment raises. The model axis (tensor
+        parallelism) is not ported and raises, naming ROADMAP A9."""
+        argv = _argv(corpus, tmp_path, 'device=cpu', extra)
+        if extra == 'model_devices=2':
+            with pytest.raises(NotImplementedError, match='A9'):
+                main(argv)
+            return
+        if extra == 'multihost=true':
+            monkeypatch.delenv('WORLD_SIZE', raising=False)
+            with pytest.raises(ValueError, match='WORLD_SIZE'):
+                main(argv)
+            return
+        env = {k: v for k, v in os.environ.items()
+               if k not in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK')}
+        env['OMP_NUM_THREADS'] = '1'
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'mr_mt3_tpu_torch.train', *argv,
+             'trainer.max_epochs=1'], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        try:
+            out = proc.communicate(timeout=240)[0]
+        finally:
+            if proc.poll() is None:     # the ranks too: one session
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        assert proc.returncode == 0, out[-4000:]
+        assert 'ranks 2' in out
+        assert load_checkpoint(str(tmp_path / 'checkpoints' / 'final')
+                               )['step'] == 2
+        steps = [json.loads(ln)['step']
+                 for ln in open(tmp_path / 'logs' / 'metrics.jsonl')
+                 if 'train_loss' in ln]
+        assert steps == [1, 2]
 
     def test_fast_rng_is_accepted_without_effect(self, corpus, tmp_path,
                                                  capsys):
