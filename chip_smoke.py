@@ -19,6 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
      the decoded integers equal to the input, encode and decode seconds
      per minute of audio; truncated and mutated streams each refused with
      ValueError; the host numbers printed beside the card line;
+  2c. profiling (profiling_check, early: no profiler session opened
+     before it): utils/profiling.py's trace() around one log-mel launch
+     writes a Chrome trace naming logmel_kernel, and benchmark() and
+     Timer over PROFILING_CALLS launches read within PROFILING_FACTOR of
+     CUDA-event timing of the same calls;
   3. window kernel against its plain PyTorch version on the card at full
      width (MT3Config(), seeded weights and encoder states, Lenc 256), in
      each mode (fused_bf16, fused = int8, fused_int4):
@@ -151,11 +156,12 @@ Phases (any failure exits non-zero and prints no result line):
      int8 tier and the exact path (fp32, TF32 off), and one chained
      segment-memory
      decode on fused_bf16 (8 chains x 8 segments x 1024 steps); the
-     step-by-step tiers (int8, int8_kv, none) both eagerly (graphs=False)
-     and from replayed CUDA graphs (the main path, every phase captured
-     first: capture seconds and graph memory printed), each with ms/step,
-     RTF, device ms/step and idle share; the exact tier's graphed tokens
-     equal to the eager ones, an int8 tier's apart only at benign flips;
+     step-by-step tiers (int8, int8_kv, none) both eagerly (graphs=False,
+     WORST_EAGER_STEPS steps: cut for time) and from replayed CUDA graphs
+     (the main path, every phase captured first: capture seconds and graph
+     memory printed), each with ms/step, RTF, device ms/step and idle
+     share; the exact tier's graphed tokens equal to the eager ones over
+     the eager steps, an int8 tier's apart only at benign flips;
   9b. the step path (step_path): 1024 greedy steps of B=8 segments through
      fused_decode_step in each mode, the argmax taken outside: launches
      equal to the steps, ms per step and RTF, the first 128 steps' tokens
@@ -220,8 +226,41 @@ Phases (any failure exits non-zero and prints no result line):
      (fp32_readings), and get_scores on two ranks equal to one process's, each
      rank's log-mel launches equal to its _compute_mel calls. A child's
      failure, or its running past MULTI_RANK_TIMEOUT_S, fails the phase.
+ 12b. overfit on the card (overfit_on_card): tests/test_system_overfit.py
+     at its size in fp32, its songs from overfit_corpus, trained with the
+     port's train step until the loss < 0.2 within 400 steps; the trained
+     spans transcribed through InferenceHandler at quantize 'none' with
+     mean onset F1 > 0.8 (the JAX test's bar) and log-mel launches equal
+     to the _compute_mel calls; then (a) the same with the frontend on
+     compute_logmel (both F1s must pass; the tokens that differ are
+     counted), (b) the probe ladder from the serving default fused_int4
+     (the tier kept, the F1 there, the window launches covering the
+     windows run) and (c) scripts/instrument_leakage.py on the
+     transcriptions;
+ 12c. converted T5X checkpoint served (converted_t5x): a seeded T5X tree
+     at the official MT3 shapes (t5x_tree), pickled, converted by `python
+     -m mr_mt3_tpu_torch.scripts.convert_weight`, its .pth holding exactly
+     MT3(MT3Config())'s keys and shapes; InferenceHandler(weight_path=...)
+     transcribes a seeded clip at fused_int4 (window launches equal to the
+     windows needed) and at none (log-mel launches equal to the
+     _compute_mel calls on both), and the card's fp32 logits are within
+     CARD_CPU_LOGIT_REL of the same file's on the CPU;
+ 12d. adversarial gradient (adversarial_gradient): fgsm and pgd_linf
+     (3 steps) on vanilla MT3 at full width in bf16 (adversarial_weights),
+     4 mels of 256 frames, 1024 labels: fused attention forward and
+     backward launches equal to the long attentions the gradients ran
+     (adversarial_attentions), FGSM values in {0, +-epsilon}, PGD inside
+     the ball, the loss at x + delta not below the loss at x; the input
+     gradient's sign agreement with the fp32 einsum route's no worse on
+     the kernel route than on the bf16 einsum route up to the sampling
+     noise of the two counts (ADV_SIGN_SIGMAS), and a control (head 0's
+     attention gradients negated) caught by the same reading;
+ 12e. orbax without tensorstore (orbax_without_tensorstore): without
+     tensorstore, load_weights on an Orbax directory raises RuntimeError
+     naming it; with it, its presence is printed;
 Launch counts are zeroed just before each of phases 6, 7, 7b's legs, 8,
-each leg of 8b, 9b and 9c, of 12 and of 13 and read just after; the window launches must cover every
+each leg of 8b, 9b and 9c, of 12, 12b's legs, 12c's legs, 12d and 13 and
+read just after; the window launches must cover every
 window the decoded tokens needed. The step loops replay captured CUDA
 graphs, which call no Python: their runners add each replayed block's
 launches (recorded at its capture, and taken back off the counts then)
@@ -1927,16 +1966,25 @@ def parity_on_card(torch):
             'int8_ladders': parity_int8_ladders(torch, model)}
 
 
+# Depth cut for time: the step-by-step tiers' eager legs (graphs=False, a
+# comparison only; 12.7-14.6 ms a step on an NVIDIA H100 80GB HBM3 at
+# 700 W whose host ran ~1.5x slower than usual, PERF.md §5) decode
+# WORST_EAGER_STEPS steps, against the first as many of the graphed
+# 1024-step decode; the graphed main path keeps 1024
+WORST_EAGER_STEPS = 256
+
+
 def worst_case(torch):
     """B=8, 1024-step decode on each window tier, each int8 tier and the
     exact fp32 path. The step-by-step tiers (int8, int8_kv, none) run both
-    ways: the eager switch (graphs=False, comparison only) and the main
-    path, replayed CUDA graphs (every phase captured first, its seconds
-    and memory read); for each, device_per_step gives the device's busy
-    time per step, its idle share of the timed step, and the int8 kernels'
-    share. The exact tier's graphed tokens must equal its eager ones; an
-    int8 tier's may part only where infer/probe.classify_flips calls the
-    first flip of the row benign."""
+    ways: the eager switch (graphs=False, comparison only, the first
+    WORST_EAGER_STEPS steps) and the main path, replayed CUDA graphs
+    (every phase captured first, its seconds and memory read); for each,
+    device_per_step gives the device's busy time per step, its idle share
+    of the timed step, and the int8 kernels' share. The exact tier's
+    graphed tokens must equal its eager ones; an int8 tier's may part only
+    where infer/probe.classify_flips calls the first flip of the row
+    benign."""
     phase('worst-case decode (B=8, max_length 1024)')
     from mr_mt3_tpu_torch.infer import InferenceHandler
     from mr_mt3_tpu_torch.infer.probe import classify_flips
@@ -1956,15 +2004,15 @@ def worst_case(torch):
     audio_s = 8 * 256 * 128 / 16000
     out, rows = {}, {}
 
-    def timed(tier, dp, label, graphs=None):
+    def timed(tier, dp, label, graphs=None, max_length=1024):
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        toks = greedy_decode(model, mel, 1024, quantize=tier, dp=dp,
+        toks = greedy_decode(model, mel, max_length, quantize=tier, dp=dp,
                              graphs=graphs)
         torch.cuda.synchronize()
         secs = time.monotonic() - t0
         toks = toks.cpu()
-        if toks.shape != (8, 1025) or int(toks.min()) < 0 or \
+        if toks.shape != (8, max_length + 1) or int(toks.min()) < 0 or \
                 int(toks.max()) >= cfg.vocab_size:
             fail(f'{label}: bad tokens {tuple(toks.shape)}')
         steps = int((toks[:, 1:] != cfg.pad_token_id).sum(1).max())
@@ -1997,7 +2045,8 @@ def worst_case(torch):
         if tier in TIERS:
             out[tier], rows[tier] = timed(tier, dp, tier)
             continue
-        eager, rows[tier] = timed(tier, dp, f'{tier} eager', graphs=False)
+        eager, rows[tier] = timed(tier, dp, f'{tier} eager', graphs=False,
+                                  max_length=WORST_EAGER_STEPS)
         profiled(tier, dp, f'{tier} eager', rows[tier], graphs=False)
         t0 = time.monotonic()
         torch.cuda.synchronize()
@@ -2020,17 +2069,20 @@ def worst_case(torch):
         rows[tier] = {'eager': rows[tier], 'graphed': graphed,
                       **{k: graphed[k] for k in ('ms_per_step', 'rtf',
                                                  'seconds', 'steps')}}
-        same = bool((out[tier] == eager).all())
+        prefix = out[tier][:, :eager.shape[1]]
+        same = bool((prefix == eager).all())
         rows[tier]['graphed_equals_eager'] = same
-        print(f'{tier}: graphed tokens equal the eager ones: {same}')
+        print(f'{tier}: graphed tokens equal the eager ones over the first '
+              f'{WORST_EAGER_STEPS} steps: {same}')
         if tier == 'none' and not same:
             fail('the exact tier\'s graphed tokens differ from its eager '
                  'ones')
         if not same:
-            handler = InferenceHandler(model=model, max_length=1024,
+            handler = InferenceHandler(model=model,
+                                       max_length=WORST_EAGER_STEPS,
                                        quantize=tier)
-            flips = classify_flips(handler, out[tier].numpy(),
-                                   eager.numpy(), mel)
+            flips = classify_flips(handler, prefix.numpy(), eager.numpy(),
+                                   mel)
             rows[tier]['graphed_vs_eager_flips'] = flips
             print(f'{tier}: graphed vs eager flips {json.dumps(flips)}')
             if flips['material_rows']:
@@ -5236,6 +5288,753 @@ def training_main_path(torch):
 
 # ---- the data axis on the one card (multi_card) ----
 
+# ---- the overfit system test on the card (tests/test_system_overfit.py) --
+
+OVERFIT_DIR = os.path.join(REPO, '.chip_smoke_overfit')
+# tests/test_system_overfit.py's model, run and bars, unchanged: fp32, no
+# dropout; AdamW at lr 2e-3, no schedule, no weight decay; the loop stops
+# at a loss below OVERFIT_STOP_LOSS or after OVERFIT_MAX_STEPS steps, and
+# the run must end below OVERFIT_LOSS; then the handler (max_length 256,
+# batch_size 4) transcribes each song's trained span, OVERFIT_SPAN
+# samples (3 x 256-frame windows), and the mean onset F1 must exceed
+# OVERFIT_F1
+OVERFIT_DIMS = dict(d_model=96, d_kv=24, d_ff=192, num_heads=4,
+                    num_encoder_layers=2, num_decoder_layers=2,
+                    dropout_rate=0.0)
+OVERFIT_SONGS = ('Track00001', 'Track00002')
+OVERFIT_SPAN = 768 * 128
+OVERFIT_MAX_STEPS = 400
+OVERFIT_STOP_LOSS = 0.02
+OVERFIT_LOSS = 0.2
+OVERFIT_F1 = 0.8
+OVERFIT_MAX_LENGTH = 256
+OVERFIT_BATCH = 4
+
+
+def tonal_song(rng, duration=6.25, sr=16000, n_notes=9):
+    """(audio, notes) where each note is a sine at its MIDI pitch
+    (tests/test_system_overfit.py:31-52). Notes start at 0.5-5 s and last
+    0.4 s, inside the first 3 x 256-frame windows: the dataset's splitter
+    drops the trailing partial window, so that region is never trained."""
+    import numpy as np
+    audio = np.zeros(int(duration * sr), np.float32)
+    notes = []
+    starts = np.sort(rng.choice(np.arange(1, 11), size=n_notes,
+                                replace=False)) / 2.0
+    for s in starts:
+        pitch = int(rng.integers(55, 76))
+        length = 0.4
+        f = 440.0 * 2 ** ((pitch - 69) / 12)
+        i0, i1 = int(s * sr), int((s + length) * sr)
+        seg_t = np.arange(i1 - i0) / sr
+        env = np.minimum(1, np.minimum(seg_t / 0.02, (length - seg_t) / 0.05))
+        audio[i0:i1] += (0.5 * np.sin(2 * np.pi * f * seg_t) * env).astype(
+            np.float32)
+        notes.append((s, s + length, pitch))
+    return audio, notes
+
+
+def overfit_corpus(root):
+    """The two songs of tests/test_system_overfit.py:55-74 (seed 0), as
+    Slakh lays a song out and written by the port: mix_16k.wav, MIDI/S00.mid
+    (program 0), inst_names.json and the merged all_src_v2.mid
+    (scripts/merge_slakh_midi.py). Returns {song: notes}."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.audio import write_wav
+    from mr_mt3_tpu_torch.scripts.merge_slakh_midi import merge_song_midis
+    rng = np.random.default_rng(0)
+    songs = {}
+    for song in OVERFIT_SONGS:
+        d = os.path.join(root, song)
+        os.makedirs(os.path.join(d, 'MIDI'))
+        audio, notes = tonal_song(rng)
+        write_wav(os.path.join(d, 'mix_16k.wav'), audio, 16000)
+        write_song(os.path.join(d, 'MIDI', 'S00.mid'), notes)
+        with open(os.path.join(d, 'inst_names.json'), 'w') as f:
+            json.dump({'S00': 'Acoustic Piano'}, f)
+        merge_song_midis(d)
+        songs[song] = notes
+    return songs
+
+
+def overfit_train(torch, root, device):
+    """tests/test_system_overfit.py:78-101 in the port: the six fixed
+    segments of SlakhDataset(root) (deterministic, 3 rows a song, 256
+    frames and 256 labels a row) in one collate_batch, the OVERFIT_DIMS
+    model (init_params, seed 0) on `device`, and the trainer's train step
+    until the loss drops below OVERFIT_STOP_LOSS or OVERFIT_MAX_STEPS steps
+    are taken. Returns (model in eval mode, the losses)."""
+    from mr_mt3_tpu_torch.data import SlakhDataset, collate_batch
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.train.optim import make_optimizer
+    from mr_mt3_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from mr_mt3_tpu_torch.utils.builders import init_params
+    ds = SlakhDataset(root, shuffle=False, is_deterministic=True,
+                      is_randomize_tokens=False, num_rows_per_batch=3,
+                      split_frame_length=256, event_length=256)
+    batch = collate_batch([ds[0], ds[1]])
+    model = init_params(MT3(MT3Config(**OVERFIT_DIMS)), 0).to(device)
+    state = create_train_state(model, make_optimizer(
+        2e-3, use_schedule=False, weight_decay=0.0))
+    step = make_train_step()
+    losses = []
+    for _ in range(OVERFIT_MAX_STEPS):
+        losses.append(float(step(state, batch, None)['loss']))
+        if losses[-1] < OVERFIT_STOP_LOSS:
+            break
+    return model.eval(), losses
+
+
+def overfit_transcribe(handler, root, out):
+    """Each song's trained span through handler.inference, written to
+    <out>/<song>/mix.mid (the layout scripts/instrument_leakage.py reads):
+    {song: onset F1} against its all_src_v2.mid (program_aware_note_scores,
+    'flat')."""
+    from mr_mt3_tpu_torch.audio import read_wav
+    from mr_mt3_tpu_torch.eval import program_aware_note_scores
+    scores = {}
+    for song in OVERFIT_SONGS:
+        audio, _ = read_wav(os.path.join(root, song, 'mix_16k.wav'))
+        path = os.path.join(out, song, 'mix.mid')
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        ns = handler.inference(audio[:OVERFIT_SPAN], outpath=path)
+        if ns is None or not ns.notes:
+            fail(f'overfit: no notes transcribed for {song}')
+        scores[song] = program_aware_note_scores(
+            os.path.join(root, song, 'all_src_v2.mid'), path,
+            'flat')['Onset F1']
+    return scores
+
+
+def overfit_on_card(torch):
+    """tests/test_system_overfit.py on the card at its size (fp32): train
+    with the port's train step until the loss is below OVERFIT_LOSS within
+    OVERFIT_MAX_STEPS steps, transcribe the trained spans at quantize
+    'none' with mean onset F1 > OVERFIT_F1 and one log-mel launch a
+    _compute_mel call; then on these weights (a) the same with the
+    frontend on compute_logmel (both F1s must pass, the tokens that
+    differ counted), (b) the probe ladder from the serving default
+    (its tier kept, the F1 there, the window launches against the windows
+    run) and (c) scripts/instrument_leakage.py on the transcriptions."""
+    phase('overfit on the card (tests/test_system_overfit.py, fp32)')
+    import shutil
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch import serve
+    from mr_mt3_tpu_torch.audio import compute_logmel
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.infer import handler as handler_module
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    shutil.rmtree(OVERFIT_DIR, ignore_errors=True)
+    songs = os.path.join(OVERFIT_DIR, 'songs')
+    out = {}
+    try:
+        overfit_corpus(songs)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        model, losses = overfit_train(torch, songs, torch.device('cuda'))
+        secs = time.monotonic() - t0
+        print(f'trained {len(losses)} steps in {secs:.1f} s '
+              f'({1e3 * secs / len(losses):.1f} ms a step): loss '
+              f'{losses[0]:.4f} -> {losses[-1]:.4f}')
+        if losses[-1] >= OVERFIT_LOSS:
+            fail(f'overfit: final loss {losses[-1]} after {len(losses)} '
+                 f'steps')
+        out['train'] = {'steps': len(losses), 'first_loss': losses[0],
+                        'final_loss': losses[-1], 'seconds': secs}
+
+        def transcribe(label, **kw):
+            handler = InferenceHandler(model=model,
+                                       max_length=OVERFIT_MAX_LENGTH,
+                                       batch_size=OVERFIT_BATCH, **kw)
+            tokens = TokenLog()
+            try:
+                scores = overfit_transcribe(
+                    handler, songs, os.path.join(OVERFIT_DIR, label))
+            finally:
+                tokens.close()
+            f1 = float(np.mean(list(scores.values())))
+            print(f'{label}: onset F1 {scores}, mean {f1:.4f}')
+            if f1 <= OVERFIT_F1:
+                fail(f'overfit, {label}: mean onset F1 {f1} <= '
+                     f'{OVERFIT_F1} ({scores})')
+            return handler, f1, [t for _, t in tokens.calls]
+
+        mk.LAUNCHES[mk.KERNEL] = 0
+        mels = MelLog()
+        try:
+            _, f1_kernel, kernel_tokens = transcribe('kernel_logmel')
+        finally:
+            mels.close()
+        mels.check(mk.LAUNCHES[mk.KERNEL], 'the overfit transcription')
+        out['none'] = {'mean_f1': f1_kernel,
+                       'logmel_launches': mk.LAUNCHES[mk.KERNEL],
+                       'compute_mel_calls': mels.calls}
+
+        # (a) the frontend on its plain version, compute_logmel
+        plain = Patches()
+        plain.patch(handler_module, 'logmel',
+                    lambda real, x, config: compute_logmel(x, config))
+        mk.LAUNCHES[mk.KERNEL] = 0
+        try:
+            _, f1_plain, plain_tokens = transcribe('plain_logmel')
+        finally:
+            plain.close()
+        if mk.LAUNCHES[mk.KERNEL]:
+            fail('the plain-frontend leg launched the log-mel kernel')
+        differ = sum(int((a != b).sum())
+                     for a, b in zip(kernel_tokens, plain_tokens))
+        total = sum(a.size for a in kernel_tokens)
+        print(f'(a) kernel log-mel F1 {f1_kernel:.4f}, compute_logmel F1 '
+              f'{f1_plain:.4f}; {differ} of {total} tokens differ')
+        out['plain_logmel'] = {'mean_f1': f1_plain, 'tokens_differ': differ,
+                               'tokens': total}
+
+        # (b) the probe ladder from the serving default
+        for t in TIERS:
+            fd.LAUNCHES[t] = 0
+        decodes, walk = DecodeLog(), ProbeWalk()
+        try:
+            handler = InferenceHandler(
+                model=model, max_length=OVERFIT_MAX_LENGTH,
+                batch_size=OVERFIT_BATCH,
+                quantize=serve.default_quantize(torch.device('cuda')))
+            info = serve.prepare_handler(handler)
+            walk.print()
+            scores = overfit_transcribe(handler, songs,
+                                        os.path.join(OVERFIT_DIR, 'ladder'))
+        finally:
+            walk.close()
+            decodes.close()
+        f1_ladder = float(np.mean(list(scores.values())))
+        windows = {t: decodes.windows(t)[1] for t in TIERS}
+        print(f'(b) the ladder from fused_int4 keeps {handler.quantize!r} '
+              f'(demotions {info.get("demotions", [])}); onset F1 there '
+              f'{scores}, mean {f1_ladder:.4f}; window launches '
+              f'{dict(fd.LAUNCHES)} for windows run {windows}')
+        check_launches(fd.LAUNCHES, decodes, TIERS)
+        out['ladder'] = {'tier': handler.quantize, 'mean_f1': f1_ladder,
+                         'demotions': info.get('demotions', []),
+                         'window_launches': dict(fd.LAUNCHES),
+                         'windows': windows}
+
+        # (c) the instrument-leakage analysis of the transcriptions
+        print('(c) ', end='')
+        out['leakage'] = leakage(os.path.join(OVERFIT_DIR, 'kernel_logmel'),
+                                 songs)
+    finally:
+        shutil.rmtree(OVERFIT_DIR, ignore_errors=True)
+    return out
+
+
+# ---- converted T5X weights, served at full width --------------------------
+
+T5X_DIR = os.path.join(REPO, '.chip_smoke_t5x')
+# the official MT3 checkpoint's shapes (MT3Config())
+T5X_DIMS = dict(d_model=512, heads=6, d_kv=64, d_ff=1024, vocab=1536,
+                mel_bins=512, layers=(8, 8))
+T5X_CLIP_SECONDS = 4.0
+
+
+def t5x_tree(seed, d_model, heads, d_kv, d_ff, vocab, mel_bins, layers):
+    """A pickled T5X state dict's tree as the official MT3 checkpoint lays
+    it out (the keys tests/test_scripts_tools.py:127-187 fabricates, a
+    state/ subtree beside target/), seeded: kernels N(0, 1/fan_in) like
+    init_params, norm scales 1 + N(0, 0.01)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    inner = heads * d_kv
+    tree = {}
+
+    def put(path, shape, kind='kernel'):
+        node, parts = tree, path.split('/')
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        value = rng.standard_normal(shape)
+        if kind == 'norm':
+            value = 1 + 0.1 * value
+        else:
+            # T5X kernels are (in, out); the embedding's fan-in is d_model
+            value /= np.sqrt(shape[1] if kind == 'embedding' else shape[0])
+        node[parts[-1]] = value.astype(np.float32)
+
+    attn = [('query', (d_model, inner)), ('key', (d_model, inner)),
+            ('value', (d_model, inner)), ('out', (inner, d_model))]
+    mlp = [('wi_0', (d_model, d_ff)), ('wi_1', (d_model, d_ff)),
+           ('wo', (d_ff, d_model))]
+    n_enc, n_dec = layers
+    for i in range(n_enc):
+        lyr = f'target/encoder/layers_{i}'
+        for proj, shape in attn:
+            put(f'{lyr}/attention/{proj}/kernel', shape)
+        for w, shape in mlp:
+            put(f'{lyr}/mlp/{w}/kernel', shape)
+        put(f'{lyr}/pre_attention_layer_norm/scale', (d_model,), 'norm')
+        put(f'{lyr}/pre_mlp_layer_norm/scale', (d_model,), 'norm')
+    for i in range(n_dec):
+        lyr = f'target/decoder/layers_{i}'
+        for proj, shape in attn:
+            put(f'{lyr}/self_attention/{proj}/kernel', shape)
+            put(f'{lyr}/encoder_decoder_attention/{proj}/kernel', shape)
+        for w, shape in mlp:
+            put(f'{lyr}/mlp/{w}/kernel', shape)
+        for norm in ('pre_self_attention_layer_norm',
+                     'pre_cross_attention_layer_norm', 'pre_mlp_layer_norm'):
+            put(f'{lyr}/{norm}/scale', (d_model,), 'norm')
+    put('target/encoder/encoder_norm/scale', (d_model,), 'norm')
+    put('target/decoder/decoder_norm/scale', (d_model,), 'norm')
+    put('target/encoder/continuous_inputs_projection/kernel',
+        (mel_bins, d_model))
+    put('target/decoder/token_embedder/embedding', (vocab, d_model),
+        'embedding')
+    put('target/decoder/logits_dense/kernel', (d_model, vocab))
+    tree['state'] = {'param_states': {'step': np.zeros((), np.int32)}}
+    return tree
+
+
+# fp32 on the card (TF32 off) against the CPU, the same weights and inputs:
+# the logits' largest difference over their largest |value|, held to
+# training_parity's fp32 card-vs-CPU bound
+CARD_CPU_LOGIT_REL = TRAIN_F32_LOSS_RTOL
+CARD_CPU_LOGIT_LABELS = 256
+
+
+def converted_t5x(torch):
+    """A seeded T5X tree at the official MT3 shapes, pickled and converted
+    by `python -m mr_mt3_tpu_torch.scripts.convert_weight`; the .pth holds
+    exactly MT3(MT3Config())'s keys and shapes, and
+    InferenceHandler(weight_path=...) serves it: a seeded clip at
+    fused_int4 (window launches equal to the windows the decode needed)
+    and at none, log-mel launches equal to the _compute_mel calls; the
+    card's fp32 logits within CARD_CPU_LOGIT_REL of the same file's on the
+    CPU."""
+    phase('converted T5X checkpoint served (full width)')
+    import pickle
+    import shutil
+
+    from mr_mt3_tpu_torch.audio import (
+        SpectrogramConfig,
+        compute_logmel,
+        normalize_logmel,
+    )
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import fused_decode as fd
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    from mr_mt3_tpu_torch.utils.builders import load_weights
+    from mr_mt3_tpu_torch.utils.checkpoint_import import (
+        load_torch_checkpoint,
+    )
+    shutil.rmtree(T5X_DIR, ignore_errors=True)
+    os.makedirs(T5X_DIR)
+    pk = os.path.join(T5X_DIR, 't5x_state.pk')
+    pth = os.path.join(T5X_DIR, 'mt3_converted.pth')
+    out = {}
+    try:
+        t0 = time.monotonic()
+        with open(pk, 'wb') as f:
+            pickle.dump(t5x_tree(0, **T5X_DIMS), f)
+        run = subprocess.run(
+            [sys.executable, '-m', 'mr_mt3_tpu_torch.scripts.convert_weight',
+             pk, pth], cwd=REPO, capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            fail(f'convert_weight exited {run.returncode}: '
+                 f'{run.stderr[-2000:]}')
+        out['convert_seconds'] = time.monotonic() - t0
+        state_dict = load_torch_checkpoint(pth)
+        reference = MT3(MT3Config()).state_dict()
+        missing = sorted(set(reference) - set(state_dict))
+        unexpected = sorted(set(state_dict) - set(reference))
+        mismatched = [k for k in reference if k in state_dict
+                      and state_dict[k].shape != reference[k].shape]
+        n_params = sum(v.numel() for v in reference.values())
+        print(f'converted in {out["convert_seconds"]:.1f} s: '
+              f'{len(state_dict)} keys, {len(missing)} missing, '
+              f'{len(unexpected)} unexpected, {len(mismatched)} of another '
+              f'shape; {n_params} parameters')
+        if missing or unexpected or mismatched:
+            fail(f'converted checkpoint: missing {missing[:5]}, unexpected '
+                 f'{unexpected[:5]}, shapes {mismatched[:5]}')
+        out['keys'] = len(state_dict)
+        out['parameters'] = n_params
+        audio = clip(T5X_CLIP_SECONDS, seed=16)
+        for tier in ('fused_int4', 'none'):
+            for t in TIERS:
+                fd.LAUNCHES[t] = 0
+            mk.LAUNCHES[mk.KERNEL] = 0
+            decodes, mels = DecodeLog(), MelLog()
+            try:
+                handler = InferenceHandler(
+                    weight_path=pth, quantize=tier,
+                    max_length=MAIN_PATH_MAX_LENGTH)
+                loaded = handler.model.state_dict()
+                n_loaded = sum(p.numel() for p in
+                               handler.model.parameters())
+                if n_loaded != n_params or not all(
+                        torch.equal(loaded[k].cpu(), state_dict[k])
+                        for k in reference):
+                    fail(f'{tier}: the handler holds {n_loaded} parameters '
+                         f'unequal to the converted file\'s {n_params}')
+                t0 = time.monotonic()
+                ns = handler.transcribe(audio)
+                torch.cuda.synchronize()
+                secs = time.monotonic() - t0
+            finally:
+                mels.close()
+                decodes.close()
+            launches = dict(fd.LAUNCHES)
+            launches[mk.KERNEL] = mk.LAUNCHES[mk.KERNEL]
+            calls, windows = (decodes.windows(tier) if tier in TIERS
+                              else (len(decodes.calls), 0))
+            print(f'{tier}: {len(ns.notes)} notes in {secs:.2f} s, '
+                  f'launches {launches}, {windows} windows over {calls} '
+                  f'decode calls')
+            mels.check(launches[mk.KERNEL], f'the converted model at {tier}')
+            want = {t: windows if t == tier else 0 for t in TIERS}
+            if {t: launches[t] for t in TIERS} != want or \
+                    (tier in TIERS and windows < 1):
+                fail(f'{tier}: window launches {launches} for the windows '
+                     f'{want} the decode needed')
+            out[tier] = {'seconds': secs, 'notes': len(ns.notes),
+                         'launches': launches, 'windows': windows,
+                         'compute_mel_calls': mels.calls}
+        # the 'none' handler's fp32 model against the same file on the CPU
+        cpu_model = load_weights(pth, MT3(MT3Config())).eval()
+        mel = normalize_logmel(compute_logmel(
+            torch.from_numpy(audio[None, :256 * 128].copy()),
+            SpectrogramConfig()))
+        ids = torch.randint(3, 1391, (1, CARD_CPU_LOGIT_LABELS),
+                            generator=torch.Generator().manual_seed(16))
+        with torch.no_grad():
+            card = handler.model(mel.cuda(), decoder_input_ids=ids.cuda())
+            host = cpu_model(mel, decoder_input_ids=ids)
+        rel = float((card.cpu() - host).abs().max() / host.abs().max())
+        print(f'fp32 logits, card (TF32 off) vs CPU: largest difference '
+              f'{rel:.3g} of the largest |logit| (bound '
+              f'{CARD_CPU_LOGIT_REL})')
+        if not rel <= CARD_CPU_LOGIT_REL:
+            fail(f'converted model: card logits {rel} apart from the CPU\'s')
+        out['card_vs_cpu_logit_rel'] = rel
+    finally:
+        shutil.rmtree(T5X_DIR, ignore_errors=True)
+    return out
+
+
+# ---- the adversarial gradient at full width in bf16 -----------------------
+
+# models/adversarial.py on vanilla MT3 (MT3Config(), adversarial_weights)
+# at bf16, where the decoder's 1024-label attentions take the fused kernels
+ADV_ROWS, ADV_FRAMES, ADV_LABELS = 4, 256, 1024
+# FGSM at fgsm's default epsilon; PGD at tests/test_scripts_tools.py:334's
+# steps, whose third (3 x 0.02 > 0.05) the projection clips
+ADV_EPSILON = 0.1
+ADV_PGD = dict(epsilon=0.05, alpha=0.02, num_iter=3)
+
+
+def adversarial_weights(cfg, seed=0):
+    """init_params' seed-`seed` weights with every query projection
+    scaled by d_kv^-1/2, the scale T5's initialization gives q (std
+    (d_model d_kv)^-1/2). The attention is unscaled: with q at init_params'
+    N(0, 1/fan_in) its logits have a standard deviation of ~sqrt(d_kv), the
+    softmax saturates, and at 8+8 layers the input gradient is chaotic
+    (bf16 rounding alone leaves it uncorrelated with fp32's, so a sign
+    agreement would read chance)."""
+    from mr_mt3_tpu_torch.models import MT3
+    from mr_mt3_tpu_torch.utils.builders import init_params
+    weights = init_params(MT3(cfg), seed).state_dict()
+    for key in weights:
+        if key.endswith('.q.weight'):
+            weights[key] = weights[key] / math.sqrt(cfg.d_kv)
+    return weights
+
+
+def adversarial_attentions(cfg, length):
+    """(forward, backward) fused attention launches of one input gradient
+    of the vanilla model at `length` labels (models/mt3.py's rule: Lq >=
+    512, Lq % 8 == 0): forward, each decoder layer's self- and
+    cross-attention; backward, all of them but the first layer's
+    self-attention, which reads only the token embeddings, so no gradient
+    to the mel flows through it. The encoder's 256 frames stay on einsum."""
+    from mr_mt3_tpu_torch.models import mt3
+    if length < mt3._FUSED_MIN_LEN or length % 8:
+        return 0, 0
+    n = cfg.num_decoder_layers
+    return 2 * n, 2 * n - 1
+
+
+# "No worse than bf16 einsum" read through sampling noise: the kernel
+# route's input gradient may disagree in sign with the fp32 route's on
+# more elements than the bf16 einsum route's by at most ADV_SIGN_SIGMAS
+# standard deviations of the difference of two such counts, sqrt(d_kernel
+# + d_einsum) for two routes that draw their disagreements independently;
+# the control must exceed that. (The first run on an NVIDIA H100 80GB
+# HBM3 at 700 W read shares 0.993986 and 0.994030, ~3,153 and ~3,130
+# disagreements of 524,288, for kernel and einsum: a strict comparison is
+# a coin flip between two routes of equal noise. The control read
+# 0.679941, ~167,803.)
+ADV_SIGN_SIGMAS = 3.0
+
+
+def sign_disagreements(torch, grad, ref):
+    """Elements where `ref` is not 0 whose sign `grad` does not match:
+    (count, elements compared)."""
+    live = ref != 0
+    apart = (torch.sign(grad) != torch.sign(ref)) & live
+    return int(apart.sum()), int(live.sum())
+
+
+def within_einsum_noise(disagree, einsum):
+    """Whether `disagree` sign disagreements are no more than the bf16
+    einsum route's `einsum`, up to ADV_SIGN_SIGMAS of sampling noise."""
+    return disagree <= einsum + ADV_SIGN_SIGMAS * math.sqrt(disagree + einsum)
+
+
+class NegatedHead(Patches):
+    """The control: the attention backward's dq, dk and dv of head 0
+    negated (the CUDA kernel's on the card, its plain version's on the
+    CPU), a wrong gradient the sign-agreement reading must catch."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.ops import train_attention as ta
+        super().__init__()
+
+        def negated(real, *args):
+            grads = []
+            for g in real(*args):            # (B, L, H, D)
+                g = g.clone()
+                g[:, :, 0] = -g[:, :, 0]
+                grads.append(g)
+            return tuple(grads)
+        self.patch(ta, 'fused_attention_backward_cuda', negated)
+        self.patch(ta, 'fused_attention_backward_reference', negated)
+
+
+def adversarial_gradient_readings(torch, make_model, mel, labels):
+    """The input gradient's sign disagreements with the fp32 einsum
+    route's, for the bf16 kernel route, the bf16 einsum route (the floor
+    the kernel must reach, within_einsum_noise) and the kernel route under
+    NegatedHead (which must miss it): {'n', 'disagree', 'share'}.
+    make_model(**cfg) gives the model with the same weights."""
+    from mr_mt3_tpu_torch.models import adversarial
+    ref = adversarial.input_gradient(make_model(), mel, labels)
+    kernel = make_model(dtype='bfloat16')
+    grads = {'kernel': adversarial.input_gradient(kernel, mel, labels),
+             'einsum': adversarial.input_gradient(
+                 make_model(dtype='bfloat16', attention_kernel='einsum'),
+                 mel, labels)}
+    control = NegatedHead()
+    try:
+        grads['control'] = adversarial.input_gradient(kernel, mel, labels)
+    finally:
+        control.close()
+    counts = {k: sign_disagreements(torch, g.float(), ref.float())
+              for k, g in grads.items()}
+    n = counts['kernel'][1]
+    disagree = {k: c for k, (c, _) in counts.items()}
+    return {'n': n, 'disagree': disagree,
+            'share': {k: 1 - c / n for k, c in disagree.items()}}
+
+
+def adversarial_gradient(torch):
+    """fgsm and pgd_linf (models/adversarial.py) on vanilla MT3 at full
+    width in bf16, B = ADV_ROWS mels of ADV_FRAMES frames and labels of
+    ADV_LABELS tokens: the fused forward and backward launches equal to
+    the long attentions the gradients ran (adversarial_attentions), FGSM
+    values in {0, +-epsilon}, PGD inside the epsilon ball, the loss at
+    x + delta not below the loss at x on the kernel route; the input
+    gradient's sign agreement with the fp32 einsum route's no worse on
+    the kernel route than on the bf16 einsum route (within_einsum_noise),
+    and the negated-head control caught by the same reading."""
+    phase('adversarial gradient (full width, bf16)')
+    from mr_mt3_tpu_torch.models import MT3, MT3Config, adversarial
+    from mr_mt3_tpu_torch.models import mt3
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.utils.builders import init_params
+    dev = torch.device('cuda')
+    weights = adversarial_weights(MT3Config())
+
+    def make_model(**kw):
+        model = MT3(MT3Config(**kw))
+        model.load_state_dict(weights)
+        return model.to(dev).eval()
+    kernel = make_model(dtype='bfloat16')
+    if mt3.resolve_attention_kernel(kernel.cfg, dev) != 'fused':
+        fail('the bf16 model does not take the fused attention route')
+    gen = torch.Generator().manual_seed(0)
+    mel = torch.randn((ADV_ROWS, ADV_FRAMES, kernel.cfg.mel_bins),
+                      generator=gen).to(dev)
+    labels = torch.randint(3, 1391, (ADV_ROWS, ADV_LABELS), generator=gen)
+    labels[:, -1] = kernel.cfg.eos_token_id
+    labels = labels.to(dev)
+    fwd, bwd = adversarial_attentions(kernel.cfg, ADV_LABELS)
+    grads = 1 + ADV_PGD['num_iter']
+    for k in ta.LAUNCHES:
+        ta.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    delta = adversarial.fgsm(kernel, mel, labels, epsilon=ADV_EPSILON)
+    pgd = adversarial.pgd_linf(kernel, mel, labels, **ADV_PGD)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = dict(ta.LAUNCHES)
+    want = {ta.KERNEL: fwd * grads, ta.KERNEL_BWD: bwd * grads}
+    print(f'fgsm + pgd_linf({ADV_PGD["num_iter"]} steps): {grads} input '
+          f'gradients in {secs:.2f} s; launches {launches} for the long '
+          f'attentions run {want}')
+    if launches != want:
+        fail(f'adversarial: launches {launches}, long attentions {want}')
+    vals = delta.abs()
+    on_grid = bool(((vals < 1e-6) | ((vals - ADV_EPSILON).abs() < 1e-6))
+                   .all())
+    pgd_max = float(pgd.abs().max())
+    with torch.no_grad():
+        base = float(adversarial.input_loss(kernel, mel, labels))
+        at_fgsm = float(adversarial.input_loss(kernel, mel + delta, labels))
+        at_pgd = float(adversarial.input_loss(kernel, mel + pgd, labels))
+    print(f'FGSM values in {{0, +-{ADV_EPSILON}}}: {on_grid}; PGD largest '
+          f'|delta| {pgd_max:.6g} (the ball {ADV_PGD["epsilon"]}); loss '
+          f'{base:.5f}, at x + FGSM '
+          f'{at_fgsm:.5f}, at x + PGD {at_pgd:.5f}')
+    if not on_grid or abs(pgd_max - ADV_PGD['epsilon']) > 1e-6 or \
+            at_fgsm < base or at_pgd < base:
+        fail('adversarial: perturbations off their grid or ball, or a '
+             'loss below the clean one')
+    signs = adversarial_gradient_readings(torch, make_model, mel, labels)
+    d = signs['disagree']
+    print(f'input-gradient sign agreement with fp32 einsum over '
+          f'{signs["n"]} elements: kernel {signs["share"]["kernel"]:.6f} '
+          f'({d["kernel"]} apart), bf16 einsum '
+          f'{signs["share"]["einsum"]:.6f} ({d["einsum"]}), negated-head '
+          f'control {signs["share"]["control"]:.6f} ({d["control"]})')
+    if not within_einsum_noise(d['kernel'], d['einsum']):
+        fail(f'adversarial: the kernel route disagrees with fp32 on more '
+             f'signs than bf16 einsum beyond its noise ({signs})')
+    if within_einsum_noise(d['control'], d['einsum']):
+        fail(f'adversarial: the reading did not catch the control '
+             f'({signs})')
+    # a reading, not a check: bf16 einsum at init_params' own weights (q
+    # unscaled), the chaotic gradient adversarial_weights avoids
+    raw = init_params(MT3(MT3Config()), 0).state_dict()
+    unscaled = []
+    for kw in ({}, {'dtype': 'bfloat16', 'attention_kernel': 'einsum'}):
+        model = MT3(MT3Config(**kw))
+        model.load_state_dict(raw)
+        unscaled.append(adversarial.input_gradient(model.to(dev).eval(),
+                                                   mel, labels).float())
+    apart, n = sign_disagreements(torch, unscaled[1], unscaled[0])
+    cosine = float(torch.nn.functional.cosine_similarity(
+        unscaled[1].flatten(), unscaled[0].flatten(), dim=0))
+    signs['unscaled_q_einsum'] = {'share': 1 - apart / n, 'cosine': cosine}
+    print(f'at init_params\' weights (q unscaled): bf16 einsum sign '
+          f'agreement {1 - apart / n:.6f}, cosine with fp32 {cosine:.4f}')
+    return {'launches': launches, 'long_attentions': want,
+            'gradients': grads, 'seconds': secs, 'loss': base,
+            'loss_fgsm': at_fgsm, 'loss_pgd': at_pgd, 'pgd_max': pgd_max,
+            'sign_agreement': signs}
+
+
+# ---- utils/profiling.py and the Orbax reader on the card -----------------
+
+PROFILING_DIR = os.path.join(REPO, 'chiprun_out', 'profiling_trace')
+# logmel.cu calls a timed run makes (B=64: ~0.42 ms each on an NVIDIA
+# H100 80GB HBM3 at 700 W), so the host's launches are a small part of a
+# wall time that waits for the card
+PROFILING_CALLS = 10
+PROFILING_RUNS = 10
+# benchmark's and Timer's best wall time over the CUDA events' median of
+# the same calls: the host's launches and the synchronize add to the wall
+# time, the events see only the queue
+PROFILING_FACTOR = 1.5
+
+
+def profiling_check(torch):
+    """utils/profiling.py on the card: trace() around one logmel launch
+    writes a Chrome trace naming logmel_kernel; benchmark() and Timer on
+    PROFILING_CALLS launches agree with CUDA-event timing of the same calls
+    within PROFILING_FACTOR."""
+    phase('profiling (utils/profiling.py)')
+    from mr_mt3_tpu_torch.audio import SpectrogramConfig
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    from mr_mt3_tpu_torch.utils import profiling
+    cfg = SpectrogramConfig()
+    x = torch.from_numpy(logmel_inputs('tone', 64)).cuda()
+    mk.logmel(x, cfg)
+    torch.cuda.synchronize()
+    with profiling.trace(PROFILING_DIR):
+        mk.logmel(x, cfg)
+    path = os.path.join(PROFILING_DIR, 'trace.json')
+    with open(path) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    kernels = sorted(n for n in names if 'logmel_kernel' in n)
+    print(f'trace: {os.path.relpath(path, REPO)}, {len(names)} event '
+          f'names, logmel kernel events {kernels}')
+    if not kernels:
+        fail('profiling.trace: no logmel_kernel event in the trace')
+
+    def calls():
+        for _ in range(PROFILING_CALLS):
+            out = mk.logmel(x, cfg)
+        return out
+    event_ms = time_ms(torch, calls, runs=PROFILING_RUNS)
+    bench = profiling.benchmark(calls, warmup=2, iters=PROFILING_RUNS)
+    timer = profiling.Timer()
+    for _ in range(PROFILING_RUNS):
+        with timer.measure(sync_value=x):
+            calls()
+    ratios = {'benchmark': 1e3 * bench['best_s'] / event_ms,
+              'timer': 1e3 * timer.best / event_ms}
+    print(f'{PROFILING_CALLS} logmel calls at B=64: CUDA events '
+          f'{event_ms:.4f} ms, benchmark best {1e3 * bench["best_s"]:.4f} '
+          f'mean {1e3 * bench["mean_s"]:.4f} ms, Timer best '
+          f'{1e3 * timer.best:.4f} mean {1e3 * timer.mean:.4f} ms; ratios '
+          f'{ratios}')
+    if not all(1 / PROFILING_FACTOR <= r <= PROFILING_FACTOR
+               for r in ratios.values()):
+        fail(f'profiling: wall times {ratios} x the CUDA events\' '
+             f'(factor {PROFILING_FACTOR})')
+    return {'trace_kernels': kernels, 'event_ms': event_ms,
+            'benchmark': bench, 'timer_best_s': timer.best,
+            'timer_mean_s': timer.mean, 'ratios': ratios}
+
+
+def orbax_without_tensorstore(torch):
+    """The machine may lack tensorstore: then load_weights on an Orbax
+    directory raises RuntimeError naming it (no fallback). Where it is
+    installed, that is printed (the reader's parity is a CPU test)."""
+    phase('orbax without tensorstore')
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.utils.builders import load_weights
+    if importlib.util.find_spec('tensorstore') is not None:
+        print('tensorstore is installed: Orbax directories are read')
+        return {'tensorstore': True}
+    d = tempfile.mkdtemp(dir=REPO, prefix='.chip_smoke_orbax')
+    try:
+        with open(os.path.join(d, '_METADATA'), 'w') as f:
+            json.dump({'tree_metadata': {}, 'use_ocdbt': True,
+                       'use_zarr3': False}, f)
+        try:
+            load_weights(d, MT3(MT3Config(**PARITY_DIMS)))
+        except RuntimeError as e:
+            if 'tensorstore' not in str(e):
+                fail(f'load_weights raised {e!r}, naming no tensorstore')
+            print(f'tensorstore is not installed: load_weights raised '
+                  f'{e!r}')
+            return {'tensorstore': False, 'error': str(e)}
+        fail('load_weights read an Orbax directory without tensorstore')
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 MULTI_DIR = os.path.join(REPO, '.chip_smoke_multi')
 # the replicas' decodes: max_length cut to 64 (users' 1024) for time; the
 # vanilla leg decodes 24 segments (calls of 16 rows, 8 a replica), the
@@ -5784,6 +6583,7 @@ def main():
     environment(torch)
     build_kernels()
     native = native_phase(torch)
+    profiled = profiling_check(torch)
     cases = kernel_cases(torch)
     stepped = step_cases(torch)
     grouped = grouped_cases(torch)
@@ -5808,6 +6608,10 @@ def main():
     grouped_main = grouped_path(torch)
     training = {'parity': training_parity(torch),
                 'main_path': training_main_path(torch)}
+    overfit = overfit_on_card(torch)
+    t5x = converted_t5x(torch)
+    adversarial = adversarial_gradient(torch)
+    orbax = orbax_without_tensorstore(torch)
     multi = multi_card(torch)
     ranks = multi['gloo_two_ranks']
     train_launches = {
@@ -5839,6 +6643,11 @@ def main():
                 leg: multi['replicas'][f'{leg}_{tier}']['launches_by_replica']
                 for leg in ('vanilla', 'segmem')}}
                if tier in MULTI_TIERS else {}),
+            **({'converted_t5x_launches':
+                t5x['fused_int4']['launches']['fused_int4']}
+               if tier == 'fused_int4' else {}),
+            'overfit_ladder_launches':
+                overfit['ladder']['window_launches'][tier],
             'cases': cases[tier]})
     for tier in TIERS:
         main_case = next(c for c in stepped[tier] if c['batch'] == 8
@@ -5888,6 +6697,8 @@ def main():
         'library_note': 'torch.nn.functional.scaled_dot_product_attention, '
                         'scale 1.0, timed only',
         'training_path_launches': train_launches['fused_attention_fwd'],
+        'adversarial_launches': adversarial['launches'][
+            'fused_attention_fwd'],
         'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_fwd']
                                  for r in ranks],
         'cases': attn_cases})
@@ -5904,6 +6715,8 @@ def main():
         'tflops': enc['tflops'], 'library_ms': enc['library_ms'],
         'library_note': 'torch.autograd.grad through torch.nn.functional.'
                         'scaled_dot_product_attention, scale 1.0, timed only',
+        'adversarial_launches': adversarial['launches'][
+            'fused_attention_bwd'],
         'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_bwd']
                                  for r in ranks],
         'cases': bwd_cases})
@@ -5984,6 +6797,10 @@ def main():
         'segmem_path_launches': segmem['launches']['logmel'],
         'multi_process_eval_launches_by_rank': [
             r['logmel'] for r in multi['eval']['ranks']],
+        'overfit_launches': overfit['none']['logmel_launches'],
+        'converted_t5x_launches': {
+            tier: t5x[tier]['launches']['logmel']
+            for tier in ('fused_int4', 'none')},
         'cases': mel_cases})
     phase(None)
     print(f'phase seconds: {json.dumps(PHASE_SECONDS)}')
@@ -5997,7 +6814,9 @@ def main():
                    'worst_case': worst, 'training': training,
                    'capture_survival': survival,
                    'step_path': step_main, 'grouped_path': grouped_main,
-                   'multi_card': multi,
+                   'multi_card': multi, 'profiling': profiled,
+                   'overfit': overfit, 'converted_t5x': t5x,
+                   'adversarial': adversarial, 'orbax': orbax,
                    'phase_seconds': PHASE_SECONDS}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -10,8 +10,9 @@ The CLI mirrors the reference (reference: test.py, test.sh):
       eval.exp_tag_name=out_midis eval.midi_dir=/data/slakh/test/ \\
       [+eval.quantize=auto] [device=cpu]
 
-`path` is a checkpoint of the port's trainer or a reference torch
-.pth/.pt file (Orbax directories are not yet ported, ROADMAP A5). mel_norm
+`path` is a checkpoint of the port's trainer, a reference torch .pth/.pt
+file (the T5X converter's output too) or an Orbax directory of the JAX
+trainer (read through tensorstore: utils/orbax_read.py). mel_norm
 is off for the official checkpoint (reference: test.py:123). It runs on the
 card unless device=cpu is given (and raises without a card).
 eval.quantize=auto serves the decode through the probe-guarded window
@@ -73,9 +74,9 @@ def main(argv=None):
     # eval.load_weights_strict is unset (reference test.py:107-110);
     # +eval.load_weights_strict=True opts into the strict check
     strict = cfg.eval.get('load_weights_strict')
-    builders.load_weights(str(cfg.path), model,
-                          strict=False if strict is None else bool(strict))
-    print(f'loaded weights from {cfg.path}')
+    _, step = builders.load_weights_and_step(
+        str(cfg.path), model, strict=False if strict is None else bool(strict))
+    print(f'loaded weights from {cfg.path} (step {step})')
 
     files = sorted(glob.glob(cfg.eval.audio_dir))
     if cfg.eval.eval_dataset == 'NSynth':

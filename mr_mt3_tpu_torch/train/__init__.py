@@ -201,7 +201,8 @@ def main(argv=None) -> TrainState:
                 print(f'resumed full state from {path} (step {state.step}, '
                       f'epoch {start_epoch})')
         else:
-            # warm start from a reference file's weights (.pth/.pt/.ckpt)
+            # warm start from weights only (.pth/.pt/.ckpt, or an Orbax
+            # directory's params)
             builders.load_weights(path, model)
             if lead:
                 print(f'loaded weights from {path}')

@@ -19,7 +19,8 @@ On one card, as the JAX package runs on one TPU mesh:
     reference draws from torch's RNG);
   * checkpoints are torch.save files under the JAX names ('last',
     'epoch={e}-{monitor}={v:.4f}', 'final') holding params, optimizer state
-    and step (the JAX package writes Orbax directories: not ported);
+    and step (the JAX package writes Orbax directories, which the port
+    reads as weights only: utils/orbax_read.py);
   * metrics are JSONL (the JAX writer adds TensorBoard when TensorFlow is
     installed; the port does not use it).
 

@@ -92,29 +92,65 @@ def build_datasets(cfg: ConfigNode):
     return train_ds, val_ds
 
 
-def load_weights(path: str, model: MT3, strict: bool = False) -> MT3:
-    """Load weights into `model`: a reference torch checkpoint
-    (.pth/.pt/.ckpt), or a checkpoint file of the port's trainer (its
-    params; train/trainer.py::Trainer.save_checkpoint).
+def _load_state_dict(model: MT3, state_dict, strict: bool,
+                     unexpected=()) -> None:
+    """load_state_dict(strict=False), then torch strict-load semantics:
+    with strict a missing parameter raises; keys the model does not have
+    (`unexpected` adds the source's own) are reported."""
+    missing, not_mapped = model.load_state_dict(state_dict, strict=False)
+    not_mapped = list(not_mapped) + list(unexpected)
+    if not_mapped:
+        print(f'load_weights: {len(not_mapped)} checkpoint keys not '
+              f'mapped (e.g. {not_mapped[:3]})')
+    if strict and missing:
+        raise ValueError('strict weight load failed\n  missing: '
+                         + ', '.join(missing))
+
+
+def load_weights_and_step(path: str, model: MT3, strict: bool = False):
+    """Load weights into `model` and return (model, step): a checkpoint
+    file of the port's trainer (its params and step;
+    train/trainer.py::Trainer.save_checkpoint), a reference torch
+    checkpoint (.pth/.pt/.ckpt, also the port's T5X converter's output;
+    step 0), or an Orbax directory of the JAX trainer or converter (its
+    params and step, read through tensorstore: utils/orbax_read.py; the
+    optimizer state is ignored).
 
     strict=True raises when the checkpoint misses a parameter (torch
     strict-load semantics); keys the model does not have are reported."""
     if os.path.isfile(path) and not path.endswith(('.pth', '.pt', '.ckpt')):
         from mr_mt3_tpu_torch.train.trainer import load_checkpoint
-        model.load_state_dict(load_checkpoint(path)['params'], strict=True)
-        return model
+        blob = load_checkpoint(path)
+        model.load_state_dict(blob['params'], strict=True)
+        return model, int(blob.get('step', 0))
     if path.endswith(('.pth', '.pt', '.ckpt')) and os.path.isfile(path):
         from mr_mt3_tpu_torch.utils.checkpoint_import import (
             load_torch_checkpoint)
-        missing, unexpected = model.load_state_dict(
-            load_torch_checkpoint(path), strict=False)
-        if unexpected:
-            print(f'load_weights: {len(unexpected)} checkpoint keys not '
-                  f'mapped (e.g. {unexpected[:3]})')
-        if strict and missing:
-            raise ValueError('strict weight load failed\n  missing: '
-                             + ', '.join(missing))
-        return model
+        _load_state_dict(model, load_torch_checkpoint(path), strict)
+        return model, 0
     if os.path.isdir(path):
-        raise NotImplementedError('Orbax checkpoints not yet ported')
+        from mr_mt3_tpu_torch.utils.checkpoint_import import (
+            jax_param_map, state_dict_from_jax_params)
+        from mr_mt3_tpu_torch.utils.orbax_read import read_orbax
+        params, step = read_orbax(path)
+        state_dict = state_dict_from_jax_params(params, model.cfg,
+                                                partial=True)
+        mapped = {p for _, p, _ in jax_param_map(params, model.cfg)}
+        unexpected = sorted('/'.join(p) for p in _tree_paths(params)
+                            if p not in mapped)
+        _load_state_dict(model, state_dict, strict, unexpected)
+        return model, step
     raise FileNotFoundError(path)
+
+
+def _tree_paths(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _tree_paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def load_weights(path: str, model: MT3, strict: bool = False) -> MT3:
+    """load_weights_and_step without the step: returns `model`."""
+    return load_weights_and_step(path, model, strict)[0]

@@ -12,7 +12,7 @@ state_dict, transposing Dense kernels (flax (in, out) -> torch (out, in)).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -34,20 +34,14 @@ _IGNORED_PATTERNS = (
 )
 
 
-def state_dict_from_jax_params(params: Mapping[str, Any],
-                               cfg: MT3Config) -> Dict[str, torch.Tensor]:
-    """JAX (flax) parameter tree of numpy arrays -> the port's state_dict."""
-    out: Dict[str, np.ndarray] = {}
-
-    def get(*path):
-        node = params
-        for k in path:
-            node = node[k]
-        return np.asarray(node, np.float32)
-
-    out['proj.weight'] = get('proj', 'kernel').T
-    out['decoder_embed_tokens.weight'] = get('token_embed', 'embedding')
-    out['lm_head.weight'] = get('lm_head', 'kernel').T
+def jax_param_map(params: Mapping[str, Any], cfg: MT3Config
+                  ) -> List[Tuple[str, Tuple[str, ...], bool]]:
+    """(state_dict key, JAX tree path, transpose) of every parameter `cfg`
+    has; the memory encoder's only where the tree holds one."""
+    out = [('proj.weight', ('proj', 'kernel'), True),
+           ('decoder_embed_tokens.weight', ('token_embed', 'embedding'),
+            False),
+           ('lm_head.weight', ('lm_head', 'kernel'), True)]
     stacks = [('encoder', cfg.num_encoder_layers, False),
               ('decoder', cfg.num_decoder_layers, True)]
     if cfg.has_segmem and 'segmem_encoder' in params:
@@ -57,26 +51,51 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
             block = f'block_{i}'
             prefix = f'{stack}.block.{i}.layer'
             for name in _ATTN:
-                out[f'{prefix}.0.SelfAttention.{name}.weight'] = get(
-                    stack, block, 'self_attn', name, 'kernel').T
-            out[f'{prefix}.0.layer_norm.weight'] = get(
-                stack, block, 'self_norm', 'weight')
+                out.append((f'{prefix}.0.SelfAttention.{name}.weight',
+                            (stack, block, 'self_attn', name, 'kernel'),
+                            True))
+            out.append((f'{prefix}.0.layer_norm.weight',
+                        (stack, block, 'self_norm', 'weight'), False))
             ff_layer = 1
             if is_decoder:
                 for name in _ATTN:
-                    out[f'{prefix}.1.EncDecAttention.{name}.weight'] = get(
-                        stack, block, 'cross_attn', name, 'kernel').T
-                out[f'{prefix}.1.layer_norm.weight'] = get(
-                    stack, block, 'cross_norm', 'weight')
+                    out.append((f'{prefix}.1.EncDecAttention.{name}.weight',
+                                (stack, block, 'cross_attn', name, 'kernel'),
+                                True))
+                out.append((f'{prefix}.1.layer_norm.weight',
+                            (stack, block, 'cross_norm', 'weight'), False))
                 ff_layer = 2
             for name in _FF:
-                out[f'{prefix}.{ff_layer}.DenseReluDense.{name}.weight'] = \
-                    get(stack, block, 'ff', name, 'kernel').T
-            out[f'{prefix}.{ff_layer}.layer_norm.weight'] = get(
-                stack, block, 'ff_norm', 'weight')
-        out[f'{stack}.final_layer_norm.weight'] = get(
-            stack, 'final_norm', 'weight')
-    return {k: torch.tensor(v) for k, v in out.items()}
+                out.append(
+                    (f'{prefix}.{ff_layer}.DenseReluDense.{name}.weight',
+                     (stack, block, 'ff', name, 'kernel'), True))
+            out.append((f'{prefix}.{ff_layer}.layer_norm.weight',
+                        (stack, block, 'ff_norm', 'weight'), False))
+        out.append((f'{stack}.final_layer_norm.weight',
+                    (stack, 'final_norm', 'weight'), False))
+    return out
+
+
+def state_dict_from_jax_params(params: Mapping[str, Any], cfg: MT3Config,
+                               partial: bool = False
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX (flax) parameter tree of numpy arrays -> the port's state_dict.
+
+    A leaf the tree lacks raises KeyError; with partial=True its parameter
+    is left out (it then shows as a missing key of load_state_dict)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, path, transpose in jax_param_map(params, cfg):
+        node = params
+        try:
+            for k in path:
+                node = node[k]
+        except KeyError:
+            if not partial:
+                raise
+            continue
+        value = np.asarray(node, np.float32)
+        out[key] = torch.tensor(value.T if transpose else value)
+    return out
 
 
 def load_torch_checkpoint(path) -> Dict[str, torch.Tensor]:

@@ -6,7 +6,8 @@ probabilities) breaks them, as chip_smoke requires on the card.
 
 Small shapes (d_model 64, 2 layers, B=8, a window of 8 at pos0 64); the
 readings are printed (-s). At the end, the Slakh and FLAC helpers of
-its native phase, serving and training main paths."""
+its native phase, serving and training main paths, and the helpers of
+the overfit, converted-T5X and adversarial phases."""
 
 import os
 
@@ -395,3 +396,124 @@ def test_multi_card_rank_legs_on_the_cpu(tmp_path, monkeypatch):
     read = chip_smoke.fp32_readings(on_cpu, gloo[0]['fp32']['ddp'],
                                     nccl['fp32']['plain'])
     assert read['params_apart_share'] == 0.0
+
+
+# ---- the overfit, converter and adversarial phases' helpers ----
+
+def test_overfit_songs_are_the_jax_tests_inside_the_trained_span(tmp_path):
+    """overfit_corpus writes tests/test_system_overfit.py's two songs
+    (its _tonal_song on the same seed: audio and notes equal), every note
+    inside the trained span, and the merged all_src_v2.mid holds them."""
+    import importlib.util
+
+    import numpy as np
+
+    from mr_mt3_tpu_torch.audio import read_wav
+    from mr_mt3_tpu_torch.midi import midi_file_to_note_sequence
+    spec = importlib.util.spec_from_file_location(
+        'jax_overfit_test', os.path.join(chip_smoke.REPO, 'tests',
+                                         'test_system_overfit.py'))
+    jax_test = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_test)
+    songs = chip_smoke.overfit_corpus(str(tmp_path))
+    rng = np.random.default_rng(0)
+    span = chip_smoke.OVERFIT_SPAN / 16000
+    for song in chip_smoke.OVERFIT_SONGS:
+        audio, notes = jax_test._tonal_song(rng)
+        assert songs[song] == notes
+        assert all(0 < start and end < span for start, end, _ in notes)
+        wav, sr = read_wav(tmp_path / song / 'mix_16k.wav')
+        assert sr == 16000 and np.abs(wav - audio).max() < 1e-4
+        merged = midi_file_to_note_sequence(tmp_path / song /
+                                            'all_src_v2.mid')
+        assert sorted(n.pitch for n in merged.notes) == \
+            sorted(p for _, _, p in notes)
+
+
+def test_t5x_tree_converts_with_no_missing_or_unexpected_key():
+    """t5x_tree at a small size, through the port's converter: exactly the
+    port model's keys and shapes, the state/ subtree dropped."""
+    from mr_mt3_tpu_torch.scripts import convert_weight
+    dims = dict(d_model=32, heads=4, d_kv=8, d_ff=48, vocab=64, mel_bins=16,
+                layers=(2, 3))
+    flat = {k: v for k, v in convert_weight.flatten_state_dict(
+        chip_smoke.t5x_tree(0, **dims)).items() if not k.startswith('state')}
+    state_dict = convert_weight.state_dict_from_t5x(flat)
+    want = MT3(MT3Config(vocab_size=64, d_model=32, d_kv=8, d_ff=48,
+                         num_heads=4, num_encoder_layers=2,
+                         num_decoder_layers=3, mel_bins=16)).state_dict()
+    assert set(state_dict) == set(want)
+    assert all(state_dict[k].shape == v.shape for k, v in want.items())
+
+
+ADV_TINY = dict(vocab_size=1536, d_model=32, d_kv=8, d_ff=48, num_heads=4,
+                num_encoder_layers=1, num_decoder_layers=2, mel_bins=16,
+                dropout_rate=0.0)
+
+
+def _adversarial_inputs(labels=512):
+    gen = torch.Generator().manual_seed(0)
+    mel = torch.randn((2, 8, 16), generator=gen)
+    ids = torch.randint(3, 1391, (2, labels), generator=gen)
+    return mel, ids
+
+
+def test_adversarial_attentions_counts_the_fused_calls(monkeypatch):
+    """One input gradient at 512 labels on the fused route (its plain
+    versions on the CPU) runs the attentions adversarial_attentions
+    counts: every decoder attention forward, all but the first layer's
+    self-attention backward; at 256 labels none."""
+    from mr_mt3_tpu_torch.models import adversarial
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    calls = {'fwd': 0, 'bwd': 0}
+
+    def counted(name, real):
+        def run(*args, **kw):
+            calls[name] += 1
+            return real(*args, **kw)
+        return run
+    monkeypatch.setattr(ta, 'fused_attention_reference',
+                        counted('fwd', ta.fused_attention_reference))
+    monkeypatch.setattr(ta, 'fused_attention_backward_reference',
+                        counted('bwd', ta.fused_attention_backward_reference))
+    cfg = MT3Config(**ADV_TINY, attention_kernel='fused')
+    model = init_params(MT3(cfg), seed=0).eval()
+    for labels in (512, 256):
+        calls.update(fwd=0, bwd=0)
+        mel, ids = _adversarial_inputs(labels)
+        adversarial.input_gradient(model, mel, ids)
+        assert (calls['fwd'], calls['bwd']) == \
+            chip_smoke.adversarial_attentions(cfg, labels)
+    assert chip_smoke.adversarial_attentions(cfg, 512) == (4, 3)
+
+
+def test_adversarial_sign_agreement_catches_the_negated_head():
+    """The readings on the CPU (the fused route's plain versions in bf16):
+    the kernel route and bf16 einsum agree with fp32 on most signs, the
+    kernel within the einsum route's noise; the control with head 0's
+    attention gradients negated is caught."""
+    cfg = MT3Config(**ADV_TINY)
+    weights = chip_smoke.adversarial_weights(cfg)
+
+    def make_model(**kw):
+        if kw.get('dtype') == 'bfloat16':
+            kw.setdefault('attention_kernel', 'fused')
+        model = MT3(cfg.replace(**kw))
+        model.load_state_dict(weights)
+        return model.eval()
+    mel, ids = _adversarial_inputs()
+    signs = chip_smoke.adversarial_gradient_readings(torch, make_model, mel,
+                                                     ids)
+    print(signs)
+    d = signs['disagree']
+    assert signs['n'] == mel.numel()
+    assert min(signs['share']['einsum'], signs['share']['kernel']) > 0.9
+    assert chip_smoke.within_einsum_noise(d['kernel'], d['einsum'])
+    assert not chip_smoke.within_einsum_noise(d['control'], d['einsum'])
+
+
+def test_within_einsum_noise_allows_three_sigmas():
+    assert chip_smoke.within_einsum_noise(3153, 3130)
+    assert chip_smoke.within_einsum_noise(3130 + 237, 3130)
+    assert not chip_smoke.within_einsum_noise(3130 + 250, 3130)
+    assert not chip_smoke.within_einsum_noise(167803, 3130)

@@ -71,6 +71,23 @@ NATIVE_AND_SCRIPT_MODULES = (
 PARALLEL_MODULES = ('parallel/__init__.py', 'parallel/mesh.py')
 
 
+# weights from the JAX side (Orbax, T5X) and the last host modules
+WEIGHTS_AND_HOST_MODULES = (
+    'utils/orbax_read.py', 'scripts/convert_weight.py',
+    'models/adversarial.py', 'utils/profiling.py',
+    'scripts/convert_nsynth_json_to_midi.py', 'scripts/parse_nsynth_valid.py',
+    'scripts/evaluate_nsynth_json.py', 'scripts/commu_const.py',
+    'scripts/create_commu_test_split.py', 'scripts/render_commu.py')
+
+# optional packages the port imports only inside the one function that
+# needs them, so it imports without them: (package, (module, function))
+LAZY_IMPORTS = {
+    'tensorstore': {('utils/orbax_read.py', 'read_orbax')},
+    'pandas': {('scripts/create_commu_test_split.py', 'main'),
+               ('scripts/render_commu.py', 'render_split')},
+}
+
+
 def _covered():
     return {p.relative_to(PORT).as_posix() for p in _port_sources()
             if PORT in p.parents}
@@ -98,6 +115,35 @@ def test_sources_cover_the_native_and_script_modules():
 
 def test_sources_cover_the_parallel_modules():
     assert set(PARALLEL_MODULES) <= _covered()
+
+
+def test_sources_cover_the_weights_and_host_modules():
+    assert set(WEIGHTS_AND_HOST_MODULES) <= _covered()
+
+
+def test_optional_packages_are_imported_only_where_needed():
+    """tensorstore and pandas are imported by no module at its top level,
+    only inside the functions LAZY_IMPORTS names."""
+    found = {name: set() for name in LAZY_IMPORTS}
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        rel = (path.relative_to(PORT).as_posix() if PORT in path.parents
+               else path.name)
+        owners = {}
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    owners.setdefault(id(node), fn.name)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            for name in names:
+                top = name.split('.')[0]
+                if top in found:
+                    found[top].add((rel, owners.get(id(node))))
+    assert found == LAZY_IMPORTS
 
 
 @pytest.mark.parametrize('path', _port_sources(),
