@@ -224,8 +224,22 @@ Phases (any failure exits non-zero and prints no result line):
      parameters further than the CPU tests' 1e-5 apart, each of them an
      element whose gradient the sum orders' noise can turn
      (fp32_readings), and get_scores on two ranks equal to one process's, each
-     rank's log-mel launches equal to its _compute_mel calls. A child's
-     failure, or its running past MULTI_RANK_TIMEOUT_S, fails the phase.
+     rank's log-mel launches equal to its _compute_mel calls; (c) the
+     model axis (tensor parallelism, parallel/tensor.py), six more children
+     (tp_rank) on gloo ranks sharing the card: two ranks at model=2
+     decoding the vanilla model in fp32 at none (tokens equal to the
+     one-replica handler's on the same 24 segments, log-mel launches equal
+     to the _compute_mel calls, the step loops eager: graphs false) and
+     the bf16 segment-memory model's contiguous chain at max_length 512
+     (fused_attention_fwd launches equal to each rank's long attentions,
+     on H = 3 heads; tokens against the one-rank handler's by
+     classify_flips' margin rule, none material), and a data=2 x model=2
+     grid of four ranks training the bf16 model (forward and backward
+     launches equal to the long attentions on each rank, on 3 heads, every
+     rank's gathered parameters and metrics equal) and the fp32 model
+     against the one-process run (fp32_readings); quantize=fused_int4 on a
+     model=2 mesh raises. A child's failure, or its running past
+     MULTI_RANK_TIMEOUT_S, fails the phase.
  12b. overfit on the card (overfit_on_card): tests/test_system_overfit.py
      at its size in fp32, its songs from overfit_corpus, trained with the
      port's train step until the loss < 0.2 within 400 steps; the trained
@@ -2257,6 +2271,8 @@ ATTN_CASES = [
     ('parity_d24_b8', 8, 1024, 1024, 4, 24, False),
     ('ragged_causal_520_b8', 8, 520, 520, 6, 64, True),
     ('long_kv_1024x4096_b2', 2, 1024, 4096, 6, 64, False),
+    # a model=2 rank's heads of the memory encoder (the model axis)
+    ('memory_encoder_tp_h3_b8', 8, 1024, 1024, 3, 64, False),
 ]
 
 
@@ -2408,6 +2424,8 @@ ATTN_BWD_CASES = [
     ('d24_b12', 12, 1024, 1024, 4, 24, False),
     ('ragged_causal_520_b12', 12, 520, 520, 6, 64, True),
     ('long_kv_1024x4096_b2', 2, 1024, 4096, 6, 64, False),
+    # a model=2 rank's heads of the memory encoder (the model axis)
+    ('memory_encoder_tp_h3_b8', 8, 1024, 1024, 3, 64, False),
 ]
 
 
@@ -4083,8 +4101,9 @@ class PlainInt8(Patches):
         from mr_mt3_tpu_torch.ops import int8_attention as i8a
         from mr_mt3_tpu_torch.ops import int8_matmul as i8m
         super().__init__()
-        self.patch(fast_decode, 'use_graphs', lambda real, device, graphs:
-                   real(device, False))
+        self.patch(fast_decode, 'use_graphs',
+                   lambda real, device, graphs, tp=None:
+                   real(device, False, tp))
         for mod, name, plain in (
                 (i8m, 'int8_matmul', i8m.int8_matmul_reference),
                 (i8m, 'int8_gated_ff', i8m.int8_gated_ff_reference),
@@ -6260,9 +6279,10 @@ def multi_card_rank(leg, rank, world, store, backend=None, kind='cuda'):
     parallel.shutdown()
 
 
-def fp32_readings(torch, ddp_metrics, one_metrics):
-    """The fp32 leg: two gloo ranks against one process on the whole
-    batch, from the same weights. The first step computes one function in
+def fp32_readings(torch, ddp_metrics, one_metrics, two='ddp',
+                  label='fp32, two gloo ranks vs one process'):
+    """The fp32 leg: two gloo ranks (or, two='tp', the model axis's 2x2
+    grid) against one process on the whole batch, from the same weights. The first step computes one function in
     other sum orders (the loss split over the ranks, the gradients
     averaged), so its loss and its reduced gradients are held to the
     card's fp32 sum-order bounds (TRAIN_PARITY_BOUNDS['f32_plain_vs_
@@ -6286,7 +6306,7 @@ def fp32_readings(torch, ddp_metrics, one_metrics):
         read[f'{key}_rel_first'] = rel[0]
         read[f'{key}_rel_max'] = max(rel)
     one_g, two_g = (torch.load(os.path.join(MULTI_DIR, f'fp32_{w}_grads.pt'),
-                               map_location='cuda') for w in ('plain', 'ddp'))
+                               map_location='cuda') for w in ('plain', two))
     first, noise = {}, {}
     for k, g in one_g[0].items():
         d = two_g[0][k] - g
@@ -6303,7 +6323,7 @@ def fp32_readings(torch, ddp_metrics, one_metrics):
                                                 for v in first.values())
     read['grad_norm_rel'] = max(v[1] for v in first.values())
     one, two = (torch.load(os.path.join(MULTI_DIR, f'fp32_{w}.pt'),
-                           map_location='cuda') for w in ('plain', 'ddp'))
+                           map_location='cuda') for w in ('plain', two))
     start = training_model(torch, training_configs()[1], 'auto',
                            seed=1).state_dict()
     read['param_max_apart'] = max(float((one[k] - two[k]).abs().max())
@@ -6332,12 +6352,10 @@ def fp32_readings(torch, ddp_metrics, one_metrics):
         / sum(float(((one[k] - start[k]).double() ** 2).sum())
               for k in one))
     del one, two, start, g1, noise
-    print(f'fp32, two gloo ranks vs one process: {json.dumps(read)}',
-          flush=True)
+    print(f'{label}: {json.dumps(read)}', flush=True)
     for key, bound in MULTI_FP32_BOUNDS.items():
         if read[key] > bound:
-            fail(f'fp32 DDP against one process: {key} {read[key]} > '
-                 f'{bound}')
+            fail(f'{label}: {key} {read[key]} > {bound}')
     return read
 
 
@@ -6347,6 +6365,379 @@ def start_rank(leg, rank, world, store):
     return subprocess.Popen([sys.executable, '-c', code], cwd=REPO,
                             stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+# The model axis (tensor parallelism) on the one card: gloo ranks sharing
+# cuda:0 (NCCL refuses two ranks on one device), started beside the data
+# axis's children. tp_decode: two ranks, model=2, the vanilla model
+# (MT3Config(), fp32, seed 0) on the replicas leg's MULTI_VANILLA_SEGMENTS
+# segments at MULTI_MAX_LENGTH in one call (the rows are independent:
+# the tokens equal those of its calls of 8), then the paper's bf16
+# segment-memory model (seed 0) on TP_SEGMEM_SEGMENTS segments of one
+# contiguous chain at MAIN_PATH_MAX_LENGTH (the memory encoder reads L =
+# max_length and takes the attention kernel from 512 on), both at
+# quantize='none'. tp_train: four ranks, data=2 x model=2, the training
+# legs' bf16 and fp32 models on multi_train_batch's 3-row batch of 1024
+# targets. A decode step makes 26 collectives at full width, and a gloo
+# collective takes ~1.1-1.2 ms on the card's host whether its tensor is
+# on the card or not (probes/tp_collectives.py): the legs' seconds say
+# nothing of tensor parallelism's speed.
+TP_SEGMEM_SEGMENTS = 2
+TP_SEGMEM_SEED = 11
+TP_MODEL = 2
+
+
+class HeadsLog(Patches):
+    """Records the (B, L, H, D) shape of every q the attention kernels'
+    launches read (ops/train_attention.py's fused_attention_cuda and
+    fused_attention_backward_cuda) until closed."""
+
+    def __init__(self):
+        from mr_mt3_tpu_torch.ops import train_attention as ta
+        super().__init__()
+        self.fwd, self.bwd = [], []
+
+        def recording(into):
+            def wrapper(real, q, *args, **kw):
+                into.append(list(q.shape))
+                return real(q, *args, **kw)
+            return wrapper
+        self.patch(ta, 'fused_attention_cuda', recording(self.fwd))
+        self.patch(ta, 'fused_attention_backward_cuda', recording(self.bwd))
+
+
+def tp_segmem_mel():
+    """The segment-memory leg's log-mel input: TP_SEGMEM_SEGMENTS segments
+    of seeded noise, (S, 256, 512) float32 (numpy, the same bits in the
+    children and in the parent)."""
+    import numpy as np
+    rng = np.random.default_rng(TP_SEGMEM_SEED)
+    return (rng.normal(size=(TP_SEGMEM_SEGMENTS, 256, 512)) * 0.5
+            ).astype(np.float32)
+
+
+def tp_vanilla_audio():
+    """The vanilla leg's audio: decode_replicas' (seed 7)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=MULTI_VANILLA_SEGMENTS * 256 * 128) * 0.1
+            ).astype(np.float32)
+
+
+def segmem_model(torch, kind='cuda'):
+    """The paper's segment-memory model as serve.build_handler(SEGMEM_ARGS)
+    builds it: bf16, seed-0 random weights."""
+    from mr_mt3_tpu_torch import serve
+    return serve.build_handler(
+        SEGMEM_ARGS + (['device=cpu'] if kind == 'cpu' else [])).model
+
+
+def tp_rank(leg, rank, world, store, kind='cuda'):
+    """One child of the multi_card phase's model axis (`python -c "import
+    chip_smoke; chip_smoke.tp_rank(...)"`), on a gloo group sharing the
+    card; its results to MULTI_DIR/<leg>_rank<rank>.json (arrays beside
+    them, .npy / .pt).
+
+    leg 'tp_decode' (two ranks, model=2): the vanilla model's TP handler
+    on the decode_replicas audio (log-mel launches and _compute_mel calls
+    counted), the tokens and the mel saved; then the segment-memory
+    model's contiguous chain (fused_attention_fwd launches, long
+    attentions and the heads the kernel read counted), the tokens saved.
+    leg 'tp_train'
+    (four ranks, data=2 x model=2): MULTI_BF16_STEPS steps of the bf16
+    segment-memory model (attention launches, long attentions and heads
+    counted; each parameter's sum, gathered whole), MULTI_TRAIN_STEPS fp32
+    steps, every step's gradients and the parameters after them gathered
+    whole and saved by rank 0 for fp32_readings. kind 'cpu' serves a
+    rehearsal on the CPU with the models swapped for tiny ones."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    from mr_mt3_tpu_torch import parallel
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.ops import mel_kernel as mk
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    from mr_mt3_tpu_torch.parallel import tensor as tp_ops
+    from mr_mt3_tpu_torch.train import optim, trainer
+    from mr_mt3_tpu_torch.utils import builders
+
+    parallel.init_multihost(backend='gloo', init_method=f'file://{store}')
+    dev = parallel.rank_device(kind)
+    mesh = parallel.Mesh((dev,) * world, model=TP_MODEL)
+    out = {'rank': rank, 'world': world, 'device': str(dev),
+           'mesh': mesh.shape, 'data_index': mesh.data_index(),
+           'model_index': mesh.model_index()}
+    t0 = time.monotonic()
+    laps = out['laps'] = {}
+    torch.set_num_threads(2)
+
+    def lap(name):
+        laps[name] = round(time.monotonic() - t0, 3)
+
+    if leg == 'tp_decode':
+        model = builders.init_params(MT3(MT3Config()), seed=0).to(dev)
+        lap('vanilla_model')
+        handler = InferenceHandler(model=model, mesh=mesh,
+                                   max_length=MULTI_MAX_LENGTH,
+                                   batch_size=MULTI_VANILLA_SEGMENTS)
+        segments, _, valid = handler._audio_to_segments(tp_vanilla_audio())
+        mk.LAUNCHES[mk.KERNEL] = 0
+        mels = MelLog()
+        try:
+            mel = handler._compute_mel(segments[:MULTI_VANILLA_SEGMENTS],
+                                       valid[:MULTI_VANILLA_SEGMENTS])
+            lap('vanilla_mel')
+            tokens = handler._decode_all(mel)
+            lap('vanilla_decode')
+        finally:
+            mels.close()
+        out['vanilla'] = {'logmel': mk.LAUNCHES[mk.KERNEL],
+                          'compute_mel_calls': mels.calls,
+                          'graphs': handler.capture_graphs(),
+                          'local_heads':
+                              model.decoder.block[0].self_attn.n_heads,
+                          'seconds': time.monotonic() - t0}
+        if rank == 0:
+            np.save(os.path.join(MULTI_DIR, 'tp_vanilla_tokens.npy'), tokens)
+            np.save(os.path.join(MULTI_DIR, 'tp_vanilla_mel.npy'),
+                    mel.float().cpu().numpy())
+        del handler, model
+        model = segmem_model(torch, kind)
+        lap('segmem_model')
+        handler = InferenceHandler(model=model, mesh=mesh,
+                                   max_length=MAIN_PATH_MAX_LENGTH,
+                                   contiguous_inference=True,
+                                   segment_bucket=1)
+        ta.LAUNCHES[ta.KERNEL] = 0
+        log, heads = TrainLog(torch, time_steps=False), HeadsLog()
+        try:
+            with torch.no_grad():
+                tokens = handler._decode_all(
+                    torch.as_tensor(tp_segmem_mel(), device=dev))
+        finally:
+            log.close()
+            heads.close()
+        lap('segmem_decode')
+        out['segmem'] = {'launches': ta.LAUNCHES[ta.KERNEL],
+                         'long_attentions': log.fwd, 'kernel_q': heads.fwd,
+                         'seconds': laps['segmem_decode']
+                         - laps['vanilla_decode']}
+        if rank == 0:
+            np.save(os.path.join(MULTI_DIR, 'tp_segmem_tokens.npy'), tokens)
+    else:
+        cfg, f32 = training_configs()
+        batches = [multi_train_batch(50 + i)
+                   for i in range(MULTI_TRAIN_STEPS)]
+
+        def run(config, steps, loss_type, keep=None):
+            model = tp_ops.shard_model(
+                training_model(torch, config, 'auto', seed=1), mesh)
+            opt = optim.make_optimizer(**MULTI_OPTIMIZER)
+            state = trainer.create_train_state(model, opt)
+            kept = []
+            if keep is not None:
+                real_step = opt.step
+                names = [n for n, _ in model.named_parameters()]
+
+                def keeping(grads):
+                    kept.append({n: tp_ops.full_tensor(g, n, model.tp)
+                                 .detach().clone()
+                                 for n, g in zip(names, grads)})
+                    return real_step(grads)
+                opt.step = keeping
+            step = trainer.make_train_step(loss_type)
+            metrics = []
+            for batch in batches[:steps]:
+                part = parallel.shard_batch(batch, mesh.n_data,
+                                            mesh.data_index())
+                m = step(state, part, None)
+                metrics.append({k: float(v) for k, v in m.items()})
+            if keep:
+                torch.save(kept, keep)
+            return model, state, metrics
+
+        ta.LAUNCHES[ta.KERNEL] = ta.LAUNCHES[ta.KERNEL_BWD] = 0
+        log, heads = TrainLog(torch, time_steps=False), HeadsLog()
+        try:
+            model, state, bf16_m = run(cfg, MULTI_BF16_STEPS, 'ce')
+        finally:
+            log.close()
+            heads.close()
+        lap('bf16')
+        full = tp_ops.full_state_dict(model)
+        out['bf16'] = {'metrics': bf16_m, 'ddp': state.ddp is not None,
+                       'launches': {k: ta.LAUNCHES[k] for k in
+                                    (ta.KERNEL, ta.KERNEL_BWD)},
+                       'long_attentions': {'forward': log.fwd,
+                                           'backward': log.bwd},
+                       'kernel_q': {'forward': heads.fwd,
+                                    'backward': heads.bwd},
+                       'param_sums': {k: float(v.double().sum())
+                                      for k, v in full.items()}}
+        del model, state, full
+        # the first data index's model group keeps the gradients; rank 0
+        # writes them and the parameters
+        keep = mesh.data_index() == 0
+        model, _, f32_m = run(
+            f32, MULTI_TRAIN_STEPS, 'weighted',
+            keep=(os.path.join(MULTI_DIR, 'fp32_tp_grads.pt')
+                  if rank == 0 else '') if keep else None)
+        full = tp_ops.full_state_dict(model)
+        if rank == 0:
+            torch.save(full, os.path.join(MULTI_DIR, 'fp32_tp.pt'))
+        out['fp32'] = {'tp': f32_m}
+        del model, full
+        lap('fp32')
+    out['seconds'] = time.monotonic() - t0
+    with open(os.path.join(MULTI_DIR, f'{leg}_rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    parallel.barrier()
+    parallel.shutdown()
+
+
+def start_tp_rank(leg, rank, world, store):
+    code = (f'import chip_smoke; chip_smoke.tp_rank({leg!r}, {rank}, '
+            f'{world}, {store!r})')
+    return subprocess.Popen([sys.executable, '-c', code], cwd=REPO,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def tp_references(torch):
+    """The parent's side of the model axis: quantize='fused_int4' on a
+    model=2 mesh raises before any collective; the one-rank handler's
+    contiguous chain of the segment-memory model (the tp_segmem leg's
+    reference). Returns (the refusal's message, the one-rank handler, its
+    tokens, the mel)."""
+    from mr_mt3_tpu_torch.infer import InferenceHandler
+    from mr_mt3_tpu_torch.models import MT3, MT3Config
+    from mr_mt3_tpu_torch.parallel import Mesh
+    dev = torch.device('cuda', 0)
+    try:
+        InferenceHandler(model=MT3(MT3Config()), quantize='fused_int4',
+                         mesh=Mesh((dev, dev), model=TP_MODEL))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail('quantize=fused_int4 on a model=2 mesh did not raise')
+    if 'model axis' not in refusal:
+        fail(f'the model-axis refusal does not name it: {refusal}')
+    one = InferenceHandler(model=segmem_model(torch), device=dev,
+                           max_length=MAIN_PATH_MAX_LENGTH,
+                           contiguous_inference=True, segment_bucket=1)
+    mel = torch.as_tensor(tp_segmem_mel(), device=dev)
+    return refusal, one, one._decode_all(mel), mel
+
+
+def tp_checks(torch, refs, vanilla_tokens, vanilla_mel, one_metrics):
+    """The model axis's children against their references: the vanilla
+    tokens equal the one-replica handler's (decode_replicas, the same
+    rows), log-mel launches equal the _compute_mel calls; the segment-
+    memory chain against the one-rank handler by classify_flips' margin
+    rule, fused_attention_fwd launches equal to the long attentions on
+    each rank, on H / TP_MODEL heads; the 2x2 training's launches likewise
+    (forward and backward), every rank's gathered parameters equal, the
+    fp32 leg against the one-process step by fp32_readings."""
+    import numpy as np
+
+    from mr_mt3_tpu_torch.infer.probe import classify_flips
+    from mr_mt3_tpu_torch.ops import train_attention as ta
+    refusal, one, one_tokens, mel = refs
+    dec = [json.load(open(os.path.join(MULTI_DIR,
+                                       f'tp_decode_rank{r}.json')))
+           for r in range(TP_MODEL)]
+    train = [json.load(open(os.path.join(MULTI_DIR,
+                                         f'tp_train_rank{r}.json')))
+             for r in range(2 * TP_MODEL)]
+    heads = one.cfg.num_heads // TP_MODEL
+    got = np.load(os.path.join(MULTI_DIR, 'tp_vanilla_tokens.npy'))
+    mel_equal = bool(np.array_equal(
+        np.load(os.path.join(MULTI_DIR, 'tp_vanilla_mel.npy')),
+        vanilla_mel))
+    vanilla_equal = bool(np.array_equal(got, vanilla_tokens))
+    print(f'TP vanilla (model={TP_MODEL}, fp32, none): tokens equal '
+          f'{vanilla_equal} (the mel equal {mel_equal}); '
+          + '; '.join(f'rank {d["rank"]}: logmel {d["vanilla"]["logmel"]} '
+                      f'for {d["vanilla"]["compute_mel_calls"]} '
+                      f'_compute_mel calls, graphs {d["vanilla"]["graphs"]}, '
+                      f'{d["vanilla"]["seconds"]:.1f} s' for d in dec),
+          flush=True)
+    if not vanilla_equal:
+        fail(f'TP vanilla tokens differ from one replica\'s (mel equal '
+             f'{mel_equal})')
+    for d in dec:
+        v = d['vanilla']
+        if v['logmel'] != v['compute_mel_calls'] or v['logmel'] < 1:
+            fail(f'TP rank {d["rank"]}: logmel launches {v["logmel"]} for '
+                 f'{v["compute_mel_calls"]} _compute_mel calls')
+        if v['local_heads'] != heads or v['graphs'].get('graphs') is not \
+                False:
+            fail(f'TP rank {d["rank"]}: {v}')
+    seg = np.load(os.path.join(MULTI_DIR, 'tp_segmem_tokens.npy'))
+    flips = {'material_rows': 0, 'benign_rows': 0}
+    if not np.array_equal(seg, one_tokens):
+        flips = classify_flips(one, seg, one_tokens, mel)
+    print(f'TP segmem chain (bf16, none, max_length '
+          f'{MAIN_PATH_MAX_LENGTH}): tokens equal '
+          f'{bool(np.array_equal(seg, one_tokens))}, flips {flips}; '
+          + '; '.join(f'rank {d["rank"]}: fused_attention_fwd '
+                      f'{d["segmem"]["launches"]} for '
+                      f'{d["segmem"]["long_attentions"]} long attentions, q '
+                      f'{d["segmem"]["kernel_q"]}, '
+                      f'{d["segmem"]["seconds"]:.1f} s (laps {d["laps"]})'
+                      for d in dec),
+          flush=True)
+    if flips['material_rows']:
+        fail(f'TP segmem tokens: material flips {flips}')
+    for d in dec:
+        s = d['segmem']
+        if s['launches'] != s['long_attentions'] or s['launches'] < 1 or \
+                any(q[2] != heads for q in s['kernel_q']):
+            fail(f'TP segmem rank {d["rank"]}: {s}')
+    for t in train:
+        b = t['bf16']
+        losses = [m['loss'] for m in b['metrics']]
+        print(f'TP train rank {t["rank"]} (data {t["data_index"]}, model '
+              f'{t["model_index"]}): bf16 losses {losses}, attention '
+              f'launches {b["launches"]} for {b["long_attentions"]} long '
+              f'attentions, heads read '
+              f'{sorted({q[2] for q in b["kernel_q"]["forward"]})} / '
+              f'{sorted({q[2] for q in b["kernel_q"]["backward"]})}, '
+              f'{t["seconds"]:.1f} s (laps {t["laps"]})', flush=True)
+        if b['launches'][ta.KERNEL] != b['long_attentions']['forward'] or \
+                b['launches'][ta.KERNEL_BWD] != \
+                b['long_attentions']['backward'] or \
+                b['long_attentions']['backward'] < 1 or not b['ddp'] or \
+                any(q[2] != heads for q in b['kernel_q']['forward']
+                    + b['kernel_q']['backward']) or \
+                not all(math.isfinite(x) for x in losses):
+            fail(f'TP train rank {t["rank"]}: {b}')
+        if b['param_sums'] != train[0]['bf16']['param_sums']:
+            fail(f'TP train: rank {t["rank"]}\'s gathered parameters differ '
+                 'from rank 0\'s')
+        if b['metrics'] != train[0]['bf16']['metrics'] or \
+                t['fp32']['tp'] != train[0]['fp32']['tp']:
+            fail(f'TP train: rank {t["rank"]}\'s metrics differ')
+    fp32 = fp32_readings(torch, train[0]['fp32']['tp'], one_metrics,
+                         two='tp', label='fp32, 2x2 TP grid vs one process')
+    return {'refusal': refusal, 'vanilla_tokens_equal': vanilla_equal,
+            'vanilla_mel_equal': mel_equal,
+            'segmem_tokens_equal': bool(np.array_equal(seg, one_tokens)),
+            'segmem_flips': flips,
+            'decode_ranks': dec,
+            'train_ranks': [{k: t[k] for k in ('rank', 'data_index',
+                                               'model_index', 'seconds',
+                                               'laps')}
+                            | {'bf16': {k: v for k, v in t['bf16'].items()
+                                        if k != 'param_sums'}}
+                            for t in train],
+            'fp32': fp32}
 
 
 def decode_replicas(torch):
@@ -6383,6 +6774,8 @@ def decode_replicas(torch):
         MULTI_CHAINS * 8, 256, 512)) * 0.5).astype(np.float32), device=dev)
         for _ in range(2)]
     results = {}
+    # the model axis's vanilla reference: one replica's exact tokens
+    refs = {'vanilla_mel': mel.float().cpu().numpy()}
     for tier in MULTI_TIERS:
         kw = dict(quantize=tier, max_length=MULTI_MAX_LENGTH, batch_size=8)
         for name, model in (('vanilla', vanilla), ('segmem', segmem)):
@@ -6422,6 +6815,8 @@ def decode_replicas(torch):
                 two_s = time.monotonic() - t0
             finally:
                 log.close()
+            if (name, tier) == ('vanilla', 'none'):
+                refs['vanilla_tokens'] = want
             equal = (np.array_equal(got, want) if name == 'vanilla'
                      else all(np.array_equal(g, w)
                               for g, w in zip(got, want)))
@@ -6458,15 +6853,18 @@ def decode_replicas(torch):
                 fail(f'{name} {tier}: window launches {per_replica}')
             del one, two
     torch.cuda.empty_cache()
-    return results
+    return results, refs
 
 
 def multi_card(torch):
-    """The data axis on the one card: decode replicas (decode_replicas)
-    in this process while three children (multi_card_rank) run a one-rank
-    NCCL group and two gloo ranks sharing the card; every child's failure
-    or timeout fails the phase."""
-    phase('multi-card: replicas, DDP ranks, multi-process eval')
+    """Both axes on the one card: decode replicas (decode_replicas) and
+    the model axis's references (tp_references) in this process while
+    three children (multi_card_rank) run a one-rank NCCL group and two
+    gloo ranks sharing the card, and six more (tp_rank) the model axis on
+    gloo ranks sharing it: two decoding at model=2 and a data=2 x model=2
+    grid training; then the checks of both axes (tp_checks for the model
+    axis). Every child's failure or timeout fails the phase."""
+    phase('multi-card: replicas, DDP ranks, multi-process eval, model axis')
     import shutil
 
     from mr_mt3_tpu_torch.ops import train_attention as ta
@@ -6479,11 +6877,19 @@ def multi_card(torch):
              **{('gloo', r): start_rank('gloo', r, 2,
                                         os.path.join(MULTI_DIR,
                                                      'gloo.store'))
-                for r in range(2)}}
+                for r in range(2)},
+             **{(leg, r): start_tp_rank(leg, r, world,
+                                        os.path.join(MULTI_DIR,
+                                                     f'{leg}.store'))
+                for leg, world in (('tp_decode', TP_MODEL),
+                                   ('tp_train', 2 * TP_MODEL))
+                for r in range(world)}}
     t0 = time.monotonic()
     try:
-        replicas = decode_replicas(torch)
+        replicas, one_replica = decode_replicas(torch)
         replicas_s = time.monotonic() - t0
+        tp_refs = tp_references(torch)
+        tp_refs_s = time.monotonic() - t0 - replicas_s
         logs = {}
         for key, proc in procs.items():
             left = MULTI_RANK_TIMEOUT_S - (time.monotonic() - t0)
@@ -6545,6 +6951,9 @@ def multi_card(torch):
                      f'{ev["compute_mel_calls"]} _compute_mel calls')
         if set(one) != SCORE_KEYS or one['Onset F1'] < 0.5:
             fail(f'the parity model scores {one} in one process')
+        tp = tp_checks(torch, tp_refs, one_replica['vanilla_tokens'],
+                       one_replica['vanilla_mel'], nccl['fp32']['plain'])
+        tp['references_seconds'] = tp_refs_s
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -6564,7 +6973,8 @@ def multi_card(torch):
                      'ranks': [{k: g['eval'][k] for k in
                                 ('logmel', 'compute_mel_calls', 'seconds')}
                                for g in gloo],
-                     'one_process_seconds': nccl['eval']['seconds']}}
+                     'one_process_seconds': nccl['eval']['seconds']},
+            'model_axis': tp}
 
 
 def main():
@@ -6701,6 +7111,12 @@ def main():
             'fused_attention_fwd'],
         'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_fwd']
                                  for r in ranks],
+        'tp_decode_launches_by_rank': [
+            r['segmem']['launches'] for r in multi['model_axis'][
+                'decode_ranks']],
+        'tp_train_launches_by_rank': [
+            r['bf16']['launches']['fused_attention_fwd']
+            for r in multi['model_axis']['train_ranks']],
         'cases': attn_cases})
     enc = next(c for c in bwd_cases if c['case'] == 'memory_encoder_b12')
     kernels.append({
@@ -6719,6 +7135,9 @@ def main():
             'fused_attention_bwd'],
         'ddp_launches_by_rank': [r['bf16']['launches']['fused_attention_bwd']
                                  for r in ranks],
+        'tp_train_launches_by_rank': [
+            r['bf16']['launches']['fused_attention_bwd']
+            for r in multi['model_axis']['train_ranks']],
         'cases': bwd_cases})
     notes = {
         'int8_matmul': 'torch._weight_int8pack_mm (x, W (N, K) int8 '
@@ -6797,6 +7216,9 @@ def main():
         'segmem_path_launches': segmem['launches']['logmel'],
         'multi_process_eval_launches_by_rank': [
             r['logmel'] for r in multi['eval']['ranks']],
+        'tp_decode_launches_by_rank': [
+            r['vanilla']['logmel']
+            for r in multi['model_axis']['decode_ranks']],
         'overfit_launches': overfit['none']['logmel_launches'],
         'converted_t5x_launches': {
             tier: t5x[tier]['launches']['logmel']

@@ -16,6 +16,14 @@ as the JAX handler's shard_map does: each mesh device holds a replica of
 the model and its decode parameters, each device call's rows split into
 n_data equal contiguous parts, part i decodes on replica i on a host
 thread of its own, and the tokens are gathered back in row order.
+
+With a model axis above 1 (tensor parallelism, the JAX handler's jit over
+param_shardings) the handler is one rank of the mesh's grid: the model is
+sharded in place (parallel/tensor.py::shard_model), each call's rows split
+over the data index, the rank's model group decodes its part on the exact
+tier with the collectives in the step, and the tokens are all-gathered
+over the data group, so every rank returns every row. The quantized tiers
+read whole weight matrices and are refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +60,8 @@ from mr_mt3_tpu_torch.ops.decode import (
     segmem_greedy_decode,
 )
 from mr_mt3_tpu_torch.ops.mel_kernel import logmel
+from mr_mt3_tpu_torch.parallel import all_gather_cat
+from mr_mt3_tpu_torch.parallel.tensor import shard_model
 from mr_mt3_tpu_torch.utils.device import resolve_device
 
 
@@ -122,7 +132,11 @@ class InferenceHandler:
         lockstep songs) shards over its data axis, one model replica a
         device (the handler's device is the mesh's first). batch_size is
         then per device and never rounded, as in the JAX handler: for the
-        segment-memory models it is the chain length.
+        segment-memory models it is the chain length. A mesh with a model
+        axis above 1 is a grid of the process group's ranks: this rank
+        (its device devices[rank]) holds its shard of `model`, sharded in
+        place unless it already is, and decodes with its model group at
+        quantize='none' only (the other tiers raise ValueError).
     """
 
     SAMPLE_RATE = 16000
@@ -141,26 +155,37 @@ class InferenceHandler:
                  device=None,
                  segmem_chain: bool = True,
                  segmem_memory_format: str = 'reference'):
+        check_quantize(quantize)
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.model > 1
+        if self.sharded and quantize != 'none':
+            raise ValueError(
+                f'quantize={quantize!r} is not supported with a model axis '
+                '> 1: the decode kernels read whole weight matrices. Use a '
+                'data-only mesh for quantized serving, or quantize=\'none\' '
+                'for tensor parallelism.')
         if mesh is None:
             self.device = resolve_device(device)
         else:
-            self.device = mesh.devices[0]
+            self.device = mesh.rank_device()
             if device is not None and resolve_device(device) != self.device:
                 raise ValueError(f'device {device} is not the mesh\'s '
-                                 f'first device {self.device}')
-        check_quantize(quantize)
+                                 f'device {self.device} for this rank')
         if model is None:
             if weight_path is None:
                 raise ValueError('need model or weight_path')
             from mr_mt3_tpu_torch.models import MT3Config
             from mr_mt3_tpu_torch.utils.builders import load_weights
             model = load_weights(weight_path, MT3(MT3Config()))
+        if self.sharded and model.tp is None:
+            shard_model(model, mesh)
         self.model = model.to(self.device).eval()
         self.cfg = model.cfg
         self.n_data = 1 if mesh is None else mesh.n_data
-        self.replicas = [Replica(self.model, self.device)] + [
-            Replica(copy.deepcopy(self.model).to(d).eval(), d)
-            for d in (mesh.devices[1:] if mesh is not None else ())]
+        self.replicas = [Replica(self.model, self.device)]
+        if mesh is not None and not self.sharded:
+            self.replicas += [Replica(copy.deepcopy(self.model).to(d).eval(),
+                                      d) for d in mesh.devices[1:]]
         self.mel_norm = mel_norm
         self.contiguous_inference = contiguous_inference
         self.segmem_chain = segmem_chain
@@ -197,6 +222,10 @@ class InferenceHandler:
         from mr_mt3_tpu_torch.ops.fast_decode import capture_phases
         if self.device.type != 'cuda':
             return {}
+        if self.sharded and self.model.tp.backend() == 'gloo':
+            return {'graphs': False,
+                    'reason': 'tensor-parallel decode over gloo runs its '
+                              'step loops eagerly'}
         parts = []
         for replica in self.replicas:
             with torch.cuda.device(replica.device):
@@ -291,9 +320,18 @@ class InferenceHandler:
         leading axis (a multiple of n_data) in n_data equal contiguous
         parts, part i on replica i, each on a host thread of its own (a
         step loop's exit check waits on its device; from one thread the
-        devices would take turns); the tokens gathered in row order."""
+        devices would take turns); the tokens gathered in row order. On
+        a model axis part i is data index i's, decoded by its model group,
+        and the parts are all-gathered over the data group."""
         if self.n_data == 1:
             return decode(self.replicas[0], rows, valid_mask)
+        if self.sharded:
+            part = rows.shape[0] // self.n_data
+            i = self.mesh.data_index()
+            mine = decode(self.replicas[0], rows[i * part:(i + 1) * part],
+                          valid_mask[i * part:(i + 1) * part])
+            return all_gather_cat(torch.as_tensor(mine),
+                                  self.mesh.data_group()).numpy()
         part = rows.shape[0] // self.n_data
         outs = [None] * self.n_data
         errors = []

@@ -62,7 +62,8 @@ def get_scores(
     handler's ('cuda' unless 'cpu' is given; a mesh's first device).
 
     mesh: a parallel.Mesh of this process's devices: the decode batches
-    shard over its data axis (at least n_data songs a batch). Under a
+    shard over its data axis (at least n_data songs a batch); a model axis
+    above 1 raises ValueError. Under a
     process group (parallel.init_multihost) each rank transcribes every
     world-th song (the stride balances the long and short songs that
     sorted lists cluster), into exp_tag_name on a filesystem every rank
@@ -79,6 +80,13 @@ def get_scores(
     gives 'none' off the TPU.
     """
     from mr_mt3_tpu_torch.utils.device import resolve_device
+    if mesh is not None and mesh.model > 1:
+        raise ValueError(
+            'get_scores takes a mesh of the data axis only: its ranks '
+            'transcribe different songs, which the ranks of a model axis '
+            '> 1 cannot (they decode in lockstep); score a sharded model '
+            'with its full weights (parallel.tensor.unsharded_copy), as '
+            'the train CLI\'s eval hook does')
     if handler is not None:
         device = handler.device
     elif mesh is not None:

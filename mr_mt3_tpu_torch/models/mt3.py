@@ -30,6 +30,14 @@ passed to forward, and only in train() mode with a generator given, so
 every other call is deterministic as JAX's default apply is; labels
 shifted right into decoder inputs (shift_right); and remat, each block
 under torch.utils.checkpoint with its dropout masks replayed.
+
+On a model axis (parallel/tensor.py::shard_model) a module holds its
+rank's shard: an attention its n_heads heads, a feed-forward its columns
+of d_ff (shard), and model.tp names the rank's place. Dropout then draws
+the masks one rank draws: the feed-forward hidden's mask whole, the rank
+keeping its columns; the residual, stack-input and stack-output masks
+alike on every model rank (their generators start alike), so a sharded
+step equals the one-rank step at the same seed.
 """
 
 from __future__ import annotations
@@ -89,14 +97,21 @@ def shift_right(labels: torch.Tensor, start_token_id: int = 0,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax nn.Dropout: keep each value with probability 1 - rate (a
     uniform draw below it), scaled by 1 / (1 - rate); the identity without
-    a generator or at rate 0."""
+    a generator or at rate 0. shard (index, m): x is part `index` of m of
+    the last dim of the whole, whose mask is drawn, x keeping its part."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape
+    if shard is not None:
+        shape = x.shape[:-1] + (x.shape[-1] * shard[1],)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.chunk(shard[1], dim=-1)[shard[0]]
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -161,10 +176,12 @@ class Attention(nn.Module):
         self.k = _linear(cfg.d_model, inner)
         self.v = _linear(cfg.d_model, inner)
         self.o = _linear(inner, cfg.d_model)
+        # the heads this module holds (fewer on a model axis)
+        self.n_heads = cfg.num_heads
 
     def heads(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        return x.reshape(b, l, self.cfg.num_heads, self.cfg.d_kv)
+        return x.reshape(b, l, self.n_heads, self.cfg.d_kv)
 
     def project_kv(self, src: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,7 +219,7 @@ class Attention(nn.Module):
             probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
             out = torch.einsum('bhqk,bkhd->bqhd', probs, v)
         b, lq = out.shape[:2]
-        return self.o(out.reshape(b, lq, self.cfg.inner_dim))
+        return self.o(out.reshape(b, lq, self.n_heads * self.cfg.d_kv))
 
     def forward(self, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
@@ -219,12 +236,14 @@ class DenseReluDense(nn.Module):
         self.wi_0 = _linear(cfg.d_model, cfg.d_ff)
         self.wi_1 = _linear(cfg.d_model, cfg.d_ff)
         self.wo = _linear(cfg.d_ff, cfg.d_model)
+        # (index, m) where this module holds part index of m of d_ff
+        self.shard = None
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         h = gelu_new(self.wi_0(x)) * self.wi_1(x)
-        return self.wo(dropout(h, rate, generator))
+        return self.wo(dropout(h, rate, generator, self.shard))
 
 
 class SelfAttentionLayer(nn.Module):
@@ -376,6 +395,8 @@ class MT3(nn.Module):
             # (reference: models/t5_segmem.py:63-64)
             self.segmem_encoder = Stack(cfg, cfg.segmem_num_layers,
                                         is_decoder=False)
+        # this rank's parallel.tensor.ModelAxis once sharded
+        self.tp = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -476,7 +497,8 @@ class MT3(nn.Module):
     def init_cache(self, batch_size: int, max_len: int
                    ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         cfg = self.cfg
-        shape = (batch_size, max_len, cfg.num_heads, cfg.d_kv)
+        shape = (batch_size, max_len, self.decoder.block[0].self_attn.n_heads,
+                 cfg.d_kv)
         dev = self.proj.weight.device
         return [(torch.zeros(shape, dtype=self.dtype, device=dev),
                  torch.zeros(shape, dtype=self.dtype, device=dev))

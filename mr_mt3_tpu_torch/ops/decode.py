@@ -101,8 +101,8 @@ class ModuleRunner(DecodeRunner):
         cfg = model.cfg
         self.prefix_len = prefix_len
         self.cache = model.init_cache(batch, prefix_len + max_length)
-        shape = (cfg.num_decoder_layers, batch, lenc, cfg.num_heads,
-                 cfg.d_kv)
+        shape = (cfg.num_decoder_layers, batch, lenc,
+                 model.decoder.block[0].cross_attn.n_heads, cfg.d_kv)
         self.cross = {name: torch.empty(shape, dtype=model.dtype,
                                         device=device) for name in 'kv'}
         self.weights = None
@@ -165,7 +165,7 @@ def _greedy_loop(model: MT3, encoder_out: torch.Tensor, max_length: int,
     greedy_loop_fast: captured blocks on the card unless False."""
     batch, lenc = encoder_out.shape[:2]
     dev = encoder_out.device
-    graphs = use_graphs(dev, graphs)
+    graphs = use_graphs(dev, graphs, model.tp)
     prefix_len = (0 if decoder_prefix_embeds is None
                   else decoder_prefix_embeds.shape[1])
     key = (batch, lenc, prefix_len, max_length, model.dtype)

@@ -30,6 +30,15 @@ Two loops:
 Both return tokens (B, max_length + 1) with a leading start token;
 finished rows emit pad and EOS finishes a row; rows that valid_mask marks
 False (batch padding) start finished.
+
+On a model axis (a model sharded by parallel/tensor.py::shard_model) the
+exact tier stacks the rank's shards: its heads (caches sized by them), its
+d_ff columns, its vocabulary rows and columns; each step sums the partial
+products of o, cross-o and wo over the model group, looks its tokens up
+in the vocab-parallel embedding and all-gathers the logits, so every model
+rank takes the same greedy choice. CUDA graphs cannot capture gloo
+collectives: over a gloo model group the step loops run their blocks
+eagerly (use_graphs), as they do on the CPU.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from mr_mt3_tpu_torch.models.mt3 import MT3, gelu_new
 from mr_mt3_tpu_torch.ops import int8_attention, int8_matmul
 from mr_mt3_tpu_torch.ops.cuda_build import count_launch
 from mr_mt3_tpu_torch.ops.fused_decode import FUSED_TIERS
+from mr_mt3_tpu_torch.parallel import tensor as tp_ops
 
 # the step loops read the finished flags back to the host (a device sync)
 # once every this many steps to stop early: a block of steps, one CUDA
@@ -77,6 +87,9 @@ class DecodeParams(NamedTuple):
     # by decode shape, a dict on the card: dropped with the weights the
     # graphs read
     runners: Any = None
+    # the model's parallel.tensor.ModelAxis where it is sharded: the
+    # stacks hold this rank's shards
+    tp: Any = None
 
 
 @torch.no_grad()
@@ -90,10 +103,14 @@ def stack_decode_params(model: MT3, quantize: str = 'none') -> DecodeParams:
     wo and the lm_head per output column from the model's f32 parameters
     (not from the activation-dtype stack: two roundings would compound);
     'int8_kv' stacks as 'none' does (its K/V are quantized as they are
-    made)."""
+    made). A sharded model stacks its rank's shards, for 'none' only."""
     cfg = model.cfg
     dtype = cfg.activation_dtype
     blocks = list(model.decoder.block)
+    if model.tp is not None and quantize != 'none':
+        raise ValueError(f'quantize={quantize!r} is not supported with a '
+                         'model axis > 1: the quantized tiers read whole '
+                         'weight matrices')
 
     def stack(get):
         return torch.stack([get(b).weight.t() for b in blocks]).to(
@@ -143,7 +160,21 @@ def stack_decode_params(model: MT3, quantize: str = 'none') -> DecodeParams:
         lm_head_q=lm_head_q,
         lm_head_scale=lm_head_scale,
         fused=fused,
-        runners={} if lm_head.is_cuda else None)
+        runners={} if lm_head.is_cuda else None,
+        tp=model.tp)
+
+
+def decode_heads(cfg: MT3Config, dp: DecodeParams) -> int:
+    """The heads dp's stacks hold (all, or the rank's on a model axis)."""
+    return dp.layers['cross_k'].shape[-1] // cfg.d_kv
+
+
+def _model_sum(dp: DecodeParams, x: torch.Tensor, sharded: bool
+               ) -> torch.Tensor:
+    """x summed over the model group where its product was sharded."""
+    if dp.tp is None or not sharded:
+        return x
+    return tp_ops.reduce_from_model(x, dp.tp)
 
 
 def _rms(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -160,17 +191,20 @@ def precompute_cross_kv_stacked(dp: DecodeParams, cfg: MT3Config,
     """Cross-attention K/V for all layers, 'bhdk' layout (L, B, H, Dk, Lenc)."""
     b, lenc, _ = encoder_out.shape
     enc = encoder_out.to(dp.token_embed.dtype)
-    shape = (cfg.num_decoder_layers, b, cfg.num_heads, cfg.d_kv, lenc)
+    shape = (cfg.num_decoder_layers, b, decode_heads(cfg, dp), cfg.d_kv,
+             lenc)
     k = torch.einsum('bsd,ldi->lbis', enc, dp.layers['cross_k'])
     v = torch.einsum('bsd,ldi->lbis', enc, dp.layers['cross_v'])
     return k.reshape(shape), v.reshape(shape)
 
 
 def init_cache_stacked(cfg: MT3Config, batch: int, max_len: int,
-                       device, dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, B, H, Dk, max_len) self K/V caches."""
+                       device, dtype=None, heads: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, B, H, Dk, max_len) self K/V caches (H: heads, default all)."""
     dtype = dtype or cfg.activation_dtype
-    shape = (cfg.num_decoder_layers, batch, cfg.num_heads, cfg.d_kv, max_len)
+    shape = (cfg.num_decoder_layers, batch, heads or cfg.num_heads, cfg.d_kv,
+             max_len)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -224,11 +258,18 @@ def decode_step_fast(cfg: MT3Config, dp: DecodeParams, tokens: torch.Tensor,
     feed-forward and the lm_head through the int8 kernels (dp stacked for
     'int8'); 'int8_kv' keeps the self and cross K/V in int8 (cache:
     init_int8_cache_stacked; cross_kv: quantize_cross_kv) and attends
-    through int8_decode_attention."""
+    through int8_decode_attention. On a model axis the partial products
+    are summed over the model group and the logits gathered."""
     eps = cfg.layer_norm_epsilon
     lay = dp.layers
+    tp = dp.tp
     where = position.reshape(1)
-    x = dp.token_embed.index_select(0, tokens)[:, None, :]     # (B, 1, D)
+    if tp is not None and tp.vocab:
+        x = tp_ops.vocab_parallel_lookup(
+            dp.token_embed, tokens, tp.index * dp.token_embed.shape[0],
+            tp)[:, None, :]                                     # (B, 1, D)
+    else:
+        x = dp.token_embed.index_select(0, tokens)[:, None, :]
     x = x + dp.pos_table.index_select(0, where)
     if quantize == 'int8_kv':
         self_attention, cross_attention = (_int8_self_attention,
@@ -241,18 +282,25 @@ def decode_step_fast(cfg: MT3Config, dp: DecodeParams, tokens: torch.Tensor,
             torch.arange(bound, device=x.device) <= position, 0.0,
             -1e9).to(x.dtype)
     at = _Where(position, where.long(), bound, mask)
+    attn = tp is not None and tp.attention
+    ff = tp is not None and tp.feed_forward
     for i in range(cfg.num_decoder_layers):
         h = _rms(x, lay['self_norm'][i], eps)
-        x = x + self_attention(cfg, lay, i, h, at, cache) @ lay['o'][i]
+        x = x + _model_sum(dp, self_attention(cfg, lay, i, h, at, cache)
+                           @ lay['o'][i], attn)
         h = _rms(x, lay['cross_norm'][i], eps)
-        x = x + cross_attention(cfg, lay, i, h, cross_kv) @ lay['cross_o'][i]
-        x = x + _feed_forward(lay, i, _rms(x, lay['ff_norm'][i], eps),
-                              quantize)
+        x = x + _model_sum(dp, cross_attention(cfg, lay, i, h, cross_kv)
+                           @ lay['cross_o'][i], attn)
+        x = x + _model_sum(dp, _feed_forward(
+            lay, i, _rms(x, lay['ff_norm'][i], eps), quantize), ff)
     x = _rms(x, dp.final_norm, eps)
     if quantize == 'int8':
         return int8_matmul.int8_matmul(x[:, 0], dp.lm_head_q,
                                        dp.lm_head_scale)
-    return (x @ dp.lm_head)[:, 0]
+    logits = (x @ dp.lm_head)[:, 0]
+    if tp is not None and tp.vocab:
+        return tp_ops.gather_from_model(logits, tp)
+    return logits
 
 
 class _Where(NamedTuple):
@@ -270,21 +318,21 @@ class _Where(NamedTuple):
 def _attend(cfg: MT3Config, q: torch.Tensor, k: torch.Tensor,
             v: torch.Tensor, mask: Optional[torch.Tensor] = None
             ) -> torch.Tensor:
-    """q (B, 1, inner); k/v (B, H, Dk, K); mask (K,) additive, in q's
-    dtype -> (B, 1, inner)."""
-    batch = q.shape[0]
-    q = q.reshape(batch, 1, cfg.num_heads, cfg.d_kv)
+    """q (B, 1, H * Dk); k/v (B, H, Dk, K); mask (K,) additive, in q's
+    dtype -> (B, 1, H * Dk)."""
+    batch, heads = q.shape[0], k.shape[1]
+    q = q.reshape(batch, 1, heads, cfg.d_kv)
     scores = torch.einsum('bqhd,bhdk->bhqk', q, k)
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum('bhqk,bhdk->bqhd', probs, v)
-    return out.reshape(batch, 1, cfg.num_heads * cfg.d_kv)
+    return out.reshape(batch, 1, heads * cfg.d_kv)
 
 
 def _float_self_attention(cfg, lay, i, h, at: _Where, cache):
     k_cache, v_cache = cache
-    shape = (h.shape[0], cfg.num_heads, cfg.d_kv, 1)
+    shape = (h.shape[0], k_cache.shape[2], cfg.d_kv, 1)
     k_cache[i].index_copy_(-1, at.index,
                            (h[:, 0] @ lay['k'][i]).reshape(shape))
     v_cache[i].index_copy_(-1, at.index,
@@ -556,11 +604,12 @@ class FastRunner(DecodeRunner):
     its int8 codes and scales) for `lenc` encoder rows."""
 
     def __init__(self, cfg: MT3Config, quantize: str, batch: int, lenc: int,
-                 max_length: int, device, dtype: torch.dtype):
+                 max_length: int, device, dtype: torch.dtype,
+                 heads: Optional[int] = None):
         super().__init__(cfg, batch, max_length, device, DEFAULT_PHASES)
         self.tier = quantize
-        shape = (cfg.num_decoder_layers, batch, cfg.num_heads, cfg.d_kv,
-                 lenc)
+        heads = heads or cfg.num_heads
+        shape = (cfg.num_decoder_layers, batch, heads, cfg.d_kv, lenc)
         if quantize == 'int8_kv':
             self.cache = init_int8_cache_stacked(cfg, batch, max_length,
                                                  device)
@@ -575,7 +624,7 @@ class FastRunner(DecodeRunner):
                     scales, dtype=torch.float32, device=device)
         else:
             self.cache = init_cache_stacked(cfg, batch, max_length, device,
-                                            dtype)
+                                            dtype, heads)
             self.cross = (torch.empty(shape, dtype=dtype, device=device),
                           torch.empty(shape, dtype=dtype, device=device))
 
@@ -602,13 +651,26 @@ class FastRunner(DecodeRunner):
             self.cache, self.cross, quantize=self.tier, bound=bound))
 
 
-def use_graphs(device: torch.device, graphs: Optional[bool]) -> bool:
+def use_graphs(device: torch.device, graphs: Optional[bool],
+               tp=None) -> bool:
     """Whether a step loop on `device` captures its blocks: on the card
     unless graphs=False (the eager comparison switch), never on the CPU
-    (graphs=True there raises)."""
+    (graphs=True there raises). On a model axis whose group is gloo never
+    either (a capture cannot hold gloo's host-side collectives): the loop
+    runs eagerly, which it says once on the card, and graphs=True
+    raises."""
     if device.type != 'cuda':
         if graphs:
             raise ValueError('CUDA graphs need a CUDA device')
+        return False
+    if tp is not None and tp.backend() == 'gloo':
+        if graphs:
+            raise ValueError('CUDA graphs cannot capture the gloo '
+                             'collectives of a model axis')
+        if not tp.said_eager:
+            print('tensor-parallel decode over gloo: CUDA graphs off, the '
+                  'step loops run eagerly', flush=True)
+            tp.said_eager = True
         return False
     return graphs is None or bool(graphs)
 
@@ -640,13 +702,13 @@ def greedy_loop_fast(cfg: MT3Config, dp: DecodeParams,
                          f'quantize={quantize!r}')
     batch, lenc = encoder_out.shape[:2]
     dev = encoder_out.device
-    graphs = use_graphs(dev, graphs)
+    graphs = use_graphs(dev, graphs, dp.tp)
     dtype = dp.token_embed.dtype
     key = (quantize, batch, lenc, max_length, dtype)
     runner = dp.runners.get(key) if dp.runners is not None else None
     if runner is None:
         runner = FastRunner(cfg, quantize, batch, lenc, max_length, dev,
-                            dtype)
+                            dtype, decode_heads(cfg, dp))
         if dp.runners is not None:
             dp.runners[key] = runner
     runner.reset(dp, encoder_out, valid_mask)

@@ -1,14 +1,17 @@
-"""The data-parallel axis: meshes of per-card replicas and process groups
-of one rank per card."""
+"""The device mesh: the data axis (per-card replicas, process groups of
+one rank per card) and the model axis (grids of ranks holding shards of
+one model, parallel/tensor.py)."""
 
 from mr_mt3_tpu_torch.parallel.mesh import (
     Mesh,
+    all_gather_cat,
     all_reduce_sum,
     backend_for,
     barrier,
     broadcast_object,
     data_devices,
     device_cap,
+    grid_data,
     init_multihost,
     local_mesh,
     local_rank,
@@ -16,8 +19,10 @@ from mr_mt3_tpu_torch.parallel.mesh import (
     make_mesh,
     node_count,
     node_rank,
+    param_shardings,
     rank,
     rank_device,
+    rank_devices,
     shard_batch,
     shutdown,
     visible_devices,

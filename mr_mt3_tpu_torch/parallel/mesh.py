@@ -1,4 +1,5 @@
-"""The data-parallel axis (port of mr_mt3_tpu/parallel/mesh.py).
+"""The device mesh: the data axis and the model axis (port of
+mr_mt3_tpu/parallel/mesh.py).
 
 The JAX package spans its chips with a ('data', 'model') mesh: decode
 shards its batch over 'data' inside one program (shard_map), and training
@@ -23,12 +24,19 @@ PyTorch's idiom for the same axis:
 A Mesh may name a device more than once: the CPU has one torch device, and
 a machine with one card has one card, so the CPU tests run meshes of
 ('cpu',) * n and the one-card smoke a mesh of cuda:0 twice, the replicas
-then sharing the device. The model axis (tensor parallelism:
-_PARAM_RULES, mr_mt3_tpu/parallel/mesh.py:96-127) is not ported and
-raises.
+then sharing the device.
 
-The collectives here are all_reduce, broadcast and barrier only, which
-both NCCL and gloo serve, on the card and on the CPU.
+The model axis (tensor parallelism, JAX's _PARAM_RULES) is Megatron-style
+in the port: a Mesh with model > 1 is a grid of data x model ranks of one
+process group, one device each, in JAX's make_mesh order
+(devices.reshape(data, model): rank r has data index r // model and model
+index r % model). Each grid row is a model group, whose ranks hold the
+shards of one model (parallel/tensor.py) and meet in its collectives; each
+column is a data group, over which the batch splits and the gradients are
+averaged. param_shardings gives each parameter's sharded dimension.
+
+The collectives here are all_reduce, all_gather, broadcast and barrier,
+which both NCCL and gloo serve, on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ import dataclasses
 import datetime
 import json
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,22 +58,25 @@ from mr_mt3_tpu_torch.utils.device import resolve_device
 # fails the others instead of hanging them
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
-TENSOR_PARALLEL = ('a model axis > 1 (tensor parallelism) is not ported: '
-                   'ROADMAP A9, second part')
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis's devices (torch.device, repeats allowed) and the
-    model axis's size, which must be 1."""
+    """The mesh's devices (torch.device, repeats allowed) and the model
+    axis's size. model 1: the data axis's devices, one replica each in
+    this process. model > 1: a grid of len(devices) ranks of the process
+    group, data x model in JAX's order, rank r on devices[r]."""
     devices: Tuple[torch.device, ...]
     model: int = 1
 
     def __post_init__(self):
-        if int(self.model) != 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
+        model = int(self.model)
+        if model < 1:
+            raise ValueError(f'model axis {model} < 1')
         if not self.devices:
             raise ValueError('a mesh needs at least one device')
+        if len(self.devices) % model:
+            raise ValueError(f'{len(self.devices)} devices not divisible '
+                             f'by model={model}')
         devices = tuple(resolve_device(d) for d in self.devices)
         for d in devices:
             if d.type == 'cuda' and (d.index or 0) >= \
@@ -72,10 +84,120 @@ class Mesh:
                 raise ValueError(f'{d} is not a visible card '
                                  f'({torch.cuda.device_count()} visible)')
         object.__setattr__(self, 'devices', devices)
+        object.__setattr__(self, 'model', model)
 
     @property
     def n_data(self) -> int:
-        return len(self.devices)
+        return len(self.devices) // self.model
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {'data': self.n_data, 'model': self.model}
+
+    # ---- the rank grid (model > 1) ----
+
+    def _grid(self) -> '_Grid':
+        if not dist.is_initialized():
+            raise RuntimeError('a mesh with a model axis > 1 is a grid of '
+                               'ranks: join a process group first '
+                               '(init_multihost)')
+        if dist.get_world_size() != len(self.devices):
+            raise ValueError(f'the mesh has {len(self.devices)} ranks, the '
+                             f'process group {dist.get_world_size()}')
+        return _grid(self.n_data, self.model)
+
+    def model_index(self) -> int:
+        """This rank's place in its model group (0 without a grid)."""
+        return rank() % self.model if self.model > 1 else 0
+
+    def data_index(self) -> int:
+        """This rank's place in its data group: the grid's row (the rank
+        itself at model 1)."""
+        return rank() // self.model
+
+    def model_group(self):
+        """The process group of this rank's grid row (None at model 1)."""
+        if self.model == 1:
+            return None
+        return self._grid().model_groups[self.data_index()]
+
+    def data_group(self):
+        """The process group of this rank's grid column (the default group
+        at model 1)."""
+        if self.model == 1:
+            return dist.group.WORLD if dist.is_initialized() else None
+        return self._grid().data_groups[self.model_index()]
+
+    def rank_device(self) -> torch.device:
+        """This rank's device: devices[rank] on a grid, else the first."""
+        return self.devices[rank()] if self.model > 1 else self.devices[0]
+
+
+@dataclasses.dataclass
+class _Grid:
+    model_groups: List[Any]      # by data index: the ranks of a row
+    data_groups: List[Any]       # by model index: the ranks of a column
+
+
+# the process groups of each grid shape, made once a process group
+# (shutdown forgets them)
+_GRIDS: Dict[Tuple[int, int], _Grid] = {}
+
+
+def _grid(data: int, model: int) -> _Grid:
+    """Every row's and every column's process group, created the first
+    time on every rank in the same order (dist.new_group is collective
+    over the default group)."""
+    key = (data, model)
+    if key not in _GRIDS:
+        rows = [dist.new_group([d * model + m for m in range(model)])
+                for d in range(data)]
+        cols = [dist.new_group([d * model + m for d in range(data)])
+                for m in range(model)]
+        _GRIDS[key] = _Grid(rows, cols)
+    return _GRIDS[key]
+
+
+# The model axis's placement (JAX's _PARAM_RULES on the port's HF names;
+# a JAX kernel is (in, out), a torch weight (out, in)): attention q/k/v,
+# the gated feed-forward's wi_0 / wi_1 and the lm_head shard their output
+# features (torch dim 0), o and wo their input features (dim 1), so each
+# pair needs one all-reduce; the decoder embedding shards its rows (the
+# vocabulary). Everything else (proj, every norm) is replicated. The
+# segment-memory encoder's attention and feed-forward follow the rules,
+# as JAX's patterns match them. Each rule's unit is what must divide by
+# the model axis: the head count for attention (the port shards whole
+# heads; JAX shards q/k/v wherever num_heads * d_kv divides), d_ff, the
+# vocabulary.
+_PARAM_RULES = (
+    (re.compile(r'(SelfAttention|EncDecAttention)\.(q|k|v)\.weight$'), 0,
+     'num_heads'),
+    (re.compile(r'(SelfAttention|EncDecAttention)\.o\.weight$'), 1,
+     'num_heads'),
+    (re.compile(r'DenseReluDense\.(wi_0|wi_1)\.weight$'), 0, 'd_ff'),
+    (re.compile(r'DenseReluDense\.wo\.weight$'), 1, 'd_ff'),
+    (re.compile(r'^lm_head\.weight$'), 0, 'vocab_size'),
+    (re.compile(r'^decoder_embed_tokens\.weight$'), 0, 'vocab_size'),
+)
+
+
+def param_shardings(cfg, model: int) -> Dict[str, Optional[int]]:
+    """The placement of every parameter of MT3(cfg) on a model axis of
+    `model` ranks: state-dict key -> its sharded dimension, or None where
+    it is replicated (the first matching rule whose unit divides by
+    model; everything at model 1). The counterpart of JAX's
+    param_shardings(params, mesh)."""
+    from mr_mt3_tpu_torch.models import MT3
+    with torch.device('meta'):
+        names = [n for n, _ in MT3(cfg).named_parameters()]
+    plan = dict.fromkeys(names)
+    for name in names if model > 1 else ():
+        for pattern, dim, unit in _PARAM_RULES:
+            if pattern.search(name):
+                if getattr(cfg, unit) % model == 0:
+                    plan[name] = dim
+                break
+    return plan
 
 
 def visible_devices(kind: str = 'cuda') -> list:
@@ -89,7 +211,8 @@ def visible_devices(kind: str = 'cuda') -> list:
 def make_mesh(data: Optional[int] = None, model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """A Mesh of the first data * model devices; data fills the devices
-    (default: every visible card). The errors are the JAX function's."""
+    (default: every visible card). The errors are the JAX function's. With
+    model > 1 the mesh is a grid of data * model ranks (Mesh)."""
     if devices is None:
         devices = visible_devices('cuda')
     n = len(devices)
@@ -122,6 +245,32 @@ def data_devices(devices_cfg: Any, device: torch.device) -> int:
     """How many devices of `device`'s kind a `devices:` value asks for:
     device_cap's count, or every visible one (one on the CPU)."""
     return device_cap(devices_cfg) or len(visible_devices(device.type))
+
+
+def grid_data(devices_cfg: Any, model: int, device: torch.device) -> int:
+    """The data axis of a data x model grid of ranks (train.py's
+    make_mesh(data=device_cap(devices), model=model_devices)): the
+    `devices` count, else the visible cards over model, with make_mesh's
+    error where they do not divide; on the CPU, whose ranks share its one
+    device, the count or 1."""
+    cap = device_cap(devices_cfg)
+    if cap or device.type == 'cpu' or model == 1:
+        return cap or data_devices(devices_cfg, device)
+    n = len(visible_devices('cuda'))
+    if n % model:
+        raise ValueError(f'{n} devices not divisible by model={model}')
+    return n // model
+
+
+def rank_devices(kind: str = 'cuda') -> Tuple[torch.device, ...]:
+    """Every rank's device (rank_device's rule), by rank: the devices of a
+    grid of the process group's ranks."""
+    if torch.device(kind).type == 'cpu':
+        return (torch.device('cpu'),) * world()
+    resolve_device('cuda')
+    count = torch.cuda.device_count()
+    return tuple(torch.device('cuda', (r % local_world()) % count)
+                 for r in range(world()))
 
 
 # ---- process groups: one process per card ----
@@ -174,6 +323,7 @@ def init_multihost(backend: Optional[str] = None,
 
 def shutdown() -> None:
     """Leave the process group, if there is one."""
+    _GRIDS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -239,20 +389,35 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of t over every rank (t itself without a group). gloo takes
-    card tensors too; NCCL takes only card tensors, so a CPU tensor goes
-    through the card there."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of t over every rank of `group` (default: every rank; t
+    itself without a process group). gloo takes card tensors too; NCCL
+    takes only card tensors, so a CPU tensor goes through the card
+    there."""
     if not dist.is_initialized():
         return t
     dev = _comm_device()
     if dev.type == 'cuda' and not t.is_cuda:
         out = t.to(dev)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out.to(t.device)
     out = t.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
+
+
+def all_gather_cat(t: torch.Tensor, group=None, dim: int = 0
+                   ) -> torch.Tensor:
+    """The ranks' t (equal shapes) concatenated along dim in rank order of
+    `group` (default: every rank; t itself without a process group)."""
+    if not dist.is_initialized():
+        return t
+    dev = _comm_device()
+    src = t.to(dev).contiguous() if dev.type == 'cuda' else t.contiguous()
+    parts = [torch.empty_like(src)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
 
 
 def broadcast_object(obj: Any) -> Any:

@@ -31,8 +31,15 @@ mr_mt3_tpu_torch.train ...`, its environment's WORLD_SIZE and RANK) the
 process joins its group; multihost=true asks for one (several nodes:
 `torchrun --nnodes=N`), and the loader then strides its batches by node
 (shard_rank = node rank, shard_count = nodes). Rank 0 alone logs and
-writes. model_devices > 1 (tensor parallelism) is not ported and raises.
-device=cpu trains the ranks on the CPU over gloo.
+writes. device=cpu trains the ranks on the CPU over gloo.
+
+model_devices=<m> (train.py's tensor-parallel axis) makes the ranks a grid
+of data x m (parallel.Mesh): data is the `devices` count, or the visible
+cards divided by m (JAX's make_mesh rules and errors; one on the CPU), and
+each row of m ranks holds the shards of one model (parallel/tensor.py),
+the rows splitting the batch as the data axis does. The mesh is printed
+as train.py prints it (`train mesh: {'data': d, 'model': m}`). The eval
+hook decodes with the full weights gathered on every rank.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ def main(argv=None) -> TrainState:
 
     from mr_mt3_tpu_torch import parallel
     from mr_mt3_tpu_torch.data import DataLoader
-    from mr_mt3_tpu_torch.parallel.mesh import TENSOR_PARALLEL
+    from mr_mt3_tpu_torch.parallel import tensor as tp_ops
     from mr_mt3_tpu_torch.utils import builders
     from mr_mt3_tpu_torch.utils.config import load_config, parse_cli
     from mr_mt3_tpu_torch.utils.device import resolve_device
@@ -81,20 +88,26 @@ def main(argv=None) -> TrainState:
     config_name, config_dir, overrides = parse_cli(argv)
     default_dir = os.environ.get('MR_MT3_CONFIGS') or REPO_CONFIGS
     cfg = load_config(config_dir or default_dir, config_name, overrides)
-    if int(cfg.get('model_devices') or 1) > 1:
-        raise NotImplementedError(
-            f'model_devices={cfg.get("model_devices")}: {TENSOR_PARALLEL}')
+    model_axis = int(cfg.get('model_devices') or 1)
     device = resolve_device(cfg.get('device'))
     if not torch.distributed.is_initialized():
         if bool(cfg.get('multihost')) or 'WORLD_SIZE' in os.environ:
             parallel.init_multihost(backend=parallel.backend_for(device))
         else:
-            ranks = parallel.data_devices(cfg.get('devices'), device)
-            if ranks > 1:
-                return _spawn(argv, ranks, device)
+            data = parallel.grid_data(cfg.get('devices'), model_axis, device)
+            if data * model_axis > 1:
+                return _spawn(argv, data * model_axis, device)
+    mesh = None
     if torch.distributed.is_initialized():
         device = parallel.rank_device(device.type)
+        if model_axis > 1:
+            mesh = parallel.Mesh(parallel.rank_devices(device.type),
+                                 model=model_axis)
     lead = parallel.rank() == 0
+    if lead:
+        print('train mesh: ' + str(mesh.shape if mesh is not None else
+                                   {'data': parallel.world(),
+                                    'model': model_axis}))
     if 'fast_rng' in (cfg.get('trainer') or {}) and lead:
         print('note: trainer.fast_rng (the TPU hardware RNG) has no effect '
               'in the port')
@@ -133,6 +146,8 @@ def main(argv=None) -> TrainState:
         from mr_mt3_tpu_torch.infer.scores import get_scores
 
         def eval_hook(model, epoch):
+            # a sharded model's full weights, on every rank
+            model = tp_ops.unsharded_copy(model)
             files = sorted(globlib.glob(cfg.eval.audio_dir))
             if cfg.eval.eval_dataset == 'NSynth':
                 # same filter the eval CLI applies (no vocals/mallets in
@@ -185,27 +200,28 @@ def main(argv=None) -> TrainState:
         # the in-step mel must use the dataset's filterbank choice
         spectrogram_config=getattr(train_ds, 'spectrogram_config', None))
 
+    start_epoch = 0
+    path = str(cfg.get('path') or '')
+    # a port checkpoint: full resume of params, optimizer state and step
+    # (reference .ckpt semantics: train.py:62-76); anything else warm-starts
+    # from its weights only (.pth/.pt/.ckpt, or an Orbax directory's
+    # params), loaded whole before the model is sharded
+    resume = bool(path) and os.path.isfile(path) and not path.endswith(
+        ('.pth', '.pt', '.ckpt'))
+    if path and not resume:
+        builders.load_weights(path, model)
+        if lead:
+            print(f'loaded weights from {path}')
+    if mesh is not None:
+        tp_ops.shard_model(model, mesh)
     model.to(device)
     state = create_train_state(model, optimizer)
-    start_epoch = 0
-    path = cfg.get('path')
-    if path:
-        path = str(path)
-        if os.path.isfile(path) and not path.endswith(
-                ('.pth', '.pt', '.ckpt')):
-            # a port checkpoint: full resume of params, optimizer state and
-            # step (reference .ckpt semantics: train.py:62-76)
-            state = trainer.restore_state(os.path.abspath(path), state)
-            start_epoch = state.step // max(1, len(train_loader))
-            if lead:
-                print(f'resumed full state from {path} (step {state.step}, '
-                      f'epoch {start_epoch})')
-        else:
-            # warm start from weights only (.pth/.pt/.ckpt, or an Orbax
-            # directory's params)
-            builders.load_weights(path, model)
-            if lead:
-                print(f'loaded weights from {path}')
+    if resume:
+        state = trainer.restore_state(os.path.abspath(path), state)
+        start_epoch = state.step // max(1, len(train_loader))
+        if lead:
+            print(f'resumed full state from {path} (step {state.step}, '
+                  f'epoch {start_epoch})')
 
     num_epochs = int(cfg.trainer.max_epochs)
     state = trainer.fit(state, train_loader, val_loader,

@@ -22,6 +22,10 @@ computes what the JAX package's optax chain computes, step for step:
 
 Parameters and moments stay f32 and are updated in place, on the device
 the parameters live on (foreach ops, no host round trip but the clip test).
+On a model axis each rank holds its shards of the parameters: the global
+norm sums the sharded tensors' squares over the model group and counts the
+replicated ones once (global_norm's model_axis), so the clip equals the
+one-rank clip.
 """
 
 from __future__ import annotations
@@ -79,11 +83,23 @@ def linear_warmup_to_constant(warmup_steps: int, base_lr: float) -> Schedule:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor],
+                model_axis=None) -> torch.Tensor:
     """sqrt of the sum of squares of every entry (optax.global_norm), f32,
-    on the tensors' device."""
+    on the tensors' device. model_axis (group, sharded): the tensors are a
+    rank's shards, sharded[i] True where tensor i is a slice of its whole
+    (its squares summed over the model group) and False where every model
+    rank holds it whole (counted once)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.stack(norms).square().sum().sqrt()
+    squares = torch.stack(norms).square()
+    if model_axis is None:
+        return squares.sum().sqrt()
+    import torch.distributed as dist
+    group, sharded = model_axis
+    mask = torch.tensor(sharded, device=squares.device)
+    total = squares[mask].sum().reshape(1)
+    dist.all_reduce(total, group=group)
+    return (total[0] + squares[~mask].sum()).sqrt()
 
 
 class AdamW:
@@ -106,9 +122,13 @@ class AdamW:
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
         self.count = 0
+        self.model_axis = None
 
-    def init(self, params: Sequence[torch.Tensor]) -> None:
+    def init(self, params: Sequence[torch.Tensor], model_axis=None) -> None:
+        """Bind the parameters, zero the moments; model_axis as in
+        global_norm where they are a rank's shards."""
         self.params = list(params)
+        self.model_axis = model_axis
         for p in self.params:
             if p.dtype != torch.float32:
                 raise ValueError(f'parameters must be float32 (got '
@@ -126,7 +146,7 @@ class AdamW:
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = [g.float() for g in grads]
         if self.clip_norm is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.model_axis)
             if not float(norm) < self.clip_norm:
                 grads = torch._foreach_div(grads, norm)
                 torch._foreach_mul_(grads, self.clip_norm)
@@ -183,8 +203,12 @@ class MultiSteps:
     def params(self) -> List[torch.Tensor]:
         return self.inner.params
 
-    def init(self, params: Sequence[torch.Tensor]) -> None:
-        self.inner.init(params)
+    @property
+    def model_axis(self):
+        return self.inner.model_axis
+
+    def init(self, params: Sequence[torch.Tensor], model_axis=None) -> None:
+        self.inner.init(params, model_axis)
         self.acc = [torch.zeros_like(p) for p in self.inner.params]
         self.mini_step = 0
 

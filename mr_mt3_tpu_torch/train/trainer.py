@@ -41,6 +41,17 @@ DistributedDataParallel:
     the single-process run's);
   * rank 0 writes the metrics and the checkpoints (a barrier after each
     write); every rank restores.
+
+On a model axis (JAX's model_devices; the model sharded by
+parallel/tensor.py::shard_model over a Mesh's grid of data x model ranks)
+the data axis is the grid's columns: DistributedDataParallel spans the
+rank's data group only, the batch splits over the data index, the loss's
+counts and the logged metrics are reduced over the data group, and the
+dropout generator is seeded by the data index, so the model ranks of a row
+draw alike (at model 1 the data index is the rank). AdamW's clip sums the
+sharded gradients' squares over the model group. Checkpoints hold full
+tensors (the parameters and the optimizer's moments gathered over the
+model group), so a checkpoint written at one model axis loads at another.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import numpy as np
 import torch
 
 from mr_mt3_tpu_torch import parallel
+from mr_mt3_tpu_torch.parallel import tensor as tp_ops
 from mr_mt3_tpu_torch.audio.frontend import (
     SpectrogramConfig,
     compute_logmel,
@@ -86,17 +98,40 @@ class TrainState:
     ddp: Any = None
 
 
+def data_axis(model: MT3):
+    """(group, size, index) of the model's data axis: the rank's grid
+    column on a model axis, else every rank of the process group (group
+    None: the default one), else (None, 1, 0)."""
+    if model.tp is not None:
+        mesh = model.tp.mesh
+        return mesh.data_group(), mesh.n_data, mesh.data_index()
+    if torch.distributed.is_initialized():
+        return None, parallel.world(), parallel.rank()
+    return None, 1, 0
+
+
 def create_train_state(model: MT3, optimizer) -> TrainState:
     """Bind `optimizer` to the model's parameters (on their device) with
     zeroed moments; under a process group wrap the model in
-    DistributedDataParallel (rank 0's parameters broadcast to every rank).
-    Every parameter of every model variant receives a gradient
-    (tests/test_torch_ddp.py), so DDP looks for no unused ones."""
+    DistributedDataParallel over its data axis (the data group's first
+    rank's parameters broadcast to the others; none where the axis has one
+    rank). Every parameter of every model variant receives a gradient
+    (tests/test_torch_ddp.py), so DDP looks for no unused ones. A sharded
+    model's optimizer learns which parameters are slices (the clip's
+    norm)."""
     ddp = None
-    if torch.distributed.is_initialized():
+    group, n_data, _ = data_axis(model)
+    if torch.distributed.is_initialized() and (model.tp is None
+                                               or n_data > 1):
         ddp = torch.nn.parallel.DistributedDataParallel(
-            model, find_unused_parameters=False, broadcast_buffers=False)
-    optimizer.init(list(model.parameters()))
+            model, find_unused_parameters=False, broadcast_buffers=False,
+            process_group=group)
+    model_axis = None
+    if model.tp is not None:
+        model_axis = (model.tp.group,
+                      [model.tp.plan[n] is not None
+                       for n, _ in model.named_parameters()])
+    optimizer.init(list(model.parameters()), model_axis)
     return TrainState(model=model, optimizer=optimizer, step=0, ddp=ddp)
 
 
@@ -186,10 +221,11 @@ def make_train_step(loss_type: str = 'ce',
         dev = params[0].device
         b = batch_to_device(batch, dev)
         state.model.train()
-        world = parallel.world() if state.ddp is not None else 1
+        group, world, index = data_axis(state.model)
+        if state.ddp is None:
+            world = 1
         generator = (None if seed is None
-                     else step_generator(seed, state.step, dev,
-                                         parallel.rank()))
+                     else step_generator(seed, state.step, dev, index))
         mel = batch_to_mel(b['audio'], b['valid_frames'], spectrogram_config)
         targets = b['targets']
         logits = (state.ddp or state.model)(
@@ -198,7 +234,8 @@ def make_train_step(loss_type: str = 'ce',
         terms = loss_terms(logits, targets, loss_type)
         counts = terms
         if state.ddp is not None:
-            counts = {k: parallel.all_reduce_sum(v) for k, v in terms.items()
+            counts = {k: parallel.all_reduce_sum(v, group)
+                      for k, v in terms.items()
                       if k.startswith(('n_', 'count'))}
         loss, logs = loss_from_terms(terms, counts, float(world))
         for p in params:
@@ -208,11 +245,13 @@ def make_train_step(loss_type: str = 'ce',
                  for p in params]
         for p in params:
             p.grad = None
-        metrics = {'loss': loss.detach(), 'grad_norm': global_norm(grads),
+        metrics = {'loss': loss.detach(),
+                   'grad_norm': global_norm(grads,
+                                            state.optimizer.model_axis),
                    **{k: v.detach() for k, v in logs.items()}}
         if world > 1:
             metrics = {k: v if k == 'grad_norm'
-                       else parallel.all_reduce_sum(v) / world
+                       else parallel.all_reduce_sum(v, group) / world
                        for k, v in metrics.items()}
         state.optimizer.step(grads)
         state.step += 1
@@ -358,11 +397,14 @@ class Trainer:
 
     def _slice(self, batch):
         """This rank's rows of its node's batch (the whole batch without a
-        process group)."""
+        process group): one slice a data index of the node (the model
+        ranks of a grid row share theirs)."""
         if not torch.distributed.is_initialized():
             return batch
-        return parallel.shard_batch(batch, parallel.local_world(),
-                                    parallel.local_rank())
+        _, _, index = data_axis(self.model)
+        model = 1 if self.model.tp is None else self.model.tp.size
+        per_node = parallel.local_world() // model
+        return parallel.shard_batch(batch, per_node, index % per_node)
 
     def _log(self, step: int, scalars: Dict[str, float]):
         if self.writer is not None:
@@ -378,12 +420,19 @@ class Trainer:
     def save_checkpoint(self, state: TrainState, name: str):
         """Save params, optimizer state and step (an exact resume, as the
         reference's .ckpt files give); written to a temporary file and
-        renamed into place, by rank 0 alone, every rank waiting for it."""
+        renamed into place, by rank 0 alone, every rank waiting for it. A
+        sharded model's tensors are gathered whole first (every rank takes
+        part)."""
+        model = state.model
+        params = tp_ops.full_state_dict(model)
+        names = [n for n, _ in model.named_parameters()]
+        opt_state = tp_ops.map_param_lists(
+            state.optimizer.state_dict(), names,
+            lambda t, n: tp_ops.full_tensor(t, n, model.tp))
         if self.writes:
             os.makedirs(self._ckpt_dir, exist_ok=True)
-            payload = {'params': state.model.state_dict(),
-                       'step': int(state.step),
-                       'opt_state': state.optimizer.state_dict()}
+            payload = {'params': params, 'step': int(state.step),
+                       'opt_state': opt_state}
             path = self._path(name)
             tmp = f'{path}.{os.getpid()}.tmp'
             torch.save(payload, tmp)
@@ -393,10 +442,15 @@ class Trainer:
     def restore_state(self, name_or_path: str,
                       state: TrainState) -> TrainState:
         """Full resume into `state` (its model and bound optimizer): params
-        + optimizer state + step."""
+        + optimizer state + step; a sharded model takes its slices."""
         blob = load_checkpoint(self._path(name_or_path))
-        state.model.load_state_dict(blob['params'], strict=True)
-        state.optimizer.load_state_dict(blob['opt_state'])
+        model = state.model
+        model.load_state_dict(tp_ops.shard_state_dict(blob['params'], model),
+                              strict=True)
+        names = [n for n, _ in model.named_parameters()]
+        state.optimizer.load_state_dict(tp_ops.map_param_lists(
+            blob['opt_state'], names,
+            lambda t, n: tp_ops.local_tensor(t, n, model.tp)))
         state.step = int(blob['step'])
         return state
 
@@ -527,6 +581,7 @@ class Trainer:
         if torch.distributed.is_initialized():
             dev = state.optimizer.params[0].device
             sums = parallel.all_reduce_sum(torch.tensor(
-                [loss_sum, token_sum], dtype=torch.float64, device=dev))
+                [loss_sum, token_sum], dtype=torch.float64, device=dev),
+                data_axis(state.model)[0])
             loss_sum, token_sum = (float(x) for x in sums.cpu())
         return loss_sum, token_sum

@@ -6,7 +6,9 @@ reference .pth/.pt/.ckpt loads with load_state_dict once the Lightning
 state_dict_from_jax_params is the port's own copy of the JAX package's
 export_to_torch_state_dict (mr_mt3_tpu/utils/checkpoint_import.py:138): it
 turns a JAX parameter tree, given as numpy arrays, into the port's
-state_dict, transposing Dense kernels (flax (in, out) -> torch (out, in)).
+state_dict, transposing Dense kernels (flax (in, out) -> torch (out, in));
+state_dict_shard_from_jax_params cuts it into one rank's shard of a model
+axis.
 """
 
 from __future__ import annotations
@@ -95,6 +97,26 @@ def state_dict_from_jax_params(params: Mapping[str, Any], cfg: MT3Config,
             continue
         value = np.asarray(node, np.float32)
         out[key] = torch.tensor(value.T if transpose else value)
+    return out
+
+
+def state_dict_shard_from_jax_params(params: Mapping[str, Any],
+                                     cfg: MT3Config, model: int, index: int,
+                                     partial: bool = False
+                                     ) -> Dict[str, torch.Tensor]:
+    """Rank `index`'s shard, on a model axis of `model` ranks, of the
+    state_dict state_dict_from_jax_params gives: each parameter that
+    parallel.param_shardings shards cut into `model` equal parts on its
+    dimension, the others whole (what a model sharded by
+    parallel/tensor.py::shard_model holds)."""
+    from mr_mt3_tpu_torch.parallel.mesh import param_shardings
+    plan = param_shardings(cfg, model)
+    out = {}
+    for key, value in state_dict_from_jax_params(params, cfg,
+                                                 partial).items():
+        dim = plan.get(key)
+        out[key] = (value if dim is None
+                    else value.chunk(model, dim=dim)[index].clone())
     return out
 
 

@@ -38,6 +38,7 @@ from tests.test_torch_int8_decode import (  # noqa: F401 (small: fixture)
     small,
 )
 from tests.test_torch_segmem import port_model
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 STEPS = 72               # past the JAX loop's first 64-position phase
 # fp32: each step's largest logit difference over its largest |logit|

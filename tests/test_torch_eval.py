@@ -431,11 +431,13 @@ class TestGetScores:
         assert not (tmp_path / 'out' / 'bad.mid').exists()
 
     def test_mesh_is_not_ported(self):
-        """The data axis of a mesh is ported (tests/test_torch_ddp.py,
-        tests/test_torch_mesh_decode.py); its model axis (tensor
-        parallelism) is not and raises, naming ROADMAP A9."""
+        """get_scores spans the data axis of a mesh (tests/test_torch_ddp.py,
+        tests/test_torch_mesh_decode.py); a model axis (tensor parallelism,
+        tests/test_torch_tensor_parallel.py) it does not take, as its
+        ranks transcribe different songs: it raises naming the model
+        axis, before any collective."""
         from mr_mt3_tpu_torch.parallel import Mesh
-        with pytest.raises(NotImplementedError, match='A9'):
+        with pytest.raises(ValueError, match='model axis'):
             port_scores.get_scores(model=_tiny_model(), eval_audio_dir=[],
                                    mesh=Mesh(('cpu',) * 2, model=2))
 

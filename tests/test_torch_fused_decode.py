@@ -32,6 +32,7 @@ from mr_mt3_tpu_torch.ops.int8_matmul import (
 from mr_mt3_tpu_torch.utils.checkpoint_import import state_dict_from_jax_params
 from tests.parity_common import VANILLA_CFG, load_golden, parity_corpus
 from tests.test_fused_decode import SMALL_CFG
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # K/V rows are bf16: two f32 sums in different orders may round one bf16
 # ulp (2^-8 relative) apart, and a flipped input moves the next layer's

@@ -30,6 +30,7 @@ from tests.test_torch_fused_decode import (  # noqa: F401 (fixture)
     codes,
     small,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # Logits against JAX, over the largest |logit|. Measured at SMALL_CFG, B 3,
 # one step at position 300 of a 512 cache filled from a numpy seed (two

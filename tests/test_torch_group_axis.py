@@ -29,6 +29,7 @@ from tests.test_torch_fused_decode import (
     assert_tokens_agree,
     codes,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # Against JAX over three chained 8-step windows at SMALL_CFG, B 16 (two
 # groups), chunk 8 (the third window reads two live chunks), seeds 0-2:

@@ -20,6 +20,7 @@ from tests.parity_common import (
     load_golden,
     parity_corpus,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope='module')
@@ -120,16 +121,19 @@ def test_transcribe_many_equals_per_song(golden, tmp_path):
 
 
 def test_unported_paths_raise(golden):
-    """A mesh's model axis (tensor parallelism, ROADMAP A9's second part)
-    is not ported; unknown tiers and segment-memory variants raise. (The
-    data axis is ported: tests/test_torch_mesh_decode.py; contiguous
-    inference and the segmem models: tests/test_torch_segmem.py.)"""
+    """Unknown tiers and segment-memory variants raise. A mesh's model
+    axis (tensor parallelism) is ported: it is a grid of ranks, so a
+    handler on one raises outside a process group, before it touches the
+    model (tests/test_torch_tensor_parallel.py decodes on two; the data
+    axis: tests/test_torch_mesh_decode.py; contiguous inference and the
+    segmem models: tests/test_torch_segmem.py)."""
     from mr_mt3_tpu_torch.parallel import Mesh, make_mesh
     _, _, model = golden
-    with pytest.raises(NotImplementedError, match='A9'):
+    with pytest.raises(RuntimeError, match='process group'):
         _handler(model, mesh=Mesh(('cpu', 'cpu'), model=2))
-    with pytest.raises(NotImplementedError, match='A9'):
-        make_mesh(data=1, model=2, devices=['cpu'] * 2)
+    assert model.tp is None
+    assert make_mesh(data=1, model=2, devices=['cpu'] * 2).shape == {
+        'data': 1, 'model': 2}
     with pytest.raises(ValueError, match='unknown segmem_variant'):
         MT3(MT3Config(segmem_variant='encoder_prepend'))
     with pytest.raises(ValueError, match='unknown quantize'):

@@ -37,6 +37,7 @@ from mr_mt3_tpu_torch.ops import int8_matmul as i8m
 from mr_mt3_tpu_torch.utils.checkpoint_import import state_dict_from_jax_params
 from tests.test_fused_decode import SMALL_CFG
 from tests.test_torch_segmem import SMALL_SEGMEM
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # (d_model, vocab, d_ff, heads, d_kv): SMALL_CFG and the parity models
 # (tests/parity_common.py:36)

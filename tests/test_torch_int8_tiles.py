@@ -40,6 +40,7 @@ import chip_smoke
 from mr_mt3_tpu_torch.models.mt3 import gelu_new
 from mr_mt3_tpu_torch.ops import int8_attention as i8a
 from mr_mt3_tpu_torch.ops import int8_matmul as i8m
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # csrc/int8_decode_attention.cu
 PG_POS = 16            # positions a position group

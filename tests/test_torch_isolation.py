@@ -67,8 +67,10 @@ NATIVE_AND_SCRIPT_MODULES = (
     'scripts/resample_slakh.py', 'scripts/instrument_leakage.py')
 
 
-# the data-parallel axis: meshes of per-card replicas, process groups
-PARALLEL_MODULES = ('parallel/__init__.py', 'parallel/mesh.py')
+# the data-parallel axis (meshes of per-card replicas, process groups) and
+# the model axis (tensor-parallel shards and their collectives)
+PARALLEL_MODULES = ('parallel/__init__.py', 'parallel/mesh.py',
+                    'parallel/tensor.py')
 
 
 # weights from the JAX side (Orbax, T5X) and the last host modules
@@ -297,7 +299,8 @@ def test_eval_cli_raises_without_a_card(no_card, tmp_path):
 
 def test_train_cli_raises_without_a_card(no_card):
     from mr_mt3_tpu_torch import train
-    for extra in ([], ['devices=2'], ['multihost=true']):
+    for extra in ([], ['devices=2'], ['multihost=true'],
+                  ['model_devices=2']):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(['--config-name=config_slakh_segmem',
                         'model=MT3NetSegMemV2WithPrev', 'dataset=SlakhPrev',

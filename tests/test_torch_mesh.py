@@ -30,8 +30,9 @@ from tests.test_torch_segmem import port_model
     (None, 1, 8), (4, 1, 8), (1, 1, 8), (8, 1, 8), (None, 1, 3),
     (9, 1, 8), (None, 3, 8), (5, 2, 8), (None, 2, 8), (2, 2, 8)])
 def test_make_mesh_equals_jax(data, model, n):
-    """The same data-axis size and devices, the same errors; a model axis
-    above 1, which JAX builds, raises NotImplementedError in the port."""
+    """The same axis sizes and devices, the same errors; a model axis above
+    1 builds a grid of data x model ranks (Mesh(model=2) builds without a
+    process group; its groups need one)."""
     try:
         want = jax_make_mesh(data=data, model=model,
                              devices=jax.devices()[:n])
@@ -40,13 +41,17 @@ def test_make_mesh_equals_jax(data, model, n):
             parallel.make_mesh(data=data, model=model, devices=['cpu'] * n)
         assert str(got.value) == str(e)
         return
-    if model > 1:
-        with pytest.raises(NotImplementedError, match='A9'):
-            parallel.make_mesh(data=data, model=model, devices=['cpu'] * n)
-        return
     got = parallel.make_mesh(data=data, model=model, devices=['cpu'] * n)
     assert {'data': got.n_data, 'model': got.model} == dict(want.shape)
-    assert got.devices == (torch.device('cpu'),) * want.shape['data']
+    assert got.shape == dict(want.shape)
+    assert got.devices == (torch.device('cpu'),) * want.size
+    if model > 1:
+        assert parallel.Mesh(('cpu',) * 2, model=2).shape == {'data': 1,
+                                                              'model': 2}
+        with pytest.raises(RuntimeError, match='process group'):
+            got.model_group()
+        with pytest.raises(ValueError, match='not divisible by model=2'):
+            parallel.Mesh(('cpu',) * 3, model=2)
 
 
 @pytest.mark.parametrize('value', [None, 0, -1, 1, 3, '2', [0, 1], [],

@@ -23,6 +23,7 @@ from mr_mt3_tpu_torch.infer import probe as probe_mod
 from mr_mt3_tpu_torch.models import MT3, MT3Config
 from mr_mt3_tpu_torch.utils.checkpoint_import import state_dict_from_jax_params
 from tests.test_inference import SMALL
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # teacher-forced logits of the two frameworks agree to ~1e-6 at this size
 # (both f32 on the CPU); margins are differences of two of them

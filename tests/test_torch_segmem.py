@@ -35,6 +35,7 @@ from tests.parity_common import (
     parity_corpus,
 )
 from tests.test_inference import SMALL
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # fp32 on both sides; the frameworks sum in other orders
 F32_RTOL = 1e-5

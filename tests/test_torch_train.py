@@ -31,6 +31,7 @@ from mr_mt3_tpu_torch.train.trainer import (
 from mr_mt3_tpu_torch.utils.checkpoint_import import (
     state_dict_from_jax_params,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 TINY = dict(vocab_size=1536, d_model=32, d_kv=8, d_ff=48, num_heads=4,
             num_encoder_layers=1, num_decoder_layers=1, mel_bins=512,

@@ -19,6 +19,7 @@ from mr_mt3_tpu.ops.train_attention import fused_attention as jax_fused
 from mr_mt3_tpu_torch.models import MT3, MT3Config
 from mr_mt3_tpu_torch.models import mt3 as mt3_mod
 from mr_mt3_tpu_torch.ops import train_attention as ta
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # bf16 outputs: the two sides sum in other orders, so a value near a bf16
 # rounding midpoint may round one ulp apart; a probability rounded apart

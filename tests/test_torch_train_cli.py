@@ -168,16 +168,13 @@ class TestRaises:
                                        'devices=[0,1]', 'model_devices=2'])
     def test_more_than_one_device_is_not_ported(self, corpus, tmp_path,
                                                 extra, monkeypatch):
-        """The data axis is ported: devices=2 (or two ids) with device=cpu
+        """Both axes are ported: devices=2 (or two ids) with device=cpu
         trains two gloo ranks, one process each, for the epoch's 2 steps,
-        rank 0 alone logging and writing; multihost=true without a
-        launcher's environment raises. The model axis (tensor
-        parallelism) is not ported and raises, naming ROADMAP A9."""
+        rank 0 alone logging and writing; so does model_devices=2, the two
+        ranks one model group holding the shards of one model (the mesh
+        printed as train.py prints it); multihost=true without a
+        launcher's environment raises."""
         argv = _argv(corpus, tmp_path, 'device=cpu', extra)
-        if extra == 'model_devices=2':
-            with pytest.raises(NotImplementedError, match='A9'):
-                main(argv)
-            return
         if extra == 'multihost=true':
             monkeypatch.delenv('WORLD_SIZE', raising=False)
             with pytest.raises(ValueError, match='WORLD_SIZE'):
@@ -199,6 +196,9 @@ class TestRaises:
                 proc.wait()
         assert proc.returncode == 0, out[-4000:]
         assert 'ranks 2' in out
+        mesh = ({'data': 1, 'model': 2} if extra == 'model_devices=2'
+                else {'data': 2, 'model': 1})
+        assert out.count(f'train mesh: {mesh}') == 1
         assert load_checkpoint(str(tmp_path / 'checkpoints' / 'final')
                                )['step'] == 2
         steps = [json.loads(ln)['step']
