@@ -1,0 +1,7 @@
+"""decode_mfu.serve: The real segments' model FLOPs over the traced window, percent of the bf16 peak."""
+
+from perfbench.readers import decode_mfu
+
+
+def read(ctx):
+    return decode_mfu(ctx)
